@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build the kernels, hold
 each against its plain PyTorch version, drive the domino-rally frame end to
-end at 1920x1080, time the bench-scale render, and print one JSON line per
-phase.
+end at 1920x1080, time the bench-scale render, drive 3DGS training (the
+bench-scale forward+backward step, and the Runner on a rich procedural
+COLMAP scene), and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -14,8 +15,10 @@ reports for the card's name and power limit.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -25,10 +28,16 @@ import tdgs_torch
 from tdgs_torch.main import default_camera
 from tdgs_torch.models.gaussians import rgb_to_sh
 from tdgs_torch.ops import _build
+from tdgs_torch.ops import segment_sum as S
 from tdgs_torch.ops.rasterize_packed import (
     KERNEL,
+    KERNEL_BWD,
     max_entries_per_tile,
     pixel_entry_evaluations,
+    rasterize_packed_bwd,
+    rasterize_packed_bwd_plain,
+    rasterize_packed_train_fwd,
+    rasterize_packed_train_fwd_plain,
     rasterize_to_pixels_packed_inference,
     rasterize_to_pixels_packed_inference_plain,
 )
@@ -43,11 +52,31 @@ from tdgs_torch.physics import (
     settle_on_ground,
 )
 from tdgs_torch.physics.bodies import BodyState, RigidBodies
-from tdgs_torch.utils.test_data import DOMINO_BACKGROUND, make_domino_scene_arrays
+from tdgs_torch.strategy import DefaultStrategy
+from tdgs_torch.training.config import Config
+from tdgs_torch.training.trainer import Runner
+from tdgs_torch.utils.test_data import (
+    DOMINO_BACKGROUND,
+    make_domino_scene_arrays,
+    make_rich_scene,
+)
 
 DEVICE = "cuda"
 WIDTH, HEIGHT = 1920, 1080
 TOL = 1e-3  # kernel vs plain version, absolute, colors and alphas
+BWD_RTOL = 1e-3  # kernel 2 vs plain: max|Δ| / max|plain| per gradient group
+SEG_RTOL = 1e-5  # kernel 3 vs plain: max|Δ| / max|plain|
+KERNELS = (KERNEL, KERNEL_BWD, S.KERNEL)
+
+
+
+def bwd_ops_per_eval(D):
+    """FP32 operations of one (pixel, entry) evaluation of the backward:
+    the forward's 21 + 2·D, then w (1), r (2·D), the prefix and suffix (3),
+    1/(1 − α) (1), v_alpha (5), v_sigma (2), the five geometry terms (16),
+    the opacity term (1), the colours (D), and one add per value into the
+    entry's sums (6 + D)."""
+    return 21 + 2 * D + 35 + 4 * D
 # H100 SXM published peaks: HBM bytes/s, FP32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -199,7 +228,7 @@ def parity(name, args, backgrounds=None, tile_capacity=1024):
 # ---------------------------------------------------------------------------
 
 
-def phase_parity(bench, rally):
+def phase_parity(bench, rally, heavy):
     errs = []
     args, _, _ = kernel_inputs(bench, max_tiles_per_gauss=16)
     errs.append(parity("a_bench_rgb", args))
@@ -207,7 +236,6 @@ def phase_parity(bench, rally):
     args_ed, bg4, _ = kernel_inputs(bench, render_mode="RGB+ED", backgrounds=bg,
                                     max_tiles_per_gauss=16)
     errs.append(parity("b_bench_rgb_ed_background", args_ed, backgrounds=bg4))
-    heavy = to_card(bench_scene(n=60_000, seed=1, scale_range=(0.05, 0.12)))
     args_h, _, _ = kernel_inputs(heavy, isect_exact=True)
     errs.append(parity("c_heavy_overlap_truncated", args_h, tile_capacity=128))
     args_d, _, _ = kernel_inputs(rally, isect_exact=True)
@@ -411,6 +439,271 @@ def phase_bench(bench, n_frames=20):
     return k
 
 
+
+# ---------------------------------------------------------------------------
+# training: kernels 2 and 3, the bench-scale step, the Runner
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+GROUPS = {"means2d": slice(0, 2), "conics": slice(2, 5), "opacities": slice(5, 6),
+          "colors": slice(6, None)}
+
+
+def train_parity(name, args, tile_capacity, seed):
+    """Kernel 1 (training use), kernel 2 and kernel 3 against their plain
+    versions on the same inputs; random cotangents. Fails above the
+    tolerances, or if two segment-sum launches differ in any bit."""
+    img, trans = rasterize_packed_train_fwd(*args, tile_capacity=tile_capacity)
+    img_p, trans_p = rasterize_packed_train_fwd_plain(*args, tile_capacity=tile_capacity)
+    fwd_err = max(float((img - img_p).abs().max()), float((trans - trans_p).abs().max()))
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    v_img = torch.randn(img.shape, generator=g, device=DEVICE)
+    v_t = torch.randn(trans.shape, generator=g, device=DEVICE)
+    rows = rasterize_packed_bwd(*args, img, trans, v_img, v_t, tile_capacity=tile_capacity)
+    rows_p = rasterize_packed_bwd_plain(*args, img, trans, v_img, v_t,
+                                        tile_capacity=tile_capacity)
+    bwd_rel = {k: _rel(rows[:, c], rows_p[:, c]) for k, c in GROUPS.items()}
+    bwd_abs = float((rows - rows_p).abs().max())
+    offsets, ids = args[7], args[8]
+    G = args[0].numel() // 2
+    sids, perm = S.sort_ids(ids, offsets[-1])
+    s1 = S.segment_rows_sum(rows, perm, sids, G, abs_cols=True)
+    s2 = S.segment_rows_sum(rows, perm, sids, G, abs_cols=True)
+    sp = S.segment_rows_sum_plain(rows, perm, sids, G, abs_cols=True)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(s1, s2))
+    seg_rel, seg_abs = _rel(s1, sp), float((s1 - sp).abs().max())
+    counts = torch.diff(offsets.long())
+    emit("train_parity", case=name, tile_capacity=tile_capacity,
+         n_isects=int(counts.sum()), tiles_cut=int(
+             (counts > max_entries_per_tile(tile_capacity)).sum()),
+         fwd_max_abs_err=fwd_err, bwd_max_rel_err=bwd_rel, bwd_max_abs_err=bwd_abs,
+         bwd_rtol=BWD_RTOL, segsum_max_rel_err=seg_rel, segsum_max_abs_err=seg_abs,
+         segsum_rtol=SEG_RTOL, segsum_bitwise_equal=bitwise,
+         finite=bool(torch.isfinite(rows).all()))
+    if not fwd_err <= TOL:
+        raise RuntimeError(f"train_parity {name}: forward err {fwd_err} > {TOL}")
+    if not bool(torch.isfinite(rows).all()) or not max(bwd_rel.values()) <= BWD_RTOL:
+        raise RuntimeError(f"train_parity {name}: backward {bwd_rel} > {BWD_RTOL}")
+    if not seg_rel <= SEG_RTOL or not bitwise:
+        raise RuntimeError(f"train_parity {name}: segment sum {seg_rel}, bitwise {bitwise}")
+    return dict(fwd_err=fwd_err, bwd_abs=bwd_abs, seg_abs=seg_abs,
+                inputs=(args, img, trans, v_img, v_t, rows))
+
+
+def phase_train_parity(bench, heavy, cap):
+    """Kernels 2 and 3 at the training path's bench shapes (200k gaussians,
+    K = 16, its stream capacity) and on a case whose tiles overflow
+    tile_capacity = 128."""
+    args, _, _ = kernel_inputs(bench, max_tiles_per_gauss=16, isect_capacity=cap)
+    a = train_parity("a_bench", args, 1024, seed=1)
+    args_h, _, _ = kernel_inputs(heavy, isect_exact=True)
+    b = train_parity("b_heavy_overlap_truncated", args_h, 128, seed=2)
+    errs = dict(fwd=max(a["fwd_err"], b["fwd_err"]), bwd=max(a["bwd_abs"], b["bwd_abs"]),
+                seg=max(a["seg_abs"], b["seg_abs"]))
+    return errs, a["inputs"]
+
+
+def measure_train_kernels(inputs, reps=20):
+    """Times of kernels 1 (training call), 2 and 3 at the bench shapes, with
+    their plain versions', their bounds, and index_add_ as the segment
+    sum's library yardstick."""
+    args, img, trans, v_img, v_t, rows = inputs
+    tc = 1024
+    D = args[2].shape[-1]
+    offsets, ids = args[7], args[8]
+    G = args[0].numel() // 2
+    n_isects = int(offsets[-1])
+    L = ids.shape[0]
+    fwd = kernel_work(args, tc)
+
+    fwd_ms = time_ms(lambda: rasterize_packed_train_fwd(*args, tile_capacity=tc), reps)
+    fwd_plain = time_ms(lambda: rasterize_packed_train_fwd_plain(*args, tile_capacity=tc), 2)
+
+    bwd_ms = time_ms(lambda: rasterize_packed_bwd(*args, img, trans, v_img, v_t,
+                                                  tile_capacity=tc), reps)
+    bwd_plain = time_ms(lambda: rasterize_packed_bwd_plain(*args, img, trans, v_img, v_t,
+                                                           tile_capacity=tc), 1)
+    n_pix = img.numel() // D
+    # each input read once: the rows the cut ranges name, ids, offsets and
+    # per pixel the forward's colours and T with their cotangents; the
+    # [L, 6 + D] rows written once
+    bwd_bytes = (fwd["rows"] * (6 + D) * 4 + fwd["entries"] * 4 + offsets.numel() * 4
+                 + n_pix * (2 * D + 2) * 4 + L * (6 + D) * 4)
+    bwd_ops = fwd["evaluations"] * bwd_ops_per_eval(D)
+    t_b, t_o = bwd_bytes / PEAK_BYTES * 1e3, bwd_ops / PEAK_FP32 * 1e3
+
+    F = 6 + D
+    sids, perm = S.sort_ids(ids, offsets[-1])
+    seg_ms = time_ms(lambda: S.segment_rows_sum(rows, perm, sids, G), reps)
+    seg_plain = time_ms(lambda: S.segment_rows_sum_plain(rows, perm, sids, G), 3)
+    valid_ids = ids[:n_isects].long()
+    valid_rows = rows[:n_isects]
+    lib_ms = time_ms(lambda: torch.zeros((G, F), device=DEVICE).index_add_(
+        0, valid_ids, valid_rows), reps)
+    # sorted id and permutation (4 bytes each) with each row, read once;
+    # the per-gaussian sums written once
+    seg_bytes = n_isects * (F + 2) * 4 + G * F * 4
+    seg_b, seg_o = seg_bytes / PEAK_BYTES * 1e3, n_isects * F / PEAK_FP32 * 1e3
+    out = {
+        KERNEL: dict(ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd["bound_ms"],
+                     bound_by=fwd["bound_by"], library_ms=None,
+                     evaluations=fwd["evaluations"], bytes=fwd["bytes"]),
+        KERNEL_BWD: dict(ms=bwd_ms, plain_ms=bwd_plain, bound_ms=max(t_b, t_o),
+                         bound_by="bytes" if t_b >= t_o else "operations",
+                         library_ms=None, evaluations=fwd["evaluations"],
+                         bytes=bwd_bytes, fp32_ops=bwd_ops),
+        S.KERNEL: dict(ms=seg_ms, plain_ms=seg_plain, bound_ms=max(seg_b, seg_o),
+                       bound_by="bytes" if seg_b >= seg_o else "operations",
+                       library_ms=lib_ms, entries=n_isects, rows_out=G, bytes=seg_bytes),
+    }
+    emit("train_kernels", n_isects=n_isects, stream_slots=L, n_gaussians=G, **out)
+    return out
+
+
+def bench_capacity(bench):
+    """The training path's stream capacity: this scene's intersections with
+    25% headroom (the role of derive_isect_capacity in the JAX package's
+    bench.py)."""
+    _, _, meta = tdgs_torch.rasterization(
+        bench["means"], bench["quats"], bench["scales"], bench["opacities"],
+        bench["sh"], bench["viewmats"], bench["Ks"], WIDTH, HEIGHT, sh_degree=3,
+        tile_capacity=1024, max_tiles_per_gauss=16, device=DEVICE)
+    return int(meta["n_isects"] * 1.25)
+
+
+def phase_render_train(bench, cap, n_steps=20):
+    """The JAX package's bench.py 3DGS training step (bench.py:236-282) on
+    the port: loss = img.mean() + alpha.mean() through rasterization(
+    rasterizer="packed"), gradients w.r.t. means, quats, scales, opacities
+    and SH, 20 steps at 1920x1080 with 200k gaussians."""
+    names = ("means", "quats", "scales", "opacities", "sh")
+    leaves = [bench[k].clone().requires_grad_(True) for k in names]
+    box = {}
+
+    def forward(i, cap):
+        m, q, sc, op, sh = leaves
+        img, alpha, meta = tdgs_torch.rasterization(
+            m, q, sc, op * (1.0 + 1e-5 * i), sh, bench["viewmats"], bench["Ks"],
+            WIDTH, HEIGHT, sh_degree=3, rasterizer="packed", tile_capacity=1024,
+            max_tiles_per_gauss=16, isect_capacity=cap, device=DEVICE)
+        box["meta"] = meta
+        return img.mean() + alpha.mean()
+
+    def step(i, cap):
+        loss = forward(i, cap)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss, grads
+
+    step(0, cap)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    ev = []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss, grads = step(i, cap)
+        e1.record()
+        ev.append((e0, e1))
+        finite &= torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+
+    # one step traced in its two halves
+    holder = {}
+
+    def fwd_only():
+        holder["loss"] = forward(0, cap)
+
+    def bwd_only():
+        torch.autograd.grad(holder["loss"], leaves)
+
+    fwd_trace = traced(fwd_only)
+    bwd_trace = traced(bwd_only)
+    emit("render_train", steps=n_steps, width=WIDTH, height=HEIGHT,
+         n_gaussians=int(leaves[0].shape[0]), isect_capacity=cap,
+         n_isects=box["meta"]["n_isects"], n_dropped=box["meta"]["n_dropped"],
+         fps=n_steps / wall, wall_s=wall, step_ms_mean=float(np.mean(step_ms)),
+         step_ms_p50=float(np.percentile(step_ms, 50)), launches=launches,
+         all_finite=bool(finite), traced_forward=fwd_trace, traced_backward=bwd_trace)
+    if not bool(finite):
+        raise RuntimeError("render_train: non-finite loss or gradient")
+    for k in KERNELS:
+        if launches[k] < n_steps:
+            raise RuntimeError(f"render_train launched {k} {launches[k]} < {n_steps} times")
+    return launches
+
+
+def phase_trainer(n_steps=100, scene_kw=None):
+    """The port's Runner on make_rich_scene at the JAX package's defaults
+    (40 images of 1236x822, 150k ground-truth gaussians, 40k SfM points,
+    seed 11): packed rasterizer, SH 3, DefaultStrategy refining at steps 40
+    and 80, eval on the test views at the end."""
+    root = tempfile.mkdtemp(prefix="tdgs_rich_scene_")
+    try:
+        t0 = time.perf_counter()
+        make_rich_scene(root, device=DEVICE, **(scene_kw or {}))
+        scene_s = time.perf_counter() - t0
+        cfg = Config(
+            data_dir=root, result_dir=f"{root}/results", data_factor=1,
+            max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
+            sh_degree_interval=20, rasterizer="packed", tb_every=5,
+            strategy=DefaultStrategy(refine_start_iter=20, refine_every=40,
+                                     refine_stop_iter=1000, reset_every=10_000),
+        )
+        runner = Runner(cfg, device=DEVICE)
+        from tdgs_torch.models.gaussians import alive_mask
+
+        alive0 = int(alive_mask(runner.splats).sum())
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+        stats = runner.eval(n_steps)
+        hist = out["history"]
+        # one more step, split: the batch's decode on the host, then the
+        # step itself traced (it changes the splats after the eval above)
+        t1 = time.perf_counter()
+        batch = runner._batch([0])
+        data_ms = (time.perf_counter() - t1) * 1e3
+        step_trace = traced(lambda: runner.train_step(batch, n_steps + 1, cfg.sh_degree))
+        finite = all(bool(torch.isfinite(v).all()) for v in runner.splats.values())
+        finite = finite and all(np.isfinite([h["loss"] for h in hist]))
+        finite = finite and np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
+        emit("trainer", steps=n_steps, scene_s=scene_s, train_images=len(runner.trainset),
+             test_images=len(runner.valset), width=int(runner.parser.imsize_dict[1][0]),
+             height=int(runner.parser.imsize_dict[1][1]), capacity=runner.capacity,
+             alive_init=alive0, steps_per_s=n_steps / wall, wall_s=wall,
+             loss_first=hist[0], loss_last=hist[-1], refines=runner.refines,
+             launches=launches, eval_psnr=stats["psnr"], eval_ssim=stats["ssim"],
+             eval_num_gs=stats["num_GS"], all_finite=bool(finite),
+             data_ms_per_step=data_ms, traced_step=step_trace)
+        refined = [r["step"] for r in runner.refines]
+        if not hist[-1]["loss"] < hist[0]["loss"]:
+            raise RuntimeError(f"trainer: loss did not drop {hist[0]} -> {hist[-1]}")
+        if 40 not in refined or 80 not in refined:
+            raise RuntimeError(f"trainer: strategy refined at {refined}, not 40 and 80")
+        if not finite:
+            raise RuntimeError("trainer: non-finite params, loss or eval")
+        for k in KERNELS:
+            if launches[k] < n_steps:
+                raise RuntimeError(f"trainer launched {k} {launches[k]} < {n_steps} times")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -426,30 +719,47 @@ def main():
 
     bench = to_card(bench_scene())
     rally = to_card(rally_scene())
-    max_err = phase_parity(bench, rally)
+    heavy = to_card(bench_scene(n=60_000, seed=1, scale_range=(0.05, 0.12)))
+    max_err = phase_parity(bench, rally, heavy)
 
-    launches, rally_args, rally_bg = phase_rally(rally)
+    rally_launches, rally_args, rally_bg = phase_rally(rally)
     k_rally = measure_kernel(rally_args, backgrounds=rally_bg)
     emit("kernel_rally_shape", **k_rally)
     k_bench = phase_bench(bench)
 
-    kernels = {"kernels": [{
-        "name": KERNEL,
-        "route": "cuda",
-        "source": "tdgs_torch/csrc/rasterize_packed_fwd.cu",
-        "replaces": "tdgs/ops/rasterize_pallas_packed.py:322",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_rally["ms"],
-        "kernel_ms": k_rally["ms"],
-        "plain_ms": k_rally["plain_ms"],
-        "bound_ms": k_rally["bound_ms"],
-        "bound_by": k_rally["bound_by"],
-        "library_ms": None,
-        "bench_ms": k_bench["ms"],
-        "bench_plain_ms": k_bench["plain_ms"],
-        "bench_bound_ms": k_bench["bound_ms"],
-    }]}
+    cap = bench_capacity(bench)
+    train_errs, train_inputs = phase_train_parity(bench, heavy, cap)
+    train_launches = phase_render_train(bench, cap)
+    trainer_launches = phase_trainer()
+    k_train = measure_train_kernels(train_inputs)
+
+    sources = {
+        KERNEL: ("tdgs_torch/csrc/rasterize_packed_fwd.cu",
+                 "tdgs/ops/rasterize_pallas_packed.py:322",
+                 max(max_err, train_errs["fwd"])),
+        KERNEL_BWD: ("tdgs_torch/csrc/rasterize_packed_bwd.cu",
+                     "tdgs/ops/rasterize_pallas_packed.py:645", train_errs["bwd"]),
+        S.KERNEL: ("tdgs_torch/csrc/segment_sum.cu",
+                   "tdgs/ops/segment_sum_pallas.py:48", train_errs["seg"]),
+    }
+    kernels = {"kernels": []}
+    for name, (src, replaces, err) in sources.items():
+        k = k_train[name]
+        entry = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            # launches in the training path's run (render_train); the
+            # trainer's and the rally's runs beside them
+            "launches": train_launches[name], "max_abs_err": err,
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "trainer_launches": trainer_launches[name],
+        }
+        if name == KERNEL:
+            entry.update(rally_launches=rally_launches, rally_ms=k_rally["ms"],
+                         rally_plain_ms=k_rally["plain_ms"],
+                         rally_bound_ms=k_rally["bound_ms"],
+                         bench_render_ms=k_bench["ms"])
+        kernels["kernels"].append(entry)
     print(json.dumps(kernels), flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {

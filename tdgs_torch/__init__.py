@@ -1,8 +1,9 @@
 """tdgs_torch — the PyTorch/CUDA port of tdgs for NVIDIA Hopper.
 
 The JAX package ``tdgs`` stays the reference; this package mirrors its
-layout (``ops/``, ``physics/``, ``models/``, ``utils/``, ``rendering.py``,
-``pipeline.py``) and never imports it or JAX. Plain tensor code is
+layout (``ops/``, ``physics/``, ``models/``, ``strategy/``, ``training/``,
+``datasets/``, ``utils/``, ``rendering.py``, ``pipeline.py``) and never
+imports it or JAX. Plain tensor code is
 PyTorch; each Pallas kernel of the JAX package becomes a hand-written CUDA
 kernel under ``csrc/``, built by ``nvcc`` on first use.
 
@@ -22,6 +23,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from tdgs_torch.ops.projection import fully_fused_projection  # noqa: E402
 from tdgs_torch.ops.rasterize_packed import (  # noqa: E402
+    rasterize_to_pixels_packed,
     rasterize_to_pixels_packed_inference,
     rasterize_to_pixels_packed_inference_plain,
 )
@@ -44,6 +46,7 @@ __all__ = [
     "fully_fused_projection",
     "quat_scale_to_covar_preci",
     "quat_to_rotmat",
+    "rasterize_to_pixels_packed",
     "rasterize_to_pixels_packed_inference",
     "rasterize_to_pixels_packed_inference_plain",
     "world_to_cam",

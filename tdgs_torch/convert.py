@@ -1,8 +1,13 @@
-"""Carry the JAX package's parameters across to the port.
+"""Carry the JAX package's parameters and training state across to the
+port, and back.
 
 Each function takes arrays as numpy gives them (``np.asarray`` of the JAX
-pytrees works on the arrays directly) and returns the port's float32
-tensors on ``device``. Nothing here imports JAX.
+pytrees works on the arrays directly) and returns the port's tensors on
+``device``; the ``*_to_numpy`` functions go the other way. Training state
+is the JAX ``Runner``'s: ``splats``, the Adam moments ``opt_state`` (``mu``
+and ``nu``, or a selective-Adam ``count``/``exp_avg``/``exp_avg_sq``) and
+the DefaultStrategy's ``grad2d``/``count``/``radii_norm``. Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -13,7 +18,9 @@ import numpy as np
 import torch
 
 from tdgs_torch._device import DeviceLike, resolve_device
+from tdgs_torch.ops.adam import SelectiveAdamState
 from tdgs_torch.physics.bodies import BodyState, RigidBodies
+from tdgs_torch.strategy.ops import tree_map
 
 
 def _field(obj: Any, name: str):
@@ -41,3 +48,52 @@ def state_from_numpy(state: Any, device: DeviceLike = None) -> BodyState:
     """Any object or mapping with the BodyState fields (x, q, v, w)."""
     dev = resolve_device(device)
     return BodyState(*[_tensor(_field(state, f), dev) for f in BodyState._fields])
+
+
+def tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """Nested dicts/lists of arrays → the same nesting of tensors on
+    ``device`` (floating arrays as float32, integer arrays keep their
+    type); Python scalars stay as they are."""
+    dev = resolve_device(device)
+
+    def f(x):
+        if isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__"):
+            a = np.asarray(x)
+            if a.dtype.kind == "f":
+                a = a.astype(np.float32)
+            return torch.as_tensor(np.array(a), device=dev)
+        return x
+
+    return tree_map(f, tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The inverse of ``tree_from_numpy``: tensors → numpy arrays."""
+    return tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x,
+                    tree)
+
+
+def runner_state_from_numpy(state: Mapping[str, Any], device: DeviceLike = None) -> Dict:
+    """A Runner's state with the JAX package's checkpoint keys (``step``,
+    ``splats``, ``opt_state``, ``strategy_state``) as numpy → tensors, ready
+    for ``tdgs_torch.training.trainer.Runner.load_state_numpy``."""
+    out = {k: tree_from_numpy(dict(state[k]), device)
+           for k in ("splats", "opt_state", "strategy_state")}
+    out["step"] = int(state["step"])
+    return out
+
+
+def runner_state_to_numpy(state: Mapping[str, Any]) -> Dict:
+    out = {k: tree_to_numpy(state[k]) for k in ("splats", "opt_state", "strategy_state")}
+    out["step"] = int(state["step"])
+    return out
+
+
+def adam_state_from_numpy(state: Any, device: DeviceLike = None) -> SelectiveAdamState:
+    """The JAX package's ``SelectiveAdamState`` (count, exp_avg,
+    exp_avg_sq), or any object or mapping with those fields."""
+    return SelectiveAdamState(
+        int(np.asarray(_field(state, "count"))),
+        tree_from_numpy(dict(_field(state, "exp_avg")), device),
+        tree_from_numpy(dict(_field(state, "exp_avg_sq")), device),
+    )

@@ -10,7 +10,10 @@
 //   entry k is included iff prod_{j<=k} (1 - alpha_j) > 1e-4
 //   color += alpha T_prev c_k over included entries; T_out = prod (1 - alpha)
 // Outputs: colors [I, H, W, D] with `backgrounds` blended as
-// img + (1 - alpha) bg, and alphas = 1 - T_out [I, H, W].
+// img + (1 - alpha) bg, and alphas = 1 - T_out [I, H, W]. The training call
+// (`write_transmittance`, as `_raster_unaligned_fwd` :871 feeds the
+// backward) writes T_out itself in place of the alphas: 1 - T loses the
+// relative precision the backward needs where T is small.
 //
 // What bounds it on the H100: the (pixel, entry) evaluations -- a few FP32
 // FMAs, one expf and D colour FMAs each -- against the FP32 and SFU rates;
@@ -49,7 +52,7 @@ __global__ void rasterize_packed_fwd_kernel(
     float* __restrict__ out_colors,         // [I, H, W, D]
     float* __restrict__ out_alphas,         // [I, H, W]
     int width, int height, int tile_size, int tile_width,
-    int tiles_per_image, int D, int max_entries) {
+    int tiles_per_image, int D, int max_entries, int write_transmittance) {
   extern __shared__ float4 smem_raw[];
   const int block = blockDim.x;
   float2* s_xy = reinterpret_cast<float2*>(smem_raw);        // [block]
@@ -125,7 +128,7 @@ __global__ void rasterize_packed_fwd_kernel(
   if (!inside) return;
   const int64_t pix = (static_cast<int64_t>(image) * height + py) * width + px;
   const float alpha_out = 1.f - T;
-  out_alphas[pix] = alpha_out;
+  out_alphas[pix] = write_transmittance ? T : alpha_out;
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) {
     if (c < D) {
@@ -143,7 +146,8 @@ cudaError_t launch(const float* means2d, const float* conics,
                    const float* backgrounds, float* out_colors,
                    float* out_alphas, int n_tiles, int width, int height,
                    int tile_size, int tile_width, int tiles_per_image, int D,
-                   int max_entries, cudaStream_t stream) {
+                   int max_entries, int write_transmittance,
+                   cudaStream_t stream) {
   const int block = tile_size * tile_size;
   const size_t smem = static_cast<size_t>(block) * (6 + D) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -155,19 +159,21 @@ cudaError_t launch(const float* means2d, const float* conics,
   rasterize_packed_fwd_kernel<CMAX><<<n_tiles, block, smem, stream>>>(
       means2d, conics, opacities, colors, offsets, flatten_ids, backgrounds,
       out_colors, out_alphas, width, height, tile_size, tile_width,
-      tiles_per_image, D, max_entries);
+      tiles_per_image, D, max_entries, write_transmittance);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success). `backgrounds` may be null.
+// Returns a cudaError_t (0 on success). `backgrounds` may be null;
+// `write_transmittance` != 0 writes T_out into `out_alphas`.
 extern "C" int tdgs_rasterize_packed_fwd(
     const float* means2d, const float* conics, const float* opacities,
     const float* colors, const int32_t* offsets, const int32_t* flatten_ids,
     const float* backgrounds, float* out_colors, float* out_alphas,
     int n_images, int width, int height, int tile_size, int tile_width,
-    int tile_height, int D, int max_entries, void* stream) {
+    int tile_height, int D, int max_entries, int write_transmittance,
+    void* stream) {
   const int tiles_per_image = tile_width * tile_height;
   const int n_tiles = n_images * tiles_per_image;
   if (tile_size <= 0 || tile_size * tile_size > 1024 || D <= 0 || D > 32) {
@@ -178,7 +184,8 @@ extern "C" int tdgs_rasterize_packed_fwd(
 #define TDGS_LAUNCH(CM)                                                      \
   launch<CM>(means2d, conics, opacities, colors, offsets, flatten_ids,       \
              backgrounds, out_colors, out_alphas, n_tiles, width, height,    \
-             tile_size, tile_width, tiles_per_image, D, max_entries, s)
+             tile_size, tile_width, tiles_per_image, D, max_entries,         \
+             write_transmittance, s)
   cudaError_t err;
   if (D <= 4) {
     err = TDGS_LAUNCH(4);

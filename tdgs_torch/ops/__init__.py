@@ -1,2 +1,2 @@
-"""Ops of the port: transforms, projection, SH, tiling and the packed
-rasterizer with its CUDA kernel."""
+"""Ops of the port: transforms, projection, SH, tiling, selective Adam, and
+the packed rasterizer and segment sum with their CUDA kernels."""

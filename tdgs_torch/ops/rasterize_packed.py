@@ -1,9 +1,12 @@
-"""Forward-only packed-stream rasterization (port of
-``tdgs/ops/rasterize_pallas_packed.py:447 rasterize_to_pixels_packed_inference``).
+"""Packed-stream rasterization (port of
+``tdgs/ops/rasterize_pallas_packed.py``): the forward-only
+``rasterize_to_pixels_packed_inference`` (:447) and the differentiable
+``rasterize_to_pixels_packed`` (:223).
 
-The per-tile compositing runs in a hand-written CUDA kernel
-(``tdgs_torch/csrc/rasterize_packed_fwd.cu``) for CUDA tensors, and in the
-plain PyTorch version below for CPU tensors. Both read the sorted stream
+The per-tile compositing runs in hand-written CUDA kernels
+(``tdgs_torch/csrc/rasterize_packed_fwd.cu``, and
+``rasterize_packed_bwd.cu`` for the gradients) for CUDA tensors, and in the
+plain PyTorch versions below for CPU tensors. Both read the sorted stream
 as the TPU kernel does: tile t owns ``offsets[t]..offsets[t+1]`` of
 ``flatten_ids``, cut to ``max(tile_capacity // 128, 1) * 128`` entries.
 Alpha clamp 0.999, 1/255 skip, and entry k is included iff the raw
@@ -20,11 +23,13 @@ import torch
 
 from tdgs_torch.ops import _build
 from tdgs_torch.ops.projection import ALPHA_THRESHOLD
+from tdgs_torch.ops.segment_sum import segment_rows_sum, sort_ids
 
 ALPHA_CLAMP = 0.999
 TRANSMITTANCE_EPS = 1e-4
 CHUNK = 128
 KERNEL = "rasterize_packed_fwd"
+KERNEL_BWD = "rasterize_packed_bwd"
 MAX_CHANNELS = 32
 
 
@@ -177,12 +182,75 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _load_kernel():
+def _load_fwd():
     lib = _build.load(KERNEL)
     fn = lib.tdgs_rasterize_packed_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _load_bwd():
+    lib = _build.load(KERNEL_BWD)
+    fn = lib.tdgs_rasterize_packed_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                   + [ctypes.c_int64, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_stream(means2d, conics, colors, opacities, image_width, image_height,
+                  tile_size, offsets, flatten_ids):
+    """Checks the kernels' common inputs; returns the dims."""
+    device = means2d.device
+    image_dims, I, N, D, tw, th = _dims(
+        means2d, colors, image_width, image_height, tile_size
+    )
+    _check("means2d", means2d, torch.float32, device, image_dims + (N, 2))
+    _check("conics", conics, torch.float32, device, image_dims + (N, 3))
+    _check("colors", colors, torch.float32, device, image_dims + (N, D))
+    _check("opacities", opacities, torch.float32, device, image_dims + (N,))
+    _check("offsets", offsets, torch.int32, device, (I * tw * th + 1,))
+    _check("flatten_ids", flatten_ids, torch.int32, device)
+    if not 1 <= D <= MAX_CHANNELS:
+        raise ValueError(f"colors: 1..{MAX_CHANNELS} channels supported, got {D}")
+    if not 1 <= tile_size * tile_size <= 1024 or (tile_size * tile_size) % 32:
+        raise ValueError(f"tile_size {tile_size}: one thread per pixel, whole "
+                         "warps, at most 1024")
+    return image_dims, I, N, D, tw, th
+
+
+def _launch_fwd(means2d, conics, colors, opacities, image_width, image_height,
+                tile_size, offsets, flatten_ids, backgrounds, tile_capacity,
+                write_transmittance):
+    """Kernel 1 on CUDA tensors → (colors [I, H, W, D], alphas or, with
+    ``write_transmittance``, T [I, H, W, 1])."""
+    device = means2d.device
+    image_dims, I, N, D, tw, th = _check_stream(
+        means2d, conics, colors, opacities, image_width, image_height,
+        tile_size, offsets, flatten_ids,
+    )
+    if backgrounds is not None:
+        _check("backgrounds", backgrounds, torch.float32, device, image_dims + (D,))
+    out_c = torch.empty((I, image_height, image_width, D), dtype=torch.float32,
+                        device=device)
+    out_a = torch.empty((I, image_height, image_width, 1), dtype=torch.float32,
+                        device=device)
+    fn = _load_fwd()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(),
+            colors.data_ptr(), offsets.data_ptr(), flatten_ids.data_ptr(),
+            None if backgrounds is None else backgrounds.data_ptr(),
+            out_c.data_ptr(), out_a.data_ptr(),
+            I, image_width, image_height, tile_size, tw, th, D,
+            max_entries_per_tile(tile_capacity), int(write_transmittance), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{KERNEL}: CUDA launch failed with cudaError_t {err}")
+    _build.count_launch(KERNEL)
+    return out_c, out_a
 
 
 def rasterize_to_pixels_packed_inference(
@@ -212,39 +280,278 @@ def rasterize_to_pixels_packed_inference(
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    image_dims = tuple(means2d.shape[:-2])
+    out_c, out_a = _launch_fwd(
+        means2d, conics, colors, opacities, image_width, image_height,
+        tile_size, offsets, flatten_ids, backgrounds, tile_capacity, False,
+    )
+    H, W, D = image_height, image_width, colors.shape[-1]
+    return out_c.reshape(image_dims + (H, W, D)), out_a.reshape(image_dims + (H, W, 1))
+
+
+# ---------------------------------------------------------------------------
+# Training: kernel 1 (forward) and kernel 2 (backward) behind autograd
+# ---------------------------------------------------------------------------
+
+
+def rasterize_packed_train_fwd_plain(
+    means2d, conics, colors, opacities, image_width, image_height, tile_size,
+    offsets, flatten_ids, tile_capacity: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the training forward: (colors [I, H, W, D]
+    without background, final transmittance T [I, H, W])."""
+    img, trans, _ = _plain_composite(
+        means2d, conics, colors, opacities, image_width, image_height,
+        tile_size, offsets, flatten_ids, tile_capacity,
+    )
+    return img, trans
+
+
+def rasterize_packed_train_fwd(
+    means2d, conics, colors, opacities, image_width, image_height, tile_size,
+    offsets, flatten_ids, tile_capacity: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward → (colors [I, H, W, D] without background, T
+    [I, H, W]). CUDA tensors launch kernel 1 with the transmittance output
+    (or raise); CPU tensors take the plain version."""
+    device = means2d.device
+    if device.type == "cpu":
+        return rasterize_packed_train_fwd_plain(
+            means2d, conics, colors, opacities, image_width, image_height,
+            tile_size, offsets, flatten_ids, tile_capacity,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out_c, out_t = _launch_fwd(
+        means2d, conics, colors, opacities, image_width, image_height,
+        tile_size, offsets, flatten_ids, None, tile_capacity, True,
+    )
+    return out_c, out_t[..., 0]
+
+
+def _tile_pixels(values, I, tw, th, tile_size):
+    """Per-pixel values [I, H, W, C] → tile-major [T, P, C], zero outside
+    the image."""
+    H, W, C = values.shape[1:]
+    pad = values.new_zeros((I, th * tile_size, tw * tile_size, C))
+    pad[:, :H, :W] = values
+    blocks = pad.reshape(I, th, tile_size, tw, tile_size, C).permute(0, 1, 3, 2, 4, 5)
+    return blocks.reshape(I * th * tw, tile_size * tile_size, C)
+
+
+def rasterize_packed_bwd_plain(
+    means2d, conics, colors, opacities, image_width, image_height, tile_size,
+    offsets, flatten_ids, out_colors, out_T, v_colors, v_T,
+    tile_capacity: int = 1024, budget: int = 1 << 22,
+) -> torch.Tensor:
+    """The plain version of kernel 2: per-entry gradient rows [L, 6 + D] in
+    stream order, ``[d mx, d my, d a, d b, d c, d op, d colors]`` summed over
+    each entry's tile, zero for entries past the cut, past the cutoff or
+    past offsets[-1]. ``out_colors``/``out_T`` are the training forward's
+    outputs, ``v_colors``/``v_T`` their cotangents."""
     image_dims, I, N, D, tw, th = _dims(
         means2d, colors, image_width, image_height, tile_size
     )
-    _check("means2d", means2d, torch.float32, device, image_dims + (N, 2))
-    _check("conics", conics, torch.float32, device, image_dims + (N, 3))
-    _check("colors", colors, torch.float32, device, image_dims + (N, D))
-    _check("opacities", opacities, torch.float32, device, image_dims + (N,))
-    _check("offsets", offsets, torch.int32, device, (I * tw * th + 1,))
-    _check("flatten_ids", flatten_ids, torch.int32, device)
-    if backgrounds is not None:
-        _check("backgrounds", backgrounds, torch.float32, device, image_dims + (D,))
-    if not 1 <= D <= MAX_CHANNELS:
-        raise ValueError(f"colors: 1..{MAX_CHANNELS} channels supported, got {D}")
-    if not 1 <= tile_size * tile_size <= 1024:
-        raise ValueError(f"tile_size {tile_size}: one thread per pixel needs ≤ 1024")
+    device = means2d.device
+    P = tile_size * tile_size
+    T_total = I * tw * th
+    m2 = means2d.reshape(I * N, 2)
+    con = conics.reshape(I * N, 3)
+    op = opacities.reshape(I * N)
+    col = colors.reshape(I * N, D)
+    fids = flatten_ids.to(torch.int64)
+    F = 6 + D
 
-    out_c = torch.empty((I, image_height, image_width, D), dtype=torch.float32,
-                        device=device)
-    out_a = torch.empty((I, image_height, image_width, 1), dtype=torch.float32,
-                        device=device)
-    fn = _load_kernel()
+    # per-pixel inputs, tile-major; pixels outside the image contribute 0
+    vcol_img = v_colors.reshape(I, image_height, image_width, D)
+    totq_img = (vcol_img * out_colors.reshape(I, image_height, image_width, D)).sum(
+        -1, keepdim=True)
+    va_img = (-v_T * out_T).reshape(I, image_height, image_width, 1)
+    vcol_t, totq_t, va_t = (_tile_pixels(x, I, tw, th, tile_size)
+                            for x in (vcol_img, totq_img, va_img))
+
+    offs = offsets.to(torch.int64)
+    starts = offs[:-1]
+    counts = torch.clamp(offs[1:] - starts, 0, max_entries_per_tile(tile_capacity))
+    p = torch.arange(P, device=device)
+    pxl = (p % tile_size).to(torch.float32) + 0.5
+    pyl = (p // tile_size).to(torch.float32) + 0.5
+
+    v_rows = torch.zeros((flatten_ids.shape[0], F), dtype=torch.float32, device=device)
+    L_all = int(counts.max()) if T_total else 0
+    chunk = max(1, budget // (P * max(L_all, 1)))
+    for t0 in range(0, T_total, chunk):
+        tt = torch.arange(t0, min(t0 + chunk, T_total), device=device)
+        cnt = counts[tt]
+        L = int(cnt.max())
+        if L == 0:
+            continue
+        lane = torch.arange(L, device=device)
+        valid = lane[None, :] < cnt[:, None]  # [n, L]
+        idx = torch.where(valid, starts[tt, None] + lane[None, :], 0)
+        ids = torch.where(valid, fids[idx], 0)
+
+        t_in = tt % (tw * th)
+        px = ((t_in % tw) * tile_size)[:, None] + pxl[None, :]  # [n, P]
+        py = ((t_in // tw) * tile_size)[:, None] + pyl[None, :]
+        dx = m2[ids, 0][:, None, :] - px[:, :, None]  # [n, P, L]
+        dy = m2[ids, 1][:, None, :] - py[:, :, None]
+        ca, cb, cc = (con[ids, k][:, None, :] for k in range(3))
+        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        vis = torch.exp(-sigma)
+        op_vis = op[ids][:, None, :] * vis
+        alpha = torch.clamp(op_vis, max=ALPHA_CLAMP)
+        skip = (sigma < 0.0) | (alpha < ALPHA_THRESHOLD) | ~valid[:, None, :]
+        alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
+
+        raw = torch.cumprod(1.0 - alpha, dim=-1)
+        live = (raw > TRANSMITTANCE_EPS) & ~skip
+        T_prev = torch.cat([torch.ones_like(raw[..., :1]), raw[..., :-1]], dim=-1)
+        w = torch.where(live, alpha * T_prev, torch.zeros_like(alpha))
+
+        vcol, totq, va = vcol_t[tt], totq_t[tt], va_t[tt]  # [n, P, D|1|1]
+        r = torch.bmm(vcol, col[ids].transpose(1, 2))  # [n, P, L]
+        suffix = totq - torch.cumsum(w * r, dim=-1)
+        ra = 1.0 / (1.0 - alpha)
+        v_alpha = torch.where(live, r * T_prev - suffix * ra + va * ra,
+                              torch.zeros_like(alpha))
+        unclamped = op_vis <= ALPHA_CLAMP
+        v_sigma = torch.where(unclamped, -op_vis * v_alpha, torch.zeros_like(alpha))
+        rows = torch.cat([
+            torch.stack([
+                (v_sigma * (ca * dx + cb * dy)).sum(1),
+                (v_sigma * (cb * dx + cc * dy)).sum(1),
+                (0.5 * v_sigma * dx * dx).sum(1),
+                (v_sigma * dx * dy).sum(1),
+                (0.5 * v_sigma * dy * dy).sum(1),
+                torch.where(unclamped, vis * v_alpha, torch.zeros_like(alpha)).sum(1),
+            ], dim=-1),
+            torch.bmm(w.transpose(1, 2), vcol),  # [n, L, D]
+        ], dim=-1)  # [n, L, F]
+        v_rows[idx[valid]] = rows[valid]
+    return v_rows
+
+
+def rasterize_packed_bwd(
+    means2d, conics, colors, opacities, image_width, image_height, tile_size,
+    offsets, flatten_ids, out_colors, out_T, v_colors, v_T,
+    tile_capacity: int = 1024,
+) -> torch.Tensor:
+    """Per-entry gradient rows [L, 6 + D] (see the plain version). CUDA
+    tensors launch kernel 2 (or raise); CPU tensors take the plain
+    version."""
+    device = means2d.device
+    if device.type == "cpu":
+        return rasterize_packed_bwd_plain(
+            means2d, conics, colors, opacities, image_width, image_height,
+            tile_size, offsets, flatten_ids, out_colors, out_T, v_colors, v_T,
+            tile_capacity,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    image_dims, I, N, D, tw, th = _check_stream(
+        means2d, conics, colors, opacities, image_width, image_height,
+        tile_size, offsets, flatten_ids,
+    )
+    H, W = image_height, image_width
+    _check("out_colors", out_colors, torch.float32, device, (I, H, W, D))
+    _check("out_T", out_T, torch.float32, device, (I, H, W))
+    _check("v_colors", v_colors, torch.float32, device, (I, H, W, D))
+    _check("v_T", v_T, torch.float32, device, (I, H, W))
+    L = flatten_ids.shape[0]
+    v_rows = torch.empty((L, 6 + D), dtype=torch.float32, device=device)
+    fn = _load_bwd()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             means2d.data_ptr(), conics.data_ptr(), opacities.data_ptr(),
             colors.data_ptr(), offsets.data_ptr(), flatten_ids.data_ptr(),
-            None if backgrounds is None else backgrounds.data_ptr(),
-            out_c.data_ptr(), out_a.data_ptr(),
-            I, image_width, image_height, tile_size, tw, th, D,
-            max_entries_per_tile(tile_capacity), stream,
+            out_colors.data_ptr(), out_T.data_ptr(), v_colors.data_ptr(),
+            v_T.data_ptr(), v_rows.data_ptr(),
+            I, W, H, tile_size, tw, th, D, max_entries_per_tile(tile_capacity),
+            L, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{KERNEL}: CUDA launch failed with cudaError_t {err}")
-    _build.count_launch(KERNEL)
+        raise RuntimeError(f"{KERNEL_BWD}: CUDA launch failed with cudaError_t {err}")
+    _build.count_launch(KERNEL_BWD)
+    return v_rows
+
+
+class _RasterizePacked(torch.autograd.Function):
+    """Forward: kernel 1 (training use). Backward: kernel 2's per-entry
+    rows, summed per gaussian by the segment-sum kernel (the gather-VJP of
+    ``gather_rows_segsum``), plus the AbsGS columns when the tap is given."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, colors, opacities, abs_tap, offsets,
+                flatten_ids, geometry):
+        width, height, tile_size, tile_capacity = geometry
+        img, trans = rasterize_packed_train_fwd(
+            means2d, conics, colors, opacities, width, height, tile_size,
+            offsets, flatten_ids, tile_capacity,
+        )
+        ctx.save_for_backward(means2d, conics, colors, opacities, offsets,
+                              flatten_ids, img, trans)
+        ctx.geometry = geometry
+        ctx.with_abs = abs_tap is not None
+        return img, trans
+
+    @staticmethod
+    def backward(ctx, v_img, v_trans):
+        means2d, conics, colors, opacities, offsets, flatten_ids, img, trans = (
+            ctx.saved_tensors)
+        width, height, tile_size, tile_capacity = ctx.geometry
+        v_rows = rasterize_packed_bwd(
+            means2d, conics, colors, opacities, width, height, tile_size,
+            offsets, flatten_ids, img, trans, v_img.contiguous(),
+            v_trans.contiguous(), tile_capacity,
+        )
+        I, N, D = colors.shape
+        sids, perm = sort_ids(flatten_ids, offsets[-1])
+        sums = segment_rows_sum(v_rows, perm, sids, I * N, abs_cols=ctx.with_abs)
+        v_abs = sums[:, 6 + D:] if ctx.with_abs else None
+        return (sums[:, 0:2].reshape(I, N, 2), sums[:, 2:5].reshape(I, N, 3),
+                sums[:, 6:6 + D].reshape(I, N, D), sums[:, 5].reshape(I, N), v_abs,
+                None, None, None)
+
+
+def rasterize_to_pixels_packed(
+    means2d: torch.Tensor,  # [..., N, 2]
+    conics: torch.Tensor,  # [..., N, 3]
+    colors: torch.Tensor,  # [..., N, D]
+    opacities: torch.Tensor,  # [..., N]
+    image_width: int,
+    image_height: int,
+    tile_size: int,
+    offsets: torch.Tensor,  # [T+1] int32
+    flatten_ids: torch.Tensor,  # [L] int32
+    backgrounds: Optional[torch.Tensor] = None,  # [..., D]
+    tile_capacity: int = 1024,
+    absgrad_dummy: Optional[torch.Tensor] = None,  # [I*N, 2] zeros
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable packed rasterization (port of
+    ``tdgs/ops/rasterize_pallas_packed.py:223``) → (colors [..., H, W, D],
+    alphas [..., H, W, 1]).
+
+    Gradients reach means2d, conics, colors and opacities. The background
+    is blended here, outside the kernel, so autograd sees it.
+    ``absgrad_dummy``: zeros whose gradient is the per-gaussian sum of
+    |per-entry screen-space gradients| (AbsGS, as ``absgrad_tap``)."""
+    image_dims, I, N, D, _, _ = _dims(
+        means2d, colors, image_width, image_height, tile_size
+    )
+    # [I, N, ...]: the kernels read the image count from the leading dim
+    img, trans = _RasterizePacked.apply(
+        means2d.reshape(I, N, 2).contiguous(),
+        conics.reshape(I, N, 3).contiguous(),
+        colors.reshape(I, N, D).contiguous(),
+        opacities.reshape(I, N).contiguous(),
+        absgrad_dummy,
+        offsets, flatten_ids,
+        (image_width, image_height, tile_size, tile_capacity),
+    )
+    alp = 1.0 - trans
+    if backgrounds is not None:
+        img = img + (1.0 - alp)[..., None] * backgrounds.reshape(I, 1, 1, D)
     H, W = image_height, image_width
-    return out_c.reshape(image_dims + (H, W, D)), out_a.reshape(image_dims + (H, W, 1))
+    return img.reshape(image_dims + (H, W, D)), alp.reshape(image_dims + (H, W, 1))

@@ -1,17 +1,27 @@
-"""Procedural domino scene (numpy copy of the ground-truth half of
-``tdgs/utils/test_data.py:152 make_domino_scene``).
+"""Procedural scenes (numpy copies of ``tdgs/utils/test_data.py``).
 
-Same seed, same draws, same arrays: a row of colored dominoes (z-up, ground
-z = 0, the physics engine's frame) standing on a ground plane of flat
-disks, plus an orbit of look-at cameras. The JAX package also renders GT
-images and writes a COLMAP dataset; that part is not needed here.
+Same seeds, same draws, same arrays as the JAX package:
+
+- ``make_domino_scene_arrays``: the ground-truth half of
+  ``make_domino_scene`` (:152), a row of coloured dominoes (z-up, ground
+  z = 0, the physics engine's frame) on a ground plane of flat disks, plus
+  an orbit of look-at cameras;
+- ``make_colmap_test_scene`` (:307) and ``make_rich_scene`` (:380): COLMAP
+  scenes for training, whose ground-truth images are rendered here by the
+  port's own ``packed_inference`` rasterizer and written as PNG with the
+  standard library; the COLMAP files are written with ``struct``.
 """
 
 from __future__ import annotations
 
+import os
+import struct
 from typing import Dict
 
 import numpy as np
+
+from tdgs_torch._device import DeviceLike, as_float, resolve_device
+from tdgs_torch.utils.png import write_png
 
 # flat backdrop the domino GT images are composited onto
 DOMINO_BACKGROUND = 0.78
@@ -130,3 +140,205 @@ def make_domino_scene_arrays(
         "half_extents": np.array([hx, hy, hz], np.float32),
         "spacing": spacing,
     }
+
+
+def _rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix → COLMAP wxyz quaternion (Shepperd's method)."""
+    t = np.trace(R)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        q = np.array([0.25 * s, (R[2, 1] - R[1, 2]) / s,
+                      (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s])
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(max(1.0 + R[i, i] - R[j, j] - R[k, k], 1e-12)) * 2
+        q = np.empty(4)
+        q[0] = (R[k, j] - R[j, k]) / s
+        q[1 + i] = 0.25 * s
+        q[1 + j] = (R[j, i] + R[i, j]) / s
+        q[1 + k] = (R[k, i] + R[i, k]) / s
+    return (q / np.linalg.norm(q)).astype(np.float64)
+
+
+def _write_colmap_sparse(sparse, width, height, f, viewmats, image_names, pts, cols):
+    """Minimal cameras.bin / images.bin / points3D.bin: one PINHOLE camera
+    shared by all images, the orbit rotations as qvecs."""
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as fd:
+        fd.write(struct.pack("<Q", 1))
+        fd.write(struct.pack("<iiQQ", 1, 1, width, height))
+        fd.write(struct.pack("<4d", f, f, width / 2, height / 2))
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as fd:
+        fd.write(struct.pack("<Q", len(pts)))
+        for i in range(len(pts)):
+            fd.write(struct.pack("<q", i + 1))
+            fd.write(struct.pack("<3d", *pts[i]))
+            fd.write(struct.pack("<3B", *(np.clip(cols[i], 0, 1) * 255).astype(np.uint8)))
+            fd.write(struct.pack("<d", 0.5))
+            fd.write(struct.pack("<Q", 0))
+    with open(os.path.join(sparse, "images.bin"), "wb") as fd:
+        fd.write(struct.pack("<Q", len(viewmats)))
+        for i, vm in enumerate(viewmats):
+            fd.write(struct.pack("<i", i + 1))
+            fd.write(struct.pack("<4d", *_rotmat_to_qvec(vm[:3, :3])))
+            fd.write(struct.pack("<3d", *vm[:3, 3]))
+            fd.write(struct.pack("<i", 1))
+            fd.write(image_names[i].encode() + b"\x00")
+            fd.write(struct.pack("<Q", 0))
+
+
+def _render_gt(means, quats, scales, opac, cols, viewmats, Ks, width, height,
+               background, device, **kw) -> np.ndarray:
+    """Ground-truth images [C, H, W, 3] in [0, 1] by the port's forward-only
+    packed rasterizer, one camera at a time."""
+    from tdgs_torch.rendering import rasterization
+
+    dev = resolve_device(device)
+    t = {k: as_float(v, dev) for k, v in dict(
+        means=means, quats=quats, scales=scales, opac=opac, cols=cols).items()}
+    out = []
+    for i in range(len(viewmats)):
+        img, _, _ = rasterization(
+            t["means"], t["quats"], t["scales"], t["opac"], t["cols"],
+            viewmats[i:i + 1], Ks[i:i + 1], width, height,
+            backgrounds=np.full((1, 3), background, np.float32),
+            rasterizer="packed_inference", device=dev, **kw)
+        out.append(np.clip(img[0].cpu().numpy(), 0, 1))
+    return np.stack(out)
+
+
+def make_colmap_test_scene(root, n_images=8, width=64, height=48, n_pts=120,
+                           seed=7, device: DeviceLike = None):
+    """A synthetic COLMAP scene (sparse/0 bin files + PNG images) whose
+    images are 3DGS renders: trainable end to end in a few dozen steps."""
+    rng = np.random.default_rng(seed)
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+
+    pts = rng.normal(size=(n_pts, 3)).astype(np.float32) * 0.4 + [0, 0, 4.0]
+    cols = rng.uniform(0.2, 1.0, size=(n_pts, 3)).astype(np.float32)
+
+    f = 70.0 * (width / 64.0)
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]], np.float32)
+    viewmats = []
+    for i in range(n_images):
+        vm = np.eye(4, dtype=np.float32)
+        vm[0, 3] = 0.4 * np.cos(2 * np.pi * i / n_images)
+        vm[1, 3] = 0.4 * np.sin(2 * np.pi * i / n_images)
+        viewmats.append(vm)
+    viewmats = np.stack(viewmats)
+
+    # ground-truth gaussians at the points
+    quats = np.tile([1.0, 0, 0, 0], (n_pts, 1)).astype(np.float32)
+    scales = np.full((n_pts, 3), 0.06, np.float32)
+    opac = np.full((n_pts,), 0.95, np.float32)
+    img = _render_gt(pts, quats, scales, opac, cols, viewmats,
+                     np.tile(K, (n_images, 1, 1)), width, height, 0.0, device)
+
+    names = [f"img_{i:03d}.png" for i in range(n_images)]
+    for i in range(n_images):
+        write_png(os.path.join(root, "images", names[i]), (img[i] * 255).astype(np.uint8))
+    _write_colmap_sparse(sparse, width, height, f, viewmats, names, pts, cols)
+    return {"means": pts, "colors": cols, "viewmats": viewmats, "K": K, "images": img}
+
+
+def make_rich_scene(root, n_images=40, width=1236, height=822, n_gt=150_000,
+                    sfm_points=40_000, seed=11, extent=4.0,
+                    device: DeviceLike = None):
+    """A visually rich procedural COLMAP scene that needs densification: a
+    textured multi-frequency terrain with boxes, ellipsoids and thin
+    pillars, seen from three orbit rings of cameras. A random subsample of
+    the ground-truth gaussians plays the COLMAP triangulation
+    (``sfm_points``)."""
+    rng = np.random.default_rng(seed)
+    S = extent
+
+    def tex(p):
+        x, y, z = p[:, 0], p[:, 1], p[:, 2]
+        r = 0.5 + 0.25 * np.sin(3.1 * x) * np.cos(2.3 * y) \
+            + 0.15 * np.sin(9.7 * x + 5.1 * y)
+        g = 0.5 + 0.25 * np.cos(2.7 * x + 1.1) * np.sin(3.7 * y) \
+            + 0.15 * np.sin(8.3 * y + 3.7 * z)
+        b = 0.45 + 0.3 * np.sin(1.9 * x + 2.9 * y + 4.1 * z) \
+            + 0.1 * np.cos(11.3 * x)
+        c = np.stack([r, g, b], -1)
+        c += rng.uniform(-0.04, 0.04, c.shape)
+        return np.clip(c, 0.02, 1.0).astype(np.float32)
+
+    def terrain_z(xy):
+        x, y = xy[:, 0], xy[:, 1]
+        return (0.35 * np.sin(1.1 * x) * np.cos(0.9 * y)
+                + 0.18 * np.sin(2.6 * x + 1.3) * np.sin(2.1 * y)
+                + 0.08 * np.sin(5.3 * x + 2.1 * y)).astype(np.float32)
+
+    n_ground = int(n_gt * 0.55)
+    gxy = rng.uniform(-S, S, size=(n_ground, 2)).astype(np.float32)
+    ground = np.concatenate([gxy, terrain_z(gxy)[:, None]], 1)
+
+    n_obj = 28
+    per_obj = (n_gt - n_ground) // n_obj
+    objs, obj_scale_mult = [], []
+    for i in range(n_obj):
+        cx, cy = rng.uniform(-0.75 * S, 0.75 * S, 2)
+        base_z = float(terrain_z(np.array([[cx, cy]], np.float32))[0])
+        kind = i % 3
+        if kind == 0:  # box
+            he = rng.uniform(0.15, 0.55, 3)
+            pts = _sample_box_surface(rng, per_obj, he)
+            pts[:, 2] += he[2]
+        elif kind == 1:  # ellipsoid
+            he = rng.uniform(0.15, 0.5, 3)
+            u = rng.normal(size=(per_obj, 3))
+            u /= np.linalg.norm(u, axis=1, keepdims=True) + 1e-9
+            pts = (u * he).astype(np.float32)
+            pts[:, 2] += he[2]
+        else:  # thin pillar
+            he = np.array([0.08, 0.08, rng.uniform(0.6, 1.2)])
+            pts = _sample_box_surface(rng, per_obj, he)
+            pts[:, 2] += he[2]
+        pts[:, 0] += cx
+        pts[:, 1] += cy
+        pts[:, 2] += base_z
+        objs.append(pts.astype(np.float32))
+        obj_scale_mult.append(np.full(per_obj, 0.7, np.float32))
+
+    means = np.concatenate([ground] + objs)
+    n = means.shape[0]
+    cols = tex(means)
+    quats = np.tile([1.0, 0, 0, 0], (n, 1)).astype(np.float32)
+    g_scale = 2.2 * S / np.sqrt(n_ground)
+    scales = np.full((n, 3), g_scale, np.float32)
+    scales[n_ground:] *= np.concatenate(obj_scale_mult)[:, None] * 0.8
+    opac = np.full((n,), 0.9, np.float32)
+
+    center = np.array([0.0, 0.0, 0.25], np.float32)
+    f = 0.82 * max(width, height)
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]], np.float32)
+    viewmats = []
+    for i in range(n_images):
+        az = 2 * np.pi * i / n_images * 3.0  # three loops
+        ring = i * 3 // n_images
+        el = np.deg2rad((18.0, 32.0, 50.0)[ring])
+        radius = (1.45, 1.25, 1.1)[ring] * S
+        eye = center + radius * np.array(
+            [np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)], np.float32)
+        viewmats.append(_look_at_viewmat(eye, center))
+    viewmats = np.stack(viewmats)
+    Ks = np.tile(K, (n_images, 1, 1))
+    names = [f"img_{i:03d}.png" for i in range(n_images)]
+
+    # exact tile coverage: no gaussian of the ground truth is cut
+    imgs = _render_gt(means, quats, scales, opac, cols, viewmats, Ks, width,
+                      height, 0.05, device, tile_capacity=2048, isect_exact=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for i in range(n_images):
+        write_png(os.path.join(root, "images", names[i]),
+                  (imgs[i] * 255).astype(np.uint8))
+
+    sel = rng.choice(n, size=min(n, sfm_points), replace=False)
+    _write_colmap_sparse(os.path.join(root, "sparse", "0"), width, height, f,
+                         viewmats, names, means[sel], cols[sel])
+    return {"means": means, "quats": quats, "scales": scales, "opacities": opac,
+            "colors": cols, "viewmats": viewmats, "Ks": Ks}

@@ -134,9 +134,13 @@ import sys
 import tdgs_torch, tdgs_torch.main, tdgs_torch.pipeline, tdgs_torch.convert
 import tdgs_torch.physics, tdgs_torch.utils.ply, tdgs_torch.utils.test_data
 import tdgs_torch.segmentation.clustering, tdgs_torch.ops._build
+import tdgs_torch.ops.segment_sum, tdgs_torch.ops.adam, tdgs_torch.utils.png
+import tdgs_torch.models.gaussians, tdgs_torch.strategy, tdgs_torch.strategy.ops
+import tdgs_torch.training.losses, tdgs_torch.training.config
+import tdgs_torch.training.trainer, tdgs_torch.datasets, tdgs_torch.simple_trainer
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "tdgs"
-             or m.startswith("tdgs."))
+             or m.startswith("tdgs.") or m == "optax" or m.startswith("optax."))
 print(bad)
 sys.exit(1 if bad else 0)
 """
