@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,24 +46,42 @@ def _dims(means2d, colors, image_width, image_height, tile_size):
     return image_dims, I, means2d.shape[-2], colors.shape[-1], tile_width, tile_height
 
 
-def _plain_composite(
-    means2d, conics, colors, opacities, image_width, image_height, tile_size,
-    offsets, flatten_ids, tile_capacity, budget=1 << 24,
-):
-    """Composite every tile; returns (colors [I, H, W, D], T [I, H, W],
-    (pixel, entry) evaluations a front-to-back walk with early exit makes).
-    Tiles go in chunks whose [tiles, pixels, entries] block stays under
+class _Chunk(NamedTuple):
+    """One chunk of tiles of the plain walk: n tiles, P pixels, L lanes."""
+
+    tt: torch.Tensor  # [n] tile indices
+    cnt: torch.Tensor  # [n] entries each tile keeps after the cut
+    valid: torch.Tensor  # [n, L] lane < cnt
+    idx: torch.Tensor  # [n, L] stream positions (0 where not valid)
+    ids: torch.Tensor  # [n, L] gaussian rows (0 where not valid)
+    px: torch.Tensor  # [n, P] pixel centres
+    py: torch.Tensor
+    dx: torch.Tensor  # [n, P, L] mean − pixel centre
+    dy: torch.Tensor
+    conic: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # a, b, c as [n, 1, L]
+    vis: torch.Tensor  # [n, P, L] exp(−σ)
+    op_vis: torch.Tensor  # opacity · vis, before the clamp
+    alpha: torch.Tensor  # clamped, 0 where skipped
+    skip: torch.Tensor  # σ < 0, α < 1/255 or not valid
+    included: torch.Tensor  # raw transmittance after the entry > 1e-4
+    T_prev: torch.Tensor  # raw transmittance before the entry
+
+
+def _plain_walk(means2d, conics, opacities, image_width, image_height, tile_size,
+                offsets, flatten_ids, tile_capacity, budget):
+    """The walk both plain versions share: each tile's cut range, σ, α, the
+    skip tests and the running product with the 1e-4 inclusion rule, in
+    chunks of tiles whose [tiles, pixels, entries] block stays under
     ``budget`` elements."""
-    image_dims, I, N, D, tw, th = _dims(
-        means2d, colors, image_width, image_height, tile_size
-    )
+    image_dims = tuple(means2d.shape[:-2])
+    I, N = math.prod(image_dims) if image_dims else 1, means2d.shape[-2]
+    tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
     device = means2d.device
     P = tile_size * tile_size
     T_total = I * tw * th
     m2 = means2d.reshape(I * N, 2)
     con = conics.reshape(I * N, 3)
     op = opacities.reshape(I * N)
-    col = colors.reshape(I * N, D)
     fids = flatten_ids.to(torch.int64)
 
     offs = offsets.to(torch.int64)
@@ -73,9 +91,6 @@ def _plain_composite(
     pxl = (p % tile_size).to(torch.float32) + 0.5
     pyl = (p // tile_size).to(torch.float32) + 0.5
 
-    out_c = torch.zeros((T_total, P, D), dtype=torch.float32, device=device)
-    out_T = torch.ones((T_total, P), dtype=torch.float32, device=device)
-    n_evals = torch.zeros((), dtype=torch.int64, device=device)
     L_all = int(counts.max()) if T_total else 0
     chunk = max(1, budget // (P * max(L_all, 1)))
     for t0 in range(0, T_total, chunk):
@@ -96,21 +111,46 @@ def _plain_composite(
         dy = m2[ids, 1][:, None, :] - py[:, :, None]
         ca, cb, cc = (con[ids, k][:, None, :] for k in range(3))
         sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-        alpha = torch.clamp(op[ids][:, None, :] * torch.exp(-sigma), max=ALPHA_CLAMP)
+        vis = torch.exp(-sigma)
+        op_vis = op[ids][:, None, :] * vis
+        alpha = torch.clamp(op_vis, max=ALPHA_CLAMP)
         skip = (sigma < 0.0) | (alpha < ALPHA_THRESHOLD) | ~valid[:, None, :]
         alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
 
         raw = torch.cumprod(1.0 - alpha, dim=-1)  # transmittance after each entry
-        included = raw > TRANSMITTANCE_EPS
         T_prev = torch.cat([torch.ones_like(raw[..., :1]), raw[..., :-1]], dim=-1)
-        w = torch.where(included, alpha * T_prev, torch.zeros_like(alpha))
-        out_c[tt] = torch.bmm(w, col[ids])
-        out_T[tt] = torch.where(included, 1.0 - alpha, torch.ones_like(alpha)).prod(-1)
+        yield _Chunk(tt, cnt, valid, idx, ids, px, py, dx, dy, (ca, cb, cc), vis,
+                     op_vis, alpha, skip, raw > TRANSMITTANCE_EPS, T_prev)
+
+
+def _plain_composite(
+    means2d, conics, colors, opacities, image_width, image_height, tile_size,
+    offsets, flatten_ids, tile_capacity, budget=1 << 24,
+):
+    """Composite every tile; returns (colors [I, H, W, D], T [I, H, W],
+    (pixel, entry) evaluations a front-to-back walk with early exit makes)."""
+    image_dims, I, N, D, tw, th = _dims(
+        means2d, colors, image_width, image_height, tile_size
+    )
+    device = means2d.device
+    P = tile_size * tile_size
+    T_total = I * tw * th
+    col = colors.reshape(I * N, D)
+
+    out_c = torch.zeros((T_total, P, D), dtype=torch.float32, device=device)
+    out_T = torch.ones((T_total, P), dtype=torch.float32, device=device)
+    n_evals = torch.zeros((), dtype=torch.int64, device=device)
+    for c in _plain_walk(means2d, conics, opacities, image_width, image_height,
+                         tile_size, offsets, flatten_ids, tile_capacity, budget):
+        alpha, included = c.alpha, c.included
+        w = torch.where(included, alpha * c.T_prev, torch.zeros_like(alpha))
+        out_c[c.tt] = torch.bmm(w, col[c.ids])
+        out_T[c.tt] = torch.where(included, 1.0 - alpha, torch.ones_like(alpha)).prod(-1)
 
         # the walk evaluates every included entry plus the one that ends it
-        n_incl = (included & valid[:, None, :]).sum(-1)  # [n, P]
-        walked = torch.minimum(n_incl + 1, cnt[:, None])
-        inside = (px < image_width) & (py < image_height)
+        n_incl = (included & c.valid[:, None, :]).sum(-1)  # [n, P]
+        walked = torch.minimum(n_incl + 1, c.cnt[:, None])
+        inside = (c.px < image_width) & (c.py < image_height)
         n_evals += torch.where(inside, walked, torch.zeros_like(walked)).sum()
 
     pad_h, pad_w = th * tile_size, tw * tile_size
@@ -352,14 +392,7 @@ def rasterize_packed_bwd_plain(
     image_dims, I, N, D, tw, th = _dims(
         means2d, colors, image_width, image_height, tile_size
     )
-    device = means2d.device
-    P = tile_size * tile_size
-    T_total = I * tw * th
-    m2 = means2d.reshape(I * N, 2)
-    con = conics.reshape(I * N, 3)
-    op = opacities.reshape(I * N)
     col = colors.reshape(I * N, D)
-    fids = flatten_ids.to(torch.int64)
     F = 6 + D
 
     # per-pixel inputs, tile-major; pixels outside the image contribute 0
@@ -370,43 +403,13 @@ def rasterize_packed_bwd_plain(
     vcol_t, totq_t, va_t = (_tile_pixels(x, I, tw, th, tile_size)
                             for x in (vcol_img, totq_img, va_img))
 
-    offs = offsets.to(torch.int64)
-    starts = offs[:-1]
-    counts = torch.clamp(offs[1:] - starts, 0, max_entries_per_tile(tile_capacity))
-    p = torch.arange(P, device=device)
-    pxl = (p % tile_size).to(torch.float32) + 0.5
-    pyl = (p // tile_size).to(torch.float32) + 0.5
-
-    v_rows = torch.zeros((flatten_ids.shape[0], F), dtype=torch.float32, device=device)
-    L_all = int(counts.max()) if T_total else 0
-    chunk = max(1, budget // (P * max(L_all, 1)))
-    for t0 in range(0, T_total, chunk):
-        tt = torch.arange(t0, min(t0 + chunk, T_total), device=device)
-        cnt = counts[tt]
-        L = int(cnt.max())
-        if L == 0:
-            continue
-        lane = torch.arange(L, device=device)
-        valid = lane[None, :] < cnt[:, None]  # [n, L]
-        idx = torch.where(valid, starts[tt, None] + lane[None, :], 0)
-        ids = torch.where(valid, fids[idx], 0)
-
-        t_in = tt % (tw * th)
-        px = ((t_in % tw) * tile_size)[:, None] + pxl[None, :]  # [n, P]
-        py = ((t_in // tw) * tile_size)[:, None] + pyl[None, :]
-        dx = m2[ids, 0][:, None, :] - px[:, :, None]  # [n, P, L]
-        dy = m2[ids, 1][:, None, :] - py[:, :, None]
-        ca, cb, cc = (con[ids, k][:, None, :] for k in range(3))
-        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-        vis = torch.exp(-sigma)
-        op_vis = op[ids][:, None, :] * vis
-        alpha = torch.clamp(op_vis, max=ALPHA_CLAMP)
-        skip = (sigma < 0.0) | (alpha < ALPHA_THRESHOLD) | ~valid[:, None, :]
-        alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
-
-        raw = torch.cumprod(1.0 - alpha, dim=-1)
-        live = (raw > TRANSMITTANCE_EPS) & ~skip
-        T_prev = torch.cat([torch.ones_like(raw[..., :1]), raw[..., :-1]], dim=-1)
+    v_rows = torch.zeros((flatten_ids.shape[0], F), dtype=torch.float32,
+                         device=means2d.device)
+    for c in _plain_walk(means2d, conics, opacities, image_width, image_height,
+                         tile_size, offsets, flatten_ids, tile_capacity, budget):
+        tt, valid, idx, ids, dx, dy = c.tt, c.valid, c.idx, c.ids, c.dx, c.dy
+        (ca, cb, cc), vis, op_vis, alpha, T_prev = c.conic, c.vis, c.op_vis, c.alpha, c.T_prev
+        live = c.included & ~c.skip
         w = torch.where(live, alpha * T_prev, torch.zeros_like(alpha))
 
         vcol, totq, va = vcol_t[tt], totq_t[tt], va_t[tt]  # [n, P, D|1|1]

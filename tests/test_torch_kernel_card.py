@@ -12,8 +12,8 @@ Tolerances, as chip_smoke.py holds the kernels at full size: 1e-3 absolute
 for the forward (the kernel accumulates colours in a running sum, the plain
 version in a matrix product); max|Δ| / max|plain| ≤ 1e-3 per gradient group
 for the backward (the kernel sums 256 pixels by shuffles, the plain version
-with ``sum``); 1e-5 relative for the segment sum, whose two launches must
-agree bit for bit.
+with ``sum``); 1e-5 relative per column for the segment sum, whose two
+launches must agree bit for bit.
 """
 
 import numpy as np
@@ -166,7 +166,8 @@ def test_segment_sum_kernel_matches_plain_on_card(cuda_device, F, abs_cols):
     want = S.segment_rows_sum_plain(rows, perm, sids, n, abs_cols=abs_cols)
     torch.cuda.synchronize()
     assert torch.equal(a, b)  # deterministic, bit for bit
-    assert _rel_err(a, want) <= 1e-5
+    for col in range(a.shape[1]):  # each column against its own scale
+        assert _rel_err(a[:, col], want[:, col]) <= 1e-5, col
 
 
 def _two_image_stream(seed, D=3, N=200):
