@@ -2,7 +2,9 @@
 each against its plain PyTorch version, drive the domino-rally frame end to
 end at 1920x1080, time the bench-scale render, drive 3DGS training (the
 bench-scale forward+backward step, and the Runner on a rich procedural
-COLMAP scene), and print one JSON line per phase.
+COLMAP scene), then the same for 2DGS surfels (the bench-scale render and
+training step, the Runner with the normal and distortion losses), and
+print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -41,6 +43,7 @@ from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed_inference,
     rasterize_to_pixels_packed_inference_plain,
 )
+from tdgs_torch.ops import rasterize_2dgs_packed as R2
 from tdgs_torch.ops.sh import spherical_harmonics
 from tdgs_torch.physics import (
     PhysicsParams,
@@ -67,6 +70,9 @@ TOL = 1e-3  # kernel vs plain version, absolute, colors and alphas
 BWD_RTOL = 1e-3  # kernel 2 vs plain: max|Δ| / max|plain| per gradient group
 SEG_RTOL = 1e-5  # kernel 3 vs plain: max|Δ| / max|plain| per column group
 KERNELS = (KERNEL, KERNEL_BWD, S.KERNEL)
+KERNELS_2DGS = (R2.KERNEL_FWD, R2.KERNEL_TRAIN, R2.KERNEL_BWD)
+DIST_RTOL = 1e-3  # kernel 5 vs plain: distortion, max|Δ| / max|plain|
+MEDIAN_SHARE = 0.01  # kernel 5 vs plain: share of pixels whose median differs
 
 # FP32 operations of one (pixel, entry) evaluation that both compositing
 # kernels make: sigma 11, exp 2, alpha 2, tests 2, transmittance 3
@@ -85,6 +91,29 @@ def bwd_ops_per_eval(D):
     (16), the opacity term (1), the colours (D), and one add per value into
     the entry's sums (6 + D)."""
     return WALK_OPS + 35 + 4 * D
+
+
+# FP32 operations of one (pixel, entry) evaluation of the 2DGS walk
+# (rasterize_2dgs_common.cuh and the kernels' loops): tmp 12, the tmpz
+# guard 2, the guarded reciprocal 2, sigma3d 6, dx/dy 2, sigma2d 4, the min
+# and the half 2, exp 2, alpha 2, the 1/255 test 1, transmittance 2, the
+# cutoff test 1
+WALK_OPS_2DGS = 38
+
+
+def fwd_2dgs_ops_per_eval(DA, train):
+    """Kernels 4 and 5: the walk, the weight (1), a multiply-add per
+    channel; the training call adds the distortion (8) and the median (3)."""
+    return WALK_OPS_2DGS + 1 + 2 * DA + (11 if train else 0)
+
+
+def bwd_2dgs_ops_per_eval(DA):
+    """Kernel 6: the walk, w (1), r (2·DA), the distortion chain (22), the
+    prefix and suffix (3), v_alpha (6), the clamp test (1), v_sigma and the
+    opacity term (3), the branch test (2), the σ3d branch's nine geometry
+    terms (14), the depth term (1), the channels (DA), and one add per
+    value into the entry's sums (12 + DA)."""
+    return WALK_OPS_2DGS + 1 + 2 * DA + 22 + 3 + 6 + 1 + 3 + 2 + 14 + 1 + DA + 12 + DA
 
 
 # H100 SXM published peaks: HBM bytes/s, FP32 (non-tensor) FLOP/s
@@ -656,66 +685,372 @@ def phase_render_train(bench, cap, n_steps=20):
     return launches
 
 
-def phase_trainer(n_steps=100, scene_kw=None):
+def phase_trainer(root, scene_s, n_steps=100):
     """The port's Runner on make_rich_scene at the JAX package's defaults
     (40 images of 1236x822, 150k ground-truth gaussians, 40k SfM points,
-    seed 11): packed rasterizer, SH 3, DefaultStrategy refining at steps 40
-    and 80, eval on the test views at the end."""
-    root = tempfile.mkdtemp(prefix="tdgs_rich_scene_")
-    try:
-        t0 = time.perf_counter()
-        make_rich_scene(root, device=DEVICE, **(scene_kw or {}))
-        scene_s = time.perf_counter() - t0
-        cfg = Config(
-            data_dir=root, result_dir=f"{root}/results", data_factor=1,
-            max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
-            sh_degree_interval=20, rasterizer="packed", tb_every=5,
-            strategy=DefaultStrategy(refine_start_iter=20, refine_every=40,
-                                     refine_stop_iter=1000, reset_every=10_000),
-        )
-        runner = Runner(cfg, device=DEVICE)
-        from tdgs_torch.models.gaussians import alive_mask
+    seed 11), written to ``root`` in ``scene_s`` seconds: packed rasterizer,
+    SH 3, DefaultStrategy refining at steps 40 and 80, eval on the test
+    views at the end."""
+    cfg = Config(
+        data_dir=root, result_dir=f"{root}/results", data_factor=1,
+        max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
+        sh_degree_interval=20, rasterizer="packed", tb_every=5,
+        strategy=DefaultStrategy(refine_start_iter=20, refine_every=40,
+                                 refine_stop_iter=1000, reset_every=10_000),
+    )
+    runner = Runner(cfg, device=DEVICE)
+    from tdgs_torch.models.gaussians import alive_mask
 
-        alive0 = int(alive_mask(runner.splats).sum())
-        _build.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = runner.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
-        stats = runner.eval(n_steps)
-        hist = out["history"]
-        # one more step, split: the batch's decode on the host, then the
-        # step itself traced (it changes the splats after the eval above)
-        t1 = time.perf_counter()
-        batch = runner._batch([0])
-        data_ms = (time.perf_counter() - t1) * 1e3
-        step_trace = traced(lambda: runner.train_step(batch, n_steps + 1, cfg.sh_degree))
-        finite = all(bool(torch.isfinite(v).all()) for v in runner.splats.values())
-        finite = finite and all(np.isfinite([h["loss"] for h in hist]))
-        finite = finite and np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
-        emit("trainer", steps=n_steps, scene_s=scene_s, train_images=len(runner.trainset),
-             test_images=len(runner.valset), width=int(runner.parser.imsize_dict[1][0]),
-             height=int(runner.parser.imsize_dict[1][1]), capacity=runner.capacity,
-             alive_init=alive0, steps_per_s=n_steps / wall, wall_s=wall,
-             loss_first=hist[0], loss_last=hist[-1], refines=runner.refines,
-             launches=launches, eval_psnr=stats["psnr"], eval_ssim=stats["ssim"],
-             eval_num_gs=stats["num_GS"], all_finite=bool(finite),
-             data_ms_per_step=data_ms, traced_step=step_trace)
-        refined = [r["step"] for r in runner.refines]
-        if not hist[-1]["loss"] < hist[0]["loss"]:
-            raise RuntimeError(f"trainer: loss did not drop {hist[0]} -> {hist[-1]}")
-        if 40 not in refined or 80 not in refined:
-            raise RuntimeError(f"trainer: strategy refined at {refined}, not 40 and 80")
-        if not finite:
-            raise RuntimeError("trainer: non-finite params, loss or eval")
-        for k in KERNELS:
-            if launches[k] < n_steps:
-                raise RuntimeError(f"trainer launched {k} {launches[k]} < {n_steps} times")
-        return launches
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    alive0 = int(alive_mask(runner.splats).sum())
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    stats = runner.eval(n_steps)
+    hist = out["history"]
+    # one more step, split: the batch's decode on the host, then the
+    # step itself traced (it changes the splats after the eval above)
+    t1 = time.perf_counter()
+    batch = runner._batch([0])
+    data_ms = (time.perf_counter() - t1) * 1e3
+    step_trace = traced(lambda: runner.train_step(batch, n_steps + 1, cfg.sh_degree))
+    finite = all(bool(torch.isfinite(v).all()) for v in runner.splats.values())
+    finite = finite and all(np.isfinite([h["loss"] for h in hist]))
+    finite = finite and np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
+    emit("trainer", steps=n_steps, scene_s=scene_s, train_images=len(runner.trainset),
+         test_images=len(runner.valset), width=int(runner.parser.imsize_dict[1][0]),
+         height=int(runner.parser.imsize_dict[1][1]), capacity=runner.capacity,
+         alive_init=alive0, steps_per_s=n_steps / wall, wall_s=wall,
+         loss_first=hist[0], loss_last=hist[-1], refines=runner.refines,
+         launches=launches, eval_psnr=stats["psnr"], eval_ssim=stats["ssim"],
+         eval_num_gs=stats["num_GS"], all_finite=bool(finite),
+         data_ms_per_step=data_ms, traced_step=step_trace)
+    refined = [r["step"] for r in runner.refines]
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise RuntimeError(f"trainer: loss did not drop {hist[0]} -> {hist[-1]}")
+    if 40 not in refined or 80 not in refined:
+        raise RuntimeError(f"trainer: strategy refined at {refined}, not 40 and 80")
+    if not finite:
+        raise RuntimeError("trainer: non-finite params, loss or eval")
+    for k in KERNELS:
+        if launches[k] < n_steps:
+            raise RuntimeError(f"trainer launched {k} {launches[k]} < {n_steps} times")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 2DGS: kernels 4, 5 and 6, the bench-scale render and training step, the
+# Runner with model_type="2dgs"
+# ---------------------------------------------------------------------------
+
+
+def kernel_inputs_2dgs(sc, render_mode="RGB+ED", distloss=True, **kw):
+    """The 2DGS kernels' inputs for one frame, built by the port's own
+    projection, SH and tiling (rasterization_2dgs's meta): stream-order
+    feature rows, offsets, the image count and the channel count D."""
+    out = tdgs_torch.rasterization_2dgs(
+        sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
+        sc["viewmats"], sc["Ks"], WIDTH, HEIGHT, sh_degree=3, render_mode=render_mode,
+        distloss=distloss, device=DEVICE, **kw)
+    meta = out[6]
+    campos = torch.linalg.inv(sc["viewmats"])[..., :3, 3]
+    dirs = sc["means"][None] - campos[:, None, :]
+    colors = spherical_harmonics(3, dirs, sc["sh"][None].expand(
+        (1,) + tuple(sc["sh"].shape)), masks=(meta["radii"] > 0).all(-1))
+    colors = torch.cat([torch.clamp(colors + 0.5, min=0.0), meta["depths"][..., None]], -1)
+    feats = R2.feature_rows(meta["means2d"], meta["ray_transforms"], colors,
+                            meta["normals"], meta["opacities"])
+    rows = feats[meta["flatten_ids"].long()].contiguous()
+    return (rows, meta["isect_offsets"], 1, colors.shape[-1], WIDTH, HEIGHT,
+            meta["tile_size"]), meta
+
+
+def kernel_work_2dgs(args, tile_capacity, evaluations):
+    """Bytes and operations of kernels 4, 5 and 6 on these inputs, each
+    input read once and each output written once, and their bounds."""
+    rows, offsets, n_images, D, W, H, _ = args
+    DA, F = D + 3, rows.shape[1]
+    counts = torch.clamp(torch.diff(offsets.long()), 0, max_entries_per_tile(tile_capacity))
+    entries = int(counts.sum())
+    n_pix = n_images * W * H
+    read = entries * F * 4 + offsets.numel() * 4  # the cut ranges' rows, offsets
+    work = {
+        R2.KERNEL_FWD: (read + n_pix * (DA + 1) * 4,
+                        evaluations * fwd_2dgs_ops_per_eval(DA, False)),
+        R2.KERNEL_TRAIN: (read + n_pix * (DA + 3) * 4,
+                          evaluations * fwd_2dgs_ops_per_eval(DA, True)),
+        # the forward's outputs (channels, T, distortion) and their
+        # cotangents per pixel; one row per stream slot written
+        R2.KERNEL_BWD: (read + n_pix * 2 * (DA + 2) * 4 + rows.shape[0] * F * 4,
+                        evaluations * bwd_2dgs_ops_per_eval(DA)),
+    }
+    out = {}
+    for name, (n_bytes, n_ops) in work.items():
+        t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+        out[name] = dict(bytes=n_bytes, fp32_ops=n_ops, evaluations=evaluations,
+                         entries=entries, bound_ms=max(t_b, t_o),
+                         bound_by="bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def parity_2dgs(name, args, tile_capacity, seed):
+    """Kernels 4, 5 and 6 against their plain versions on the same inputs,
+    random cotangents; fails above the tolerances."""
+    rows, offsets, I, D, W, H, ts = args
+    geo = (rows, offsets, I, D, W, H, ts)
+    inf = R2.rasterize_2dgs_inference(*geo, None, tile_capacity)
+    p_img, p_nrm, p_T, p_dist, p_med, evals = R2.rasterize_2dgs_fwd_plain(
+        *geo, tile_capacity, depth_row=D - 1, compute_distort=True)
+    train = R2.rasterize_2dgs_train_fwd(*geo, tile_capacity, D - 1, True)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    cot = [torch.randn(x.shape, generator=g, device=DEVICE) for x in train[:4]]
+    v_rows = R2.rasterize_2dgs_bwd(*geo, *train[:4], *cot, tile_capacity, D - 1, True)
+    want_rows = R2.rasterize_2dgs_bwd_plain(*geo, *train[:4], *cot, tile_capacity, D - 1, True)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    fwd_err = dict(colors=err(inf[0], p_img), alpha=err(inf[1][..., 0], 1.0 - p_T),
+                   normals=err(inf[2], p_nrm))
+    train_err = dict(colors=err(train[0], p_img), transmittance=err(train[2], p_T),
+                     normals=err(train[1], p_nrm), distortion=err(train[3], p_dist))
+    dist_rel = _rel(train[3], p_dist)
+    median_share = float(((train[4] - p_med).abs() > 1e-5).float().mean())
+    groups = {"means2d": slice(0, 2), "t0_tpx_tpy": slice(2, 11), "opacity": slice(11, 12),
+              "channels": slice(12, None)}
+    bwd_rel = {k: _rel(v_rows[:, c], want_rows[:, c]) for k, c in groups.items()}
+    counts = torch.diff(offsets.long())
+    finite = all(bool(torch.isfinite(x).all()) for x in (*inf, *train, v_rows))
+    emit("parity_2dgs", case=name, tile_capacity=tile_capacity, D=D,
+         n_isects=int(counts.sum()), tiles_cut=int(
+             (counts > max_entries_per_tile(tile_capacity)).sum()),
+         pixel_entry_evaluations=int(evals), alpha_mean=float((1.0 - p_T).mean()),
+         inference_max_abs_err=fwd_err, train_max_abs_err=train_err, tol=TOL,
+         distortion_max_rel_err=dist_rel, dist_rtol=DIST_RTOL,
+         distortion_max=float(p_dist.abs().max()), median_differs_share=median_share,
+         median_share_tol=MEDIAN_SHARE, bwd_max_rel_err=bwd_rel, bwd_rtol=BWD_RTOL,
+         bwd_max_abs_err=err(v_rows, want_rows), finite=finite)
+    worst = max(max(fwd_err.values()), train_err["colors"], train_err["transmittance"],
+                train_err["normals"])
+    if not finite:
+        raise RuntimeError(f"parity_2dgs {name}: non-finite kernel output")
+    if not worst <= TOL or not dist_rel <= DIST_RTOL or not median_share <= MEDIAN_SHARE:
+        raise RuntimeError(f"parity_2dgs {name}: forward {fwd_err} {train_err}, "
+                           f"distortion {dist_rel}, median {median_share}")
+    if not max(bwd_rel.values()) <= BWD_RTOL:
+        raise RuntimeError(f"parity_2dgs {name}: backward {bwd_rel} > {BWD_RTOL}")
+    return dict(fwd=max(fwd_err.values()), train=max(train_err.values()),
+                bwd=err(v_rows, want_rows), evaluations=int(evals),
+                inputs=(geo, train, cot))
+
+
+def phase_parity_2dgs(bench, heavy):
+    """The bench scene at 1080p (SH 3, RGB+ED, distortion, K = 16) and a
+    truncating case (60k large surfels, tile_capacity = 128)."""
+    args, _ = kernel_inputs_2dgs(bench, tile_capacity=1024, max_tiles_per_gauss=16)
+    a = parity_2dgs("a_bench_rgb_ed_dist", args, 1024, seed=3)
+    args_h, _ = kernel_inputs_2dgs(heavy, tile_capacity=128, isect_exact=True)
+    b = parity_2dgs("b_heavy_overlap_truncated", args_h, 128, seed=4)
+    return {k: max(a[k], b[k]) for k in ("fwd", "train", "bwd")}, a
+
+
+def measure_kernels_2dgs(par, reps=20):
+    """Times of kernels 4, 5 and 6 at the bench shapes with their plain
+    versions' and their bounds. No PyTorch call composites a sorted tile
+    stream, so there is no library yardstick."""
+    geo, train, cot = par["inputs"]
+    tc = 1024
+    D = geo[3]
+    work = kernel_work_2dgs(geo, tc, par["evaluations"])
+    calls = {
+        R2.KERNEL_FWD: (lambda: R2.rasterize_2dgs_inference(*geo, None, tc),
+                        lambda: R2.rasterize_2dgs_fwd_plain(*geo, tc)),
+        R2.KERNEL_TRAIN: (lambda: R2.rasterize_2dgs_train_fwd(*geo, tc, D - 1, True),
+                          lambda: R2.rasterize_2dgs_fwd_plain(*geo, tc, D - 1, True)),
+        R2.KERNEL_BWD: (lambda: R2.rasterize_2dgs_bwd(*geo, *train[:4], *cot, tc, D - 1, True),
+                        lambda: R2.rasterize_2dgs_bwd_plain(*geo, *train[:4], *cot, tc,
+                                                            D - 1, True)),
+    }
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        out[name] = dict(ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 2),
+                         library_ms=None, **work[name])
+    emit("kernels_2dgs", **out)
+    return out
+
+
+def bench_capacity_2dgs(bench):
+    """The 2DGS training path's stream capacity: this scene's surfel
+    intersections with 25% headroom."""
+    out = tdgs_torch.rasterization_2dgs(
+        bench["means"], bench["quats"], bench["scales"], bench["opacities"], bench["sh"],
+        bench["viewmats"], bench["Ks"], WIDTH, HEIGHT, sh_degree=3, tile_capacity=1024,
+        max_tiles_per_gauss=16, device=DEVICE)
+    return int(out[6]["n_isects"] * 1.25)
+
+
+def phase_bench_render_2dgs(bench, cap, n_frames=20):
+    """20 frames of the 200k scene as surfels through the forward-only
+    rasterizer (kernel 4), each re-projected and re-sorted, as the JAX
+    package's bench.py:187-208 times them."""
+
+    def frame(i):
+        out = tdgs_torch.rasterization_2dgs(
+            bench["means"], bench["quats"], bench["scales"],
+            bench["opacities"] * (1.0 + 1e-5 * i), bench["sh"], bench["viewmats"],
+            bench["Ks"], WIDTH, HEIGHT, sh_degree=3, tile_capacity=1024,
+            max_tiles_per_gauss=16, isect_capacity=cap, rasterizer="packed_inference",
+            device=DEVICE)
+        return out[0], out[6]
+
+    frame(0)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    acc = torch.zeros((), device=DEVICE)
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        img, meta = frame(i)
+        acc += img.mean()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.LAUNCHES.get(R2.KERNEL_FWD, 0)
+    emit("bench_render_2dgs", frames=n_frames, fps=n_frames / wall, wall_s=wall,
+         n_gaussians=int(bench["means"].shape[0]), isect_capacity=cap,
+         n_isects=meta["n_isects"], n_dropped=meta["n_dropped"], launches=launches,
+         finite=bool(torch.isfinite(acc)), traced_frame=traced(lambda: frame(0)))
+    if launches < n_frames:
+        raise RuntimeError(f"bench_render_2dgs launched kernel 4 {launches} < {n_frames} times")
+    if not bool(torch.isfinite(acc)):
+        raise RuntimeError("bench_render_2dgs: non-finite frame")
+    return launches
+
+
+def phase_render_train_2dgs(bench, cap, n_steps=20):
+    """The JAX package's bench.py 2DGS training step (bench.py:251-258) on
+    the port: rasterization_2dgs(render_mode="RGB+ED", distloss=True,
+    rasterizer="packed"), loss = img.mean() + distort.mean(), gradients
+    w.r.t. means, quats, scales, opacities and SH, 20 steps at 1920x1080
+    with 200k surfels."""
+    names = ("means", "quats", "scales", "opacities", "sh")
+    leaves = [bench[k].clone().requires_grad_(True) for k in names]
+    box = {}
+
+    def forward(i):
+        m, q, sc, op, sh = leaves
+        out = tdgs_torch.rasterization_2dgs(
+            m, q, sc, op * (1.0 + 1e-5 * i), sh, bench["viewmats"], bench["Ks"],
+            WIDTH, HEIGHT, sh_degree=3, render_mode="RGB+ED", distloss=True,
+            rasterizer="packed", tile_capacity=1024, max_tiles_per_gauss=16,
+            isect_capacity=cap, device=DEVICE)
+        box["meta"] = out[6]
+        return out[0].mean() + out[4].mean()
+
+    def step(i):
+        loss = forward(i)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    step(0)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    ev = []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss, grads = step(i)
+        e1.record()
+        ev.append((e0, e1))
+        finite &= torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = (R2.KERNEL_TRAIN, R2.KERNEL_BWD, S.KERNEL)
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    holder = {}
+
+    def fwd_only():
+        holder["loss"] = forward(0)
+
+    def bwd_only():
+        torch.autograd.grad(holder["loss"], leaves)
+
+    fwd_trace = traced(fwd_only)
+    bwd_trace = traced(bwd_only)
+    emit("render_train_2dgs", steps=n_steps, width=WIDTH, height=HEIGHT,
+         n_gaussians=int(leaves[0].shape[0]), isect_capacity=cap,
+         n_isects=box["meta"]["n_isects"], n_dropped=box["meta"]["n_dropped"],
+         fps=n_steps / wall, wall_s=wall, step_ms_mean=float(np.mean(step_ms)),
+         step_ms_p50=float(np.percentile(step_ms, 50)), launches=launches,
+         all_finite=bool(finite), traced_forward=fwd_trace, traced_backward=bwd_trace)
+    if not bool(finite):
+        raise RuntimeError("render_train_2dgs: non-finite loss or gradient")
+    for k in kernels:
+        if launches[k] < n_steps:
+            raise RuntimeError(f"render_train_2dgs launched {k} {launches[k]} < {n_steps} times")
+    return launches
+
+
+def phase_trainer_2dgs(root, n_steps=100):
+    """The port's Runner with model_type="2dgs", the normal-consistency and
+    distortion losses live from steps 30 and 10, on make_rich_scene at its
+    defaults: packed rasterizer, SH 3, DefaultStrategy refining at steps 40
+    and 80, eval through kernel 4 at the end."""
+    cfg = Config(
+        data_dir=root, result_dir=f"{root}/results_2dgs", data_factor=1,
+        max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
+        sh_degree_interval=20, rasterizer="packed", tb_every=5, model_type="2dgs",
+        normal_loss=True, dist_loss=True, normal_start_iter=30, dist_start_iter=10,
+        strategy=DefaultStrategy(refine_start_iter=20, refine_every=40,
+                                 refine_stop_iter=1000, reset_every=10_000),
+    )
+    runner = Runner(cfg, device=DEVICE)
+    from tdgs_torch.models.gaussians import alive_mask
+
+    alive0 = int(alive_mask(runner.splats).sum())
+    kernels = (S.KERNEL, R2.KERNEL_TRAIN, R2.KERNEL_BWD)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
+    _build.reset_launches()
+    stats = runner.eval(n_steps)
+    eval_launches = _build.LAUNCHES.get(R2.KERNEL_FWD, 0)
+    hist = out["history"]
+    t1 = time.perf_counter()
+    batch = runner._batch([0])
+    data_ms = (time.perf_counter() - t1) * 1e3
+    step_trace = traced(lambda: runner.train_step(batch, n_steps + 1, cfg.sh_degree))
+    finite = all(bool(torch.isfinite(v).all()) for v in runner.splats.values())
+    finite = finite and all(np.isfinite([h["loss"] for h in hist]))
+    finite = finite and np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
+    emit("trainer_2dgs", steps=n_steps, train_images=len(runner.trainset),
+         test_images=len(runner.valset), capacity=runner.capacity, alive_init=alive0,
+         steps_per_s=n_steps / wall, wall_s=wall, loss_first=hist[0], loss_last=hist[-1],
+         loss_history=hist, refines=runner.refines, launches=launches,
+         eval_kernel4_launches=eval_launches, eval_psnr=stats["psnr"],
+         eval_ssim=stats["ssim"], eval_num_gs=stats["num_GS"], all_finite=bool(finite),
+         data_ms_per_step=data_ms, traced_step=step_trace)
+    refined = [r["step"] for r in runner.refines]
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise RuntimeError(f"trainer_2dgs: loss did not drop {hist[0]} -> {hist[-1]}")
+    if 40 not in refined or 80 not in refined:
+        raise RuntimeError(f"trainer_2dgs: strategy refined at {refined}, not 40 and 80")
+    if not finite:
+        raise RuntimeError("trainer_2dgs: non-finite params, loss or eval")
+    for k in kernels:
+        if launches[k] < n_steps:
+            raise RuntimeError(f"trainer_2dgs launched {k} {launches[k]} < {n_steps} times")
+    if eval_launches < len(runner.valset):
+        raise RuntimeError(f"trainer_2dgs eval launched kernel 4 {eval_launches} times")
+    return launches
 
 
 def main():
@@ -744,8 +1079,22 @@ def main():
     cap = bench_capacity(bench)
     train_errs, train_inputs = phase_train_parity(bench, heavy, cap)
     train_launches = phase_render_train(bench, cap)
-    trainer_launches = phase_trainer()
-    k_train = measure_train_kernels(train_inputs)
+    root = tempfile.mkdtemp(prefix="tdgs_rich_scene_")
+    try:
+        t0 = time.perf_counter()
+        make_rich_scene(root, device=DEVICE)
+        scene_s = time.perf_counter() - t0
+        trainer_launches = phase_trainer(root, scene_s)
+        k_train = measure_train_kernels(train_inputs)
+
+        errs_2dgs, par_2dgs = phase_parity_2dgs(bench, heavy)
+        cap_2dgs = bench_capacity_2dgs(bench)
+        render_2dgs_launches = phase_bench_render_2dgs(bench, cap_2dgs)
+        train_2dgs_launches = phase_render_train_2dgs(bench, cap_2dgs)
+        trainer_2dgs_launches = phase_trainer_2dgs(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    k_2dgs = measure_kernels_2dgs(par_2dgs)
 
     sources = {
         KERNEL: ("tdgs_torch/csrc/rasterize_packed_fwd.cu",
@@ -774,6 +1123,31 @@ def main():
                          rally_bound_ms=k_rally["bound_ms"],
                          bench_render_ms=k_bench["ms"])
         kernels["kernels"].append(entry)
+    sources_2dgs = {
+        # launches: kernel 4 in the bench-scale render's run, kernels 5 and 6
+        # in the bench-scale training step's; the trainer's runs beside them
+        R2.KERNEL_FWD: ("tdgs/ops/rasterize_2dgs_pallas.py:84", errs_2dgs["fwd"],
+                        render_2dgs_launches, None),
+        R2.KERNEL_TRAIN: ("tdgs/ops/rasterize_2dgs_pallas.py:457", errs_2dgs["train"],
+                          train_2dgs_launches[R2.KERNEL_TRAIN],
+                          trainer_2dgs_launches[R2.KERNEL_TRAIN]),
+        R2.KERNEL_BWD: ("tdgs/ops/rasterize_2dgs_pallas.py:596", errs_2dgs["bwd"],
+                        train_2dgs_launches[R2.KERNEL_BWD],
+                        trainer_2dgs_launches[R2.KERNEL_BWD]),
+    }
+    for name, (replaces, err, launches, trainer_n) in sources_2dgs.items():
+        k = k_2dgs[name]
+        src = ("tdgs_torch/csrc/rasterize_2dgs_bwd.cu" if name == R2.KERNEL_BWD
+               else "tdgs_torch/csrc/rasterize_2dgs_fwd.cu")
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "trainer_launches": trainer_n,
+        })
+    seg = next(k for k in kernels["kernels"] if k["name"] == S.KERNEL)
+    seg.update(render_train_2dgs_launches=train_2dgs_launches[S.KERNEL],
+               trainer_2dgs_launches=trainer_2dgs_launches[S.KERNEL])
     print(json.dumps(kernels), flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {

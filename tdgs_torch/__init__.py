@@ -34,12 +34,13 @@ from tdgs_torch.ops.transforms import (  # noqa: E402
     quat_to_rotmat,
     world_to_cam,
 )
-from tdgs_torch.rendering import rasterization  # noqa: E402
+from tdgs_torch.rendering import rasterization, rasterization_2dgs  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "rasterization",
+    "rasterization_2dgs",
     "spherical_harmonics",
     "isect_offset_encode",
     "isect_tiles_packed",

@@ -3,7 +3,8 @@
 Each ``tdgs_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface under ``tdgs_torch/build/``
 (git-ignored) on first use, and loaded with ``ctypes``. A library is
-rebuilt when the hash of its source or of the compiler flags changes.
+rebuilt when the hash of its source, of the shared ``csrc/*.cuh`` headers
+or of the compiler flags changes.
 There is no fallback: a failed build raises with the compiler's output.
 
 Every kernel wrapper counts its launches in ``LAUNCHES`` so that a run can
@@ -55,7 +56,9 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the headers of csrc/ count too: a changed .cuh rebuilds every library
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

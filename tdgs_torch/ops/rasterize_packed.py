@@ -56,9 +56,7 @@ class _Chunk(NamedTuple):
     ids: torch.Tensor  # [n, L] gaussian rows (0 where not valid)
     px: torch.Tensor  # [n, P] pixel centres
     py: torch.Tensor
-    dx: torch.Tensor  # [n, P, L] mean − pixel centre
-    dy: torch.Tensor
-    conic: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # a, b, c as [n, 1, L]
+    geom: tuple  # what the response returned beside σ and the opacities
     vis: torch.Tensor  # [n, P, L] exp(−σ)
     op_vis: torch.Tensor  # opacity · vis, before the clamp
     alpha: torch.Tensor  # clamped, 0 where skipped
@@ -67,22 +65,21 @@ class _Chunk(NamedTuple):
     T_prev: torch.Tensor  # raw transmittance before the entry
 
 
-def _plain_walk(means2d, conics, opacities, image_width, image_height, tile_size,
-                offsets, flatten_ids, tile_capacity, budget):
-    """The walk both plain versions share: each tile's cut range, σ, α, the
-    skip tests and the running product with the 1e-4 inclusion rule, in
-    chunks of tiles whose [tiles, pixels, entries] block stays under
-    ``budget`` elements."""
-    image_dims = tuple(means2d.shape[:-2])
-    I, N = math.prod(image_dims) if image_dims else 1, means2d.shape[-2]
+def _plain_walk(n_images, image_width, image_height, tile_size, offsets,
+                flatten_ids, tile_capacity, budget, response):
+    """The walk every plain version shares: each tile's cut range, α from
+    the caller's σ, the skip tests and the running product with the 1e-4
+    inclusion rule, in chunks of tiles whose [tiles, pixels, entries] block
+    stays under ``budget`` elements. ``response(idx, ids, px, py)`` gives
+    (σ [n, P, L], opacities [n, 1, L], geom) for stream positions ``idx``,
+    gaussian rows ``ids`` [n, L] (``idx`` itself when ``flatten_ids`` is
+    None: features already in stream order) and pixel centres ``px``,
+    ``py`` [n, P]."""
     tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
-    device = means2d.device
+    device = offsets.device
     P = tile_size * tile_size
-    T_total = I * tw * th
-    m2 = means2d.reshape(I * N, 2)
-    con = conics.reshape(I * N, 3)
-    op = opacities.reshape(I * N)
-    fids = flatten_ids.to(torch.int64)
+    T_total = n_images * tw * th
+    fids = None if flatten_ids is None else flatten_ids.to(torch.int64)
 
     offs = offsets.to(torch.int64)
     starts = offs[:-1]
@@ -102,25 +99,57 @@ def _plain_walk(means2d, conics, opacities, image_width, image_height, tile_size
         lane = torch.arange(L, device=device)
         valid = lane[None, :] < cnt[:, None]  # [n, L]
         idx = torch.where(valid, starts[tt, None] + lane[None, :], 0)
-        ids = torch.where(valid, fids[idx], 0)
+        ids = idx if fids is None else torch.where(valid, fids[idx], 0)
 
         t_in = tt % (tw * th)
         px = ((t_in % tw) * tile_size)[:, None] + pxl[None, :]  # [n, P]
         py = ((t_in // tw) * tile_size)[:, None] + pyl[None, :]
-        dx = m2[ids, 0][:, None, :] - px[:, :, None]  # [n, P, L]
-        dy = m2[ids, 1][:, None, :] - py[:, :, None]
-        ca, cb, cc = (con[ids, k][:, None, :] for k in range(3))
-        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        sigma, op, geom = response(idx, ids, px, py)
         vis = torch.exp(-sigma)
-        op_vis = op[ids][:, None, :] * vis
+        op_vis = op * vis
         alpha = torch.clamp(op_vis, max=ALPHA_CLAMP)
         skip = (sigma < 0.0) | (alpha < ALPHA_THRESHOLD) | ~valid[:, None, :]
         alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
 
         raw = torch.cumprod(1.0 - alpha, dim=-1)  # transmittance after each entry
         T_prev = torch.cat([torch.ones_like(raw[..., :1]), raw[..., :-1]], dim=-1)
-        yield _Chunk(tt, cnt, valid, idx, ids, px, py, dx, dy, (ca, cb, cc), vis,
-                     op_vis, alpha, skip, raw > TRANSMITTANCE_EPS, T_prev)
+        yield _Chunk(tt, cnt, valid, idx, ids, px, py, geom, vis, op_vis, alpha, skip,
+                     raw > TRANSMITTANCE_EPS, T_prev)
+
+
+def _response_3dgs(means2d, conics, opacities):
+    """σ = ½(a·dx² + c·dy²) + b·dx·dy of the 3DGS walk; geom is (dx, dy,
+    (a, b, c))."""
+    m2 = means2d.reshape(-1, 2)
+    con = conics.reshape(-1, 3)
+    op = opacities.reshape(-1)
+
+    def response(idx, ids, px, py):
+        dx = m2[ids, 0][:, None, :] - px[:, :, None]  # [n, P, L]
+        dy = m2[ids, 1][:, None, :] - py[:, :, None]
+        ca, cb, cc = (con[ids, k][:, None, :] for k in range(3))
+        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        return sigma, op[ids][:, None, :], (dx, dy, (ca, cb, cc))
+
+    return response
+
+
+def walked_evaluations(c: _Chunk, image_width: int, image_height: int) -> torch.Tensor:
+    """(pixel, entry) evaluations a front-to-back walk with per-pixel early
+    exit makes over chunk ``c``: every included entry plus the one that ends
+    it, for the pixels inside the image."""
+    n_incl = (c.included & c.valid[:, None, :]).sum(-1)  # [n, P]
+    walked = torch.minimum(n_incl + 1, c.cnt[:, None])
+    inside = (c.px < image_width) & (c.py < image_height)
+    return torch.where(inside, walked, torch.zeros_like(walked)).sum()
+
+
+def untile(x, I, tw, th, tile_size, image_height, image_width):
+    """Tile-major [I·th·tw, P, C] → [I, H, W, C]."""
+    C = x.shape[-1]
+    img = x.reshape(I, th, tw, tile_size, tile_size, C)
+    img = img.permute(0, 1, 3, 2, 4, 5).reshape(I, th * tile_size, tw * tile_size, C)
+    return img[:, :image_height, :image_width]
 
 
 def _plain_composite(
@@ -138,31 +167,20 @@ def _plain_composite(
     col = colors.reshape(I * N, D)
 
     out_c = torch.zeros((T_total, P, D), dtype=torch.float32, device=device)
-    out_T = torch.ones((T_total, P), dtype=torch.float32, device=device)
+    out_T = torch.ones((T_total, P, 1), dtype=torch.float32, device=device)
     n_evals = torch.zeros((), dtype=torch.int64, device=device)
-    for c in _plain_walk(means2d, conics, opacities, image_width, image_height,
-                         tile_size, offsets, flatten_ids, tile_capacity, budget):
+    for c in _plain_walk(I, image_width, image_height, tile_size, offsets, flatten_ids,
+                         tile_capacity, budget,
+                         _response_3dgs(means2d, conics, opacities)):
         alpha, included = c.alpha, c.included
         w = torch.where(included, alpha * c.T_prev, torch.zeros_like(alpha))
         out_c[c.tt] = torch.bmm(w, col[c.ids])
-        out_T[c.tt] = torch.where(included, 1.0 - alpha, torch.ones_like(alpha)).prod(-1)
+        out_T[c.tt, :, 0] = torch.where(included, 1.0 - alpha,
+                                        torch.ones_like(alpha)).prod(-1)
+        n_evals += walked_evaluations(c, image_width, image_height)
 
-        # the walk evaluates every included entry plus the one that ends it
-        n_incl = (included & c.valid[:, None, :]).sum(-1)  # [n, P]
-        walked = torch.minimum(n_incl + 1, c.cnt[:, None])
-        inside = (c.px < image_width) & (c.py < image_height)
-        n_evals += torch.where(inside, walked, torch.zeros_like(walked)).sum()
-
-    pad_h, pad_w = th * tile_size, tw * tile_size
-    img = out_c.reshape(I, th, tw, tile_size, tile_size, D)
-    img = img.permute(0, 1, 3, 2, 4, 5).reshape(I, pad_h, pad_w, D)
-    trans = out_T.reshape(I, th, tw, tile_size, tile_size)
-    trans = trans.permute(0, 1, 3, 2, 4).reshape(I, pad_h, pad_w)
-    return (
-        img[:, :image_height, :image_width],
-        trans[:, :image_height, :image_width],
-        n_evals,
-    )
+    args = (I, tw, th, tile_size, image_height, image_width)
+    return untile(out_c, *args), untile(out_T, *args)[..., 0], n_evals
 
 
 def _finish(img, alp, backgrounds, image_dims, I, D):
@@ -369,7 +387,7 @@ def rasterize_packed_train_fwd(
     return out_c, out_t[..., 0]
 
 
-def _tile_pixels(values, I, tw, th, tile_size):
+def tile_pixels(values, I, tw, th, tile_size):
     """Per-pixel values [I, H, W, C] → tile-major [T, P, C], zero outside
     the image."""
     H, W, C = values.shape[1:]
@@ -400,15 +418,17 @@ def rasterize_packed_bwd_plain(
     totq_img = (vcol_img * out_colors.reshape(I, image_height, image_width, D)).sum(
         -1, keepdim=True)
     va_img = (-v_T * out_T).reshape(I, image_height, image_width, 1)
-    vcol_t, totq_t, va_t = (_tile_pixels(x, I, tw, th, tile_size)
+    vcol_t, totq_t, va_t = (tile_pixels(x, I, tw, th, tile_size)
                             for x in (vcol_img, totq_img, va_img))
 
     v_rows = torch.zeros((flatten_ids.shape[0], F), dtype=torch.float32,
                          device=means2d.device)
-    for c in _plain_walk(means2d, conics, opacities, image_width, image_height,
-                         tile_size, offsets, flatten_ids, tile_capacity, budget):
-        tt, valid, idx, ids, dx, dy = c.tt, c.valid, c.idx, c.ids, c.dx, c.dy
-        (ca, cb, cc), vis, op_vis, alpha, T_prev = c.conic, c.vis, c.op_vis, c.alpha, c.T_prev
+    for c in _plain_walk(I, image_width, image_height, tile_size, offsets, flatten_ids,
+                         tile_capacity, budget,
+                         _response_3dgs(means2d, conics, opacities)):
+        tt, valid, idx, ids = c.tt, c.valid, c.idx, c.ids
+        dx, dy, (ca, cb, cc) = c.geom
+        vis, op_vis, alpha, T_prev = c.vis, c.op_vis, c.alpha, c.T_prev
         live = c.included & ~c.skip
         w = torch.where(live, alpha * T_prev, torch.zeros_like(alpha))
 

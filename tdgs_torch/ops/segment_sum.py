@@ -115,19 +115,31 @@ def sort_ids(ids: torch.Tensor, n_valid: Optional[torch.Tensor] = None):
 
 class _GatherRowsSegsum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feats, ids):
-        ctx.save_for_backward(ids)
-        ctx.n_rows = feats.shape[0]
+    def forward(ctx, feats, ids, n_valid, abs_tap):
+        ctx.save_for_backward(ids, n_valid)
+        ctx.n_rows, ctx.F = feats.shape
+        ctx.with_abs = abs_tap is not None
         return feats[ids.long()]
 
     @staticmethod
     def backward(ctx, v_rows):
-        (ids,) = ctx.saved_tensors
-        sids, perm = sort_ids(ids)
-        return segment_rows_sum(v_rows.contiguous(), perm, sids, ctx.n_rows), None
+        ids, n_valid = ctx.saved_tensors
+        sids, perm = sort_ids(ids, n_valid)
+        sums = segment_rows_sum(v_rows.contiguous(), perm, sids, ctx.n_rows,
+                                abs_cols=ctx.with_abs)
+        v_abs = sums[:, ctx.F:] if ctx.with_abs else None
+        return sums[:, :ctx.F], None, None, v_abs
 
 
-def gather_rows_segsum(feats: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows_segsum(
+    feats: torch.Tensor,  # [n_rows, F]
+    ids: torch.Tensor,  # [E] int32
+    n_valid: Optional[torch.Tensor] = None,  # 0-d: slots at or past it are padding
+    abs_tap: Optional[torch.Tensor] = None,  # [n_rows, 2] zeros
+) -> torch.Tensor:
     """``feats[ids]`` whose VJP is a stable sort of ``ids`` and the segment
-    sum above, in place of an atomic scatter-add."""
-    return _GatherRowsSegsum.apply(feats, ids)
+    sum above, in place of an atomic scatter-add. Slots at or past
+    ``n_valid`` send no gradient back. The gradient of ``abs_tap`` is the
+    per-row sum of |cotangent[:, 0:2]| (the AbsGS signal of the JAX
+    package's ``absgrad_tap``, taken after the gather)."""
+    return _GatherRowsSegsum.apply(feats, ids, n_valid, abs_tap)

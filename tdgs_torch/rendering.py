@@ -1,10 +1,12 @@
-"""Rendering orchestrator: project → SH → tile-sort → rasterize (port of the
-3DGS branch of ``tdgs/rendering.py:43 rasterization``).
+"""Rendering orchestrators: project → SH → tile-sort → rasterize (port of
+``tdgs/rendering.py:43 rasterization``, 3DGS, and ``:583
+rasterization_2dgs``, surfels).
 
-Two rasterizers are ported: ``"packed_inference"`` (forward only) and
-``"packed"`` (differentiable: the training path), both through the
+Two rasterizers are ported for each: ``"packed_inference"`` (forward only)
+and ``"packed"`` (differentiable: the training path), both through the
 hand-written CUDA kernels on the card and their plain PyTorch versions on
-the CPU. The ``meta`` dict carries the same keys as the JAX package's.
+the CPU. The ``meta`` dicts carry the same keys as the JAX package's; their
+``isect_offsets`` is the packed stream's [T + 1] offsets.
 """
 
 from __future__ import annotations
@@ -16,12 +18,18 @@ import torch
 
 from tdgs_torch._device import DeviceLike, as_float, as_optional_float, resolve_device
 from tdgs_torch.ops.projection import fully_fused_projection
+from tdgs_torch.ops.projection_2dgs import fully_fused_projection_2dgs
+from tdgs_torch.ops.rasterize_2dgs_packed import (
+    rasterize_to_pixels_2dgs_packed,
+    rasterize_to_pixels_2dgs_packed_inference,
+)
 from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed,
     rasterize_to_pixels_packed_inference,
 )
 from tdgs_torch.ops.sh import spherical_harmonics
 from tdgs_torch.ops.tiling import isect_tiles_packed
+from tdgs_torch.utils.depth import depth_to_normal, rotate
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
 
@@ -32,6 +40,26 @@ _NOT_PORTED = {
     "eval3d": "ROADMAP queue 1, eval3d/3DGUT family",
     "eval3d_packed": "ROADMAP queue 1, eval3d/3DGUT family",
 }
+
+
+def _colors_per_camera(colors, sh_degree, means, viewmats, radii):
+    """Colours [..., C, N, D]: given per gaussian or per camera, or
+    evaluated from SH coefficients toward each camera (``sh_degree``)."""
+    batch_dims = tuple(means.shape[:-2])
+    num_batch_dims = len(batch_dims)
+    N, C = means.shape[-2], viewmats.shape[-3]
+    if sh_degree is None:
+        if colors.dim() == num_batch_dims + 2:
+            return colors[..., None, :, :].expand(batch_dims + (C, N, colors.shape[-1]))
+        return colors
+    campos = torch.linalg.inv(viewmats)[..., :3, 3]  # [..., C, 3]
+    dirs = means[..., None, :, :] - campos[..., :, None, :]  # [..., C, N, 3]
+    masks = (radii > 0).all(dim=-1)
+    if colors.dim() == num_batch_dims + 3:
+        shs = colors[..., None, :, :, :].expand(batch_dims + (C, N) + tuple(colors.shape[-2:]))
+    else:
+        shs = colors
+    return torch.clamp(spherical_harmonics(sh_degree, dirs, shs, masks=masks) + 0.5, min=0.0)
 
 
 def rasterization(
@@ -100,7 +128,6 @@ def rasterization(
 
     meta: Dict = {}
     batch_dims = tuple(means.shape[:-2])
-    num_batch_dims = len(batch_dims)
     B = math.prod(batch_dims) if batch_dims else 1
     N = means.shape[-2]
     C = viewmats.shape[-3]
@@ -147,26 +174,7 @@ def rasterization(
         "opacities": opacities_cn,
     })
 
-    # colors → [..., C, N, D]
-    if sh_degree is None:
-        if colors.dim() == num_batch_dims + 2:
-            colors_cn = colors[..., None, :, :].expand(
-                batch_dims + (C, N, colors.shape[-1])
-            )
-        else:
-            colors_cn = colors
-    else:
-        campos = torch.linalg.inv(viewmats)[..., :3, 3]  # [..., C, 3]
-        dirs = means[..., None, :, :] - campos[..., :, None, :]  # [..., C, N, 3]
-        masks = (radii > 0).all(dim=-1)
-        if colors.dim() == num_batch_dims + 3:
-            shs = colors[..., None, :, :, :].expand(
-                batch_dims + (C, N) + tuple(colors.shape[-2:])
-            )
-        else:
-            shs = colors
-        colors_cn = spherical_harmonics(sh_degree, dirs, shs, masks=masks)
-        colors_cn = torch.clamp(colors_cn + 0.5, min=0.0)
+    colors_cn = _colors_per_camera(colors, sh_degree, means, viewmats, radii)
 
     # depth channels per render mode
     if render_mode in ("RGB+D", "RGB+ED"):
@@ -227,3 +235,173 @@ def rasterization(
             dim=-1,
         )
     return render_colors, render_alphas, meta
+
+
+# the 2DGS rasterizers of the JAX package that wait for a later slice
+_NOT_PORTED_2DGS = {
+    "jax": "ROADMAP queue 1, 2DGS family: rasterize_2dgs_jax.py",
+}
+
+
+def rasterization_2dgs(
+    means,  # [..., N, 3]
+    quats,  # [..., N, 4]
+    scales,  # [..., N, 3] (z unused)
+    opacities,  # [..., N]
+    colors,  # [..., (C,) N, D] or [..., (C,) N, K, 3]
+    viewmats,  # [..., C, 4, 4]
+    Ks,  # [..., C, 3, 3]
+    width: int,
+    height: int,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    radius_clip: float = 0.0,
+    sh_degree: Optional[int] = None,
+    tile_size: int = 16,
+    backgrounds=None,  # [..., C, D]
+    render_mode: str = "RGB",
+    distloss: bool = False,
+    depth_mode: str = "expected",
+    isect_capacity: Optional[int] = None,
+    tile_capacity: int = 512,
+    max_tiles_per_gauss: int = 32,
+    isect_exact: bool = False,
+    isect_exact_depth: bool = False,
+    isect_split_k: Optional[int] = None,
+    isect_big_capacity: Optional[int] = None,
+    rasterizer: str = "packed_inference",
+    means2d_offset=None,  # [..., C, N, 2]
+    means2d_abs_tap=None,  # [..., C, N, 2]
+    device: DeviceLike = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Rasterize 2D (surfel) Gaussians (port of ``tdgs/rendering.py:583
+    rasterization_2dgs``). Returns (render_colors, render_alphas,
+    render_normals [world frame], render_normals_from_depth, render_distort,
+    render_median, meta).
+
+    ``rasterizer``: ``"packed"`` (differentiable: kernels 5 and 6 behind
+    autograd, all outputs; median depth is not differentiable) or
+    ``"packed_inference"`` (forward only, kernel 4; distortion and median
+    are zeros). A depth channel is appended to the colours when
+    ``distloss`` is set or the render mode asks for depth; "ED" modes divide
+    it by alpha after the render, and "RGB+ED"/"RGB+D" also return the
+    normals of that depth map (``depth_mode="median"``: of the median
+    depth). ``means2d_offset`` and ``means2d_abs_tap`` are the screen-space
+    taps of :func:`rasterization`."""
+    if rasterizer not in ("packed_inference", "packed"):
+        item = _NOT_PORTED_2DGS.get(rasterizer)
+        if item is None:
+            raise ValueError(f"unknown rasterizer {rasterizer!r}")
+        raise NotImplementedError(f"rasterizer={rasterizer!r} is not ported yet ({item})")
+    if render_mode not in RENDER_MODES:
+        raise ValueError(f"render_mode {render_mode!r} not in {RENDER_MODES}")
+    if means2d_abs_tap is not None and rasterizer != "packed":
+        raise ValueError("means2d_abs_tap requires the differentiable 'packed' rasterizer")
+    dev = resolve_device(device)
+    means, quats, scales, opacities, colors, viewmats, Ks = (
+        as_float(x, dev) for x in (means, quats, scales, opacities, colors, viewmats, Ks))
+    backgrounds = as_optional_float(backgrounds, dev)
+
+    batch_dims = tuple(means.shape[:-2])
+    B = math.prod(batch_dims) if batch_dims else 1
+    N = means.shape[-2]
+    C = viewmats.shape[-3]
+    I = B * C
+    if quats.shape != batch_dims + (N, 4) or scales.shape != batch_dims + (N, 3):
+        raise ValueError(f"quats {quats.shape} / scales {scales.shape}")
+    if opacities.shape != batch_dims + (N,):
+        raise ValueError(f"opacities {opacities.shape}")
+    if viewmats.shape != batch_dims + (C, 4, 4) or Ks.shape != batch_dims + (C, 3, 3):
+        raise ValueError(f"viewmats {viewmats.shape} / Ks {Ks.shape}")
+
+    radii, means2d, depths, ray_transforms, normals = fully_fused_projection_2dgs(
+        means, quats, scales, viewmats, Ks, width, height,
+        near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+    )
+    if means2d_offset is not None:
+        if tuple(means2d_offset.shape) != tuple(means2d.shape):
+            raise ValueError(f"means2d_offset {tuple(means2d_offset.shape)} for "
+                             f"means2d {tuple(means2d.shape)}")
+        means2d = means2d + means2d_offset
+    opacities_cn = opacities[..., None, :].expand(batch_dims + (C, N))
+    colors_cn = _colors_per_camera(colors, sh_degree, means, viewmats, radii)
+
+    # the depth channel, when asked for (it also feeds distortion and median)
+    need_depth = distloss or render_mode in ("D", "ED", "RGB+D", "RGB+ED")
+    if render_mode in ("D", "ED"):
+        colors_cn = depths[..., None]
+        if backgrounds is not None:
+            backgrounds = backgrounds.new_zeros(batch_dims + (C, 1))
+    elif need_depth:
+        colors_cn = torch.cat([colors_cn, depths[..., None]], dim=-1)
+        if backgrounds is not None:
+            backgrounds = torch.cat(
+                [backgrounds, backgrounds.new_zeros(batch_dims + (C, 1))], dim=-1)
+
+    tile_width = math.ceil(width / float(tile_size))
+    tile_height = math.ceil(height / float(tile_size))
+    isect = isect_tiles_packed(
+        means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
+        max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
+        exact=isect_exact, exact_depth=isect_exact_depth,
+        split_k=isect_split_k, big_capacity=isect_big_capacity,
+    )
+    raster_args = (
+        means2d.contiguous(), ray_transforms.contiguous(), colors_cn.contiguous(),
+        normals.contiguous(), opacities_cn.contiguous(), width, height, tile_size,
+        isect.offsets, isect.flatten_ids,
+    )
+    bg = None if backgrounds is None else backgrounds.contiguous()
+    if rasterizer == "packed":
+        (render_colors, render_alphas, render_normals_cam, render_distort,
+         render_median) = rasterize_to_pixels_2dgs_packed(
+            *raster_args, backgrounds=bg, tile_capacity=tile_capacity,
+            has_depth=need_depth, compute_distort=distloss or need_depth,
+            absgrad_dummy=(None if means2d_abs_tap is None
+                           else means2d_abs_tap.reshape(I * N, 2)),
+        )
+    else:
+        render_colors, render_alphas, render_normals_cam = (
+            rasterize_to_pixels_2dgs_packed_inference(
+                *raster_args, backgrounds=bg, tile_capacity=tile_capacity))
+        render_distort = torch.zeros_like(render_alphas)
+        render_median = torch.zeros_like(render_alphas)
+
+    if render_mode in ("ED", "RGB+ED"):
+        render_colors = torch.cat(
+            [render_colors[..., :-1],
+             render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)],
+            dim=-1,
+        )
+    camtoworlds = torch.linalg.inv(viewmats)
+    render_normals_from_depth = None
+    if render_mode in ("RGB+ED", "RGB+D"):
+        depth_for_normal = (render_colors[..., -1:] if depth_mode == "expected"
+                            else render_median)
+        render_normals_from_depth = depth_to_normal(depth_for_normal, camtoworlds, Ks)
+
+    meta = {
+        "radii": radii,
+        "means2d": means2d,
+        "depths": depths,
+        "ray_transforms": ray_transforms,
+        "opacities": opacities_cn,
+        "normals": normals,
+        "tile_width": tile_width,
+        "tile_height": tile_height,
+        "tiles_per_gauss": None,
+        "isect_ids": isect.isect_keys,
+        "flatten_ids": isect.flatten_ids,
+        "isect_offsets": isect.offsets,
+        "n_isects": isect.n_isects,
+        "n_dropped": isect.n_dropped,
+        "width": width,
+        "height": height,
+        "tile_size": tile_size,
+        "n_cameras": C,
+        "render_distort": render_distort,
+    }
+    # normals to the world frame, in true float32
+    render_normals = rotate(camtoworlds[..., :3, :3], render_normals_cam)
+    return (render_colors, render_alphas, render_normals, render_normals_from_depth,
+            render_distort, render_median, meta)

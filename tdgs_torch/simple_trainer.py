@@ -1,9 +1,14 @@
-"""3DGS training command line of the port (counterpart of the JAX
-package's ``examples/simple_trainer.py``): the same argparse flags over the
-same ``Config`` fields, the same presets, plus ``--device``.
+"""Training command line of the port (counterpart of the JAX package's
+``examples/simple_trainer.py``): the same argparse flags over the same
+``Config`` fields, the same presets, plus ``--device``. It trains 3DGS, or
+2DGS surfels with ``--model-type 2dgs`` (with ``--normal-loss`` and
+``--dist-loss``, live from ``--normal-start-iter`` and ``--dist-start-iter``),
+then evaluates on the test views.
 
     python -m tdgs_torch.simple_trainer default --data-dir <colmap scene> \\
         --data-factor 1 --result-dir results/scene [--device cpu]
+    python -m tdgs_torch.simple_trainer default --model-type 2dgs \\
+        --normal-loss --dist-loss --data-dir <colmap scene> [--device cpu]
 
 The ``mcmc`` preset raises until the MCMC strategy is ported. The camera
 trajectory video is not ported either: the run says so and skips it.

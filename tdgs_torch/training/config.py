@@ -180,7 +180,6 @@ class Config:
         """Raise ``NotImplementedError`` for a feature set here that the
         port does not have yet, naming its ROADMAP queue."""
         unported = [
-            (self.model_type != "3dgs", "model_type='2dgs'", "2DGS family"),
             (self.with_ut or self.with_eval3d, "with_ut/with_eval3d", "eval3d/3DGUT family"),
             (self.sharded, "sharded", "parallel/"),
             (self.pose_opt or self.pose_noise > 0.0, "pose_opt/pose_noise",
@@ -190,7 +189,8 @@ class Config:
             (self.with_segmentation or bool(self.load_instance_masks),
              "with_segmentation/load_instance_masks", "segmentation"),
             (self.depth_loss or self.depth_normal_loss or self.load_normals
-             or self.save_depth_normal_vis, "depth/normal losses", "2DGS family"),
+             or self.save_depth_normal_vis, "depth/normal losses",
+             "3DGS training remainders"),
             (self.compression is not None, "compression", "remaining modules"),
             (not self.disable_viewer, "the viewer", "remaining modules"),
             (self.ckpt_format != "pickle", "ckpt_format='orbax'", "3DGS training remainders"),

@@ -1,17 +1,20 @@
-"""Single-device 3DGS trainer (port of ``tdgs/training/trainer.py``:
-``make_lr_schedules`` :33, ``SplatOptimizer`` :56 and the 3DGS path of
-``Runner`` :97).
+"""Single-device 3DGS and 2DGS trainer (port of
+``tdgs/training/trainer.py``: ``make_lr_schedules`` :33, ``SplatOptimizer``
+:56 and the single-device paths of ``Runner`` :97).
 
 One training step: splat activations → ``rasterization(rasterizer=
 "packed")`` with the screen-space taps (projection, SH, tile sort, then the
 forward kernel; backward kernel and segment-sum kernel under autograd) →
 (1−λ)·L1 + λ·(1−SSIM) → gradients → selective Adam without bias correction
-→ DefaultStrategy accumulation and refine. Gaussian state is the JAX
-package's fixed-capacity layout (dead rows padded), and capacity may double
-between steps (``maybe_grow_capacity``). Everything runs eagerly in PyTorch
-on the runner's device; random draws come from one ``torch.Generator``.
-Eval renders the test views through the forward-only ``packed_inference``
-rasterizer and reports PSNR and SSIM (LPIPS is not ported).
+→ DefaultStrategy accumulation and refine. With ``model_type="2dgs"`` the
+render is ``rasterization_2dgs`` in "RGB+ED" (kernels 5 and 6, the segment
+sum) and the loss adds the normal-consistency and distortion terms.
+Gaussian state is the JAX package's fixed-capacity layout (dead rows
+padded), and capacity may double between steps (``maybe_grow_capacity``).
+Everything runs eagerly in PyTorch on the runner's device; random draws
+come from one ``torch.Generator``. Eval renders the test views through the
+forward-only ``packed_inference`` rasterizer and reports PSNR and SSIM
+(LPIPS is not ported).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from tdgs_torch._device import DeviceLike, resolve_device
 from tdgs_torch.datasets import Dataset, Parser
 from tdgs_torch.models import gaussians as G
 from tdgs_torch.ops.adam import adam_moments
-from tdgs_torch.rendering import rasterization
+from tdgs_torch.rendering import rasterization, rasterization_2dgs
 from tdgs_torch.strategy import DefaultStrategy
 from tdgs_torch.strategy.ops import pad_rows, tree_map
 from tdgs_torch.training import losses as L
@@ -107,7 +110,8 @@ class _MetricsLog:
 
 
 class Runner:
-    """Training runner for single-device 3DGS with the DefaultStrategy."""
+    """Training runner for single-device 3DGS or 2DGS with the
+    DefaultStrategy."""
 
     def __init__(self, cfg: Config, device: DeviceLike = None):
         cfg = cfg.adjusted()
@@ -174,6 +178,17 @@ class Runner:
         means, quats, scales, opacities, sh = G.splat_activations(params)
         if rasterizer is None:
             rasterizer = "packed" if cfg.rasterizer == "auto" else cfg.rasterizer
+        if cfg.model_type == "2dgs":
+            # eval and render only: the 2DGS train step renders in _loss_2dgs
+            out = rasterization_2dgs(
+                means, quats, scales, opacities, sh, viewmats, Ks, width, height,
+                sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+                render_mode=render_mode, backgrounds=backgrounds,
+                tile_capacity=cfg.tile_capacity, isect_capacity=cfg.isect_capacity,
+                max_tiles_per_gauss=cfg.max_tiles_per_gauss, isect_exact=cfg.isect_exact,
+                rasterizer=rasterizer, device=self.device,
+            )
+            return out[0], out[1], out[6]
         return rasterization(
             means, quats, scales, opacities, sh, viewmats, Ks, width, height,
             sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
@@ -216,13 +231,16 @@ class Runner:
         if use_absgrad:
             abs_tap = torch.zeros((B, C, 2), device=dev, requires_grad=True)
             taps.append(abs_tap)
-        img, _, meta = self.rasterize_splats(
-            params, batch["viewmat"], batch["K"], W, H, sh_degree,
-            means2d_offset=tap, means2d_abs_tap=abs_tap, backgrounds=backgrounds)
-        if "mask" in batch:
-            img = img * batch["mask"][..., None]
-        colors = img[..., :3]
-        loss = L.d_ssim_l1_loss(colors, images, cfg.ssim_lambda)
+        if cfg.model_type == "2dgs":
+            loss, meta = self._loss_2dgs(params, batch, step, sh_degree, tap, abs_tap,
+                                         backgrounds)
+        else:
+            img, _, meta = self.rasterize_splats(
+                params, batch["viewmat"], batch["K"], W, H, sh_degree,
+                means2d_offset=tap, means2d_abs_tap=abs_tap, backgrounds=backgrounds)
+            if "mask" in batch:
+                img = img * batch["mask"][..., None]
+            loss = L.d_ssim_l1_loss(img[..., :3], images, cfg.ssim_lambda)
         if cfg.opacity_reg > 0:
             loss = loss + cfg.opacity_reg * torch.sigmoid(params["opacities"]).abs().mean()
         if cfg.scale_reg > 0:
@@ -250,6 +268,37 @@ class Runner:
         return loss.detach(), {"radii": radii, "visibility": visibility,
                                "v_means2d": v_means2d, "lr_means": lr_dict["means"],
                                "n_dropped": meta["n_dropped"]}
+
+    def _loss_2dgs(self, params, batch, step, sh_degree, tap, abs_tap, backgrounds):
+        """The 2DGS step's render and losses (``tdgs/training/trainer.py``
+        :644-738): an "RGB+ED" render through the differentiable packed
+        rasterizer, D-SSIM + L1 on its colours, the normal consistency of
+        the surfel normals against the depth map's normals (weighted by the
+        detached alpha) and the mean distortion, each weighted by its lambda
+        once past its start step."""
+        cfg = self.cfg
+        images = batch["image"]
+        H, W = images.shape[1:3]
+        means, quats, scales, opacities, sh = G.splat_activations(params)
+        img, alpha, normals, normals_from_depth, distort, _, meta = rasterization_2dgs(
+            means, quats, scales, opacities, sh, batch["viewmat"], batch["K"], W, H,
+            sh_degree=sh_degree, render_mode="RGB+ED", distloss=cfg.dist_loss,
+            means2d_offset=tap, means2d_abs_tap=abs_tap,
+            tile_capacity=cfg.tile_capacity, isect_capacity=cfg.isect_capacity,
+            max_tiles_per_gauss=cfg.max_tiles_per_gauss, isect_exact=cfg.isect_exact,
+            backgrounds=backgrounds, rasterizer="packed", device=self.device,
+        )
+        if "mask" in batch:
+            img = img * batch["mask"][..., None]
+        loss = L.d_ssim_l1_loss(img[..., :3], images, cfg.ssim_lambda)
+        normal_lambda = cfg.normal_lambda if step > cfg.normal_start_iter else 0.0
+        if cfg.normal_loss and normal_lambda:
+            nfd = normals_from_depth * alpha.detach()
+            loss = loss + normal_lambda * (1.0 - (normals * nfd).sum(-1)).mean()
+        dist_lambda = cfg.dist_lambda if step > cfg.dist_start_iter else 0.0
+        if cfg.dist_loss and dist_lambda:
+            loss = loss + dist_lambda * distort.mean()
+        return loss, meta
 
     def _batch(self, idx) -> Dict[str, torch.Tensor]:
         items = [self.trainset[int(i)] for i in idx]

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-compositing forward (kernel 1), its backward (kernel 2) and the sorted
-segment sum (kernel 3).
+compositing forward (kernel 1), its backward (kernel 2), the sorted
+segment sum (kernel 3), and the 2DGS forwards (kernels 4 and 5) and
+backward (kernel 6).
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card. The file imports neither JAX nor the JAX package, so it also
@@ -13,7 +14,11 @@ for the forward (the kernel accumulates colours in a running sum, the plain
 version in a matrix product); max|Δ| / max|plain| ≤ 1e-3 per gradient group
 for the backward (the kernel sums 256 pixels by shuffles, the plain version
 with ``sum``); 1e-5 relative per column for the segment sum, whose two
-launches must agree bit for bit.
+launches must agree bit for bit. The 2DGS kernels are held as kernels 1
+and 2 are, with the distortion and the gradient groups relative to their
+scale and median depth, a selected entry, allowed to differ in 1% of the
+pixels (the plain version's cumprod on the card rounds its running
+product differently at the 1e-4 cutoff).
 """
 
 import numpy as np
@@ -212,3 +217,132 @@ def test_packed_autograd_on_card_matches_cpu(cuda_device, n_images):
         rng = np.random.default_rng(140)
     for g, w in zip(grads[str(cuda_device)], grads["cpu"]):
         assert _rel_err(g, w) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# 2DGS: kernels 4 (inference forward), 5 (training forward) and 6 (backward)
+# ---------------------------------------------------------------------------
+
+
+def _surfel_stream(seed, D, n_images=1, N=300):
+    """Random surfels projected and tiled by the port on the CPU; every
+    third one below a pixel (the σ2d branch). The last colour channel is
+    the depth, as render_mode "RGB+ED" gives the rasterizer."""
+    from tdgs_torch.ops.projection_2dgs import fully_fused_projection_2dgs
+    from tdgs_torch.ops.rasterize_2dgs_packed import feature_rows
+
+    rng = np.random.default_rng(seed)
+    means = (rng.normal(size=(N, 3)) * [1.0, 0.8, 0.5] + [0, 0, 5]).astype(np.float32)
+    quats = rng.normal(size=(N, 4)).astype(np.float32)
+    scales = rng.uniform(0.05, 0.4, size=(N, 3)).astype(np.float32)
+    scales[::3] *= 0.08
+    viewmats = np.tile(np.eye(4, dtype=np.float32), (n_images, 1, 1))
+    viewmats[1:, :3, 3] = [0.3, -0.2, 0.1]
+    Ks = np.tile(np.array([[40.0, 0, W / 2], [0, 40, H / 2], [0, 0, 1]], np.float32),
+                 (n_images, 1, 1))
+    radii, means2d, depths, M, normals = fully_fused_projection_2dgs(
+        *map(torch.from_numpy, (means, quats, scales, viewmats, Ks)), W, H)
+    isect = isect_tiles_packed(means2d, radii, depths, 16, 3, 3, max_tiles_per_gauss=16)
+    colors = torch.from_numpy(rng.uniform(0, 1, size=(n_images, N, D)).astype(np.float32))
+    colors[..., -1] = depths
+    opac = torch.from_numpy(rng.uniform(0.05, 0.95, size=(n_images, N)).astype(np.float32))
+    feats = feature_rows(means2d, M, colors, normals, opac)
+    return dict(rows=feats[isect.flatten_ids.long()].contiguous(), offsets=isect.offsets,
+                means2d=means2d, ray_transforms=M, colors=colors, normals=normals,
+                opacities=opac, flatten_ids=isect.flatten_ids)
+
+
+def _median_share(got, want):
+    return float(((got - want).abs() > 1e-5).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4, 8, 32])  # every templated channel bound
+@pytest.mark.parametrize("tile_capacity", [128, 1024])
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_2dgs_kernels_match_plain_on_card(cuda_device, D, tile_capacity, n_images):
+    from tdgs_torch.ops import rasterize_2dgs_packed as R
+
+    s = _surfel_stream(150 + D, D, n_images)
+    rows, offs = s["rows"].to(cuda_device), s["offsets"].to(cuda_device)
+    I, tc = n_images, tile_capacity
+    geo = (rows, offs, I, D, W, H, 16)
+    bg = torch.linspace(0.1, 0.9, D, device=cuda_device).repeat(I, 1)
+
+    before = {k: _build.LAUNCHES.get(k, 0) for k in (R.KERNEL_FWD, R.KERNEL_TRAIN, R.KERNEL_BWD)}
+    got = R.rasterize_2dgs_inference(*geo, bg, tc)
+    p_img, p_nrm, p_T, p_dist, p_med, _ = R.rasterize_2dgs_fwd_plain(
+        *geo, tc, depth_row=D - 1, compute_distort=True)
+    want = (p_img + p_T[..., None] * bg[:, None, None, :], (1.0 - p_T)[..., None], p_nrm)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    assert float(want[1].max()) > 0.5  # the surfels cover pixels
+
+    img, nrm, T, dist, med = R.rasterize_2dgs_train_fwd(*geo, tc, D - 1, True)
+    for g, w in ((img, p_img), (nrm, p_nrm), (T, p_T)):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    assert _rel_err(dist, p_dist) <= 1e-3 and float(p_dist.abs().max()) > 0
+    assert _median_share(med, p_med) <= 0.01
+
+    rng = np.random.default_rng(D + 7 * n_images)
+    cot = [torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(cuda_device)
+           for x in (img, nrm, T, dist)]
+    v_rows = R.rasterize_2dgs_bwd(*geo, img, nrm, T, dist, *cot, tc, D - 1, True)
+    want_rows = R.rasterize_2dgs_bwd_plain(*geo, img, nrm, T, dist, *cot, tc, D - 1, True)
+    torch.cuda.synchronize()
+    after = {k: _build.LAUNCHES.get(k, 0) for k in before}
+    assert all(after[k] == before[k] + 1 for k in before)
+    assert v_rows.shape == want_rows.shape == (rows.shape[0], 12 + D + 3)
+    assert bool(torch.isfinite(v_rows).all())
+    groups = {"means2d": slice(0, 2), "t0_tpx_tpy": slice(2, 11), "opacity": slice(11, 12),
+              "channels": slice(12, None)}
+    for name, cols in groups.items():
+        assert _rel_err(v_rows[:, cols], want_rows[:, cols]) <= 1e-3, name
+    n = int(s["offsets"][-1])
+    assert float(v_rows[n:].abs().sum()) == 0.0  # the stream's padding
+
+
+@pytest.mark.cuda
+def test_2dgs_wrappers_reject_bad_inputs(cuda_device):
+    from tdgs_torch.ops import rasterize_2dgs_packed as R
+
+    s = _surfel_stream(160, 4, N=30)
+    rows, offs = s["rows"].to(cuda_device), s["offsets"].to(cuda_device)
+    with pytest.raises(TypeError):  # int64 offsets
+        R.rasterize_2dgs_inference(rows, offs.long(), 1, 4, W, H, 16)
+    with pytest.raises(ValueError):  # rows of the wrong width for D
+        R.rasterize_2dgs_train_fwd(rows, offs, 1, 5, W, H, 16)
+    with pytest.raises(ValueError):  # operands on two devices
+        R.rasterize_2dgs_inference(rows, offs.cpu(), 1, 4, W, H, 16)
+    with pytest.raises(ValueError):  # a depth row outside the channels
+        R.rasterize_2dgs_train_fwd(rows, offs, 1, 4, W, H, 16, depth_row=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_2dgs_autograd_on_card_matches_cpu(cuda_device, n_images):
+    """The whole differentiable 2DGS rasterizer: kernels 5, 6 and the
+    segment sum on the card against the plain versions on the CPU, with a
+    background, distortion and the AbsGS tap."""
+    from tdgs_torch.ops.rasterize_2dgs_packed import rasterize_to_pixels_2dgs_packed
+
+    s = _surfel_stream(170, 4, n_images)
+    names = ("means2d", "ray_transforms", "colors", "normals", "opacities")
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        rng = np.random.default_rng(170)
+        leaves = [s[k].to(dev).clone().requires_grad_(True) for k in names]
+        dummy = torch.zeros((n_images * s["colors"].shape[1], 2), device=dev,
+                            requires_grad=True)
+        outs = rasterize_to_pixels_2dgs_packed(
+            *leaves, W, H, 16, s["offsets"].to(dev), s["flatten_ids"].to(dev),
+            backgrounds=torch.tensor([[0.2, 0.5, 0.8, 0.0]] * n_images, device=dev),
+            has_depth=True, compute_distort=True, absgrad_dummy=dummy)
+        loss = sum((o * torch.from_numpy(rng.normal(size=tuple(o.shape)).astype(np.float32))
+                    .to(dev)).sum() for o in outs[:4])
+        loss.backward()
+        grads[str(dev)] = [x.grad.cpu() for x in leaves + [dummy]]
+    for name, g, w in zip(names + ("abs",), grads[str(cuda_device)], grads["cpu"]):
+        assert _rel_err(g, w) <= 1e-3, name
