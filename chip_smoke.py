@@ -70,7 +70,6 @@ TOL = 1e-3  # kernel vs plain version, absolute, colors and alphas
 BWD_RTOL = 1e-3  # kernel 2 vs plain: max|Δ| / max|plain| per gradient group
 SEG_RTOL = 1e-5  # kernel 3 vs plain: max|Δ| / max|plain| per column group
 KERNELS = (KERNEL, KERNEL_BWD, S.KERNEL)
-KERNELS_2DGS = (R2.KERNEL_FWD, R2.KERNEL_TRAIN, R2.KERNEL_BWD)
 DIST_RTOL = 1e-3  # kernel 5 vs plain: distortion, max|Δ| / max|plain|
 MEDIAN_SHARE = 0.01  # kernel 5 vs plain: share of pixels whose median differs
 
