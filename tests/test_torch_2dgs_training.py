@@ -147,11 +147,12 @@ def test_rasterization_2dgs_taps_and_gradients_match_jax(jax_2dgs_fixed):
 def test_reference_differs_without_the_fix():
     """Without the transposed ray transform the JAX package's surfels fill
     their tiles at about their opacity; the port's do not."""
-    s = _scene(602, C=1)
+    s = _scene(602, N=16, C=1)
     args = [s[k] for k in LEAVES + ("viewmats", "Ks")]
-    want = j_render(*map(jnp.asarray, args), s["width"], s["height"], rasterizer="packed",
-                    **KW)
-    got = t_render(*args, s["width"], s["height"], rasterizer="packed", device="cpu", **KW)
+    want = j_render(*map(jnp.asarray, args), s["width"], s["height"],
+                    rasterizer="packed_inference", **KW)
+    got = t_render(*args, s["width"], s["height"], rasterizer="packed_inference",
+                   device="cpu", **KW)
     assert float(np.abs(got[1].detach().numpy() - np.asarray(want[1])).max()) > 0.1
     assert float(got[1].mean()) < float(np.asarray(want[1]).mean())
 
@@ -202,8 +203,10 @@ def test_one_2dgs_runner_step_matches_jax(jax_2dgs_fixed, scene, tmp_path, absgr
     """One step of each package from the same mid-training state, both
     losses live (lambdas raised to 0.5 so that they weigh in the
     gradients). The JAX Runner renders through its jnp rasterizer on the
-    CPU (dense tiling); the test scene's gaussians sit at distinct depths,
-    so both tilings order each tile's entries alike."""
+    CPU (dense tiling), whose entry order can differ from the packed sort's
+    on near-equal depths; the step is held at the 3DGS step's tolerances
+    (tests/test_torch_training.py), which the test scene's 120 gaussians,
+    at distinct depths, meet."""
     from tdgs.models import gaussians as jg
     from tdgs.training.trainer import Runner as JRunner
     from tdgs_torch.training.trainer import Runner as TRunner

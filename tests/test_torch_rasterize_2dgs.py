@@ -235,7 +235,7 @@ def test_plain_truncation_matches_pallas_with_carry_artefact():
     entry its gradient; the JAX backward zeroes the kept entries of a
     truncated tile that share the next tile's first 128-entry chunk.
     Zeroing exactly those slots in the port's per-entry rows gives the JAX
-    gradients; without it they differ. (About 11 s on one CPU worker:
+    gradients; without it they differ. (About 13 s on one CPU worker:
     four tiles of about 150 entries, two chunks each, in interpret mode.)"""
     tc = 128
     s = _surfel_stream(503, N=200, width=32, height=32, min_scale=0.4)
