@@ -44,7 +44,6 @@ from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed_inference_plain,
 )
 from tdgs_torch.ops import rasterize_2dgs_packed as R2
-from tdgs_torch.ops.sh import spherical_harmonics
 from tdgs_torch.physics import (
     PhysicsParams,
     extract_bodies_from_splats,
@@ -55,6 +54,7 @@ from tdgs_torch.physics import (
     settle_on_ground,
 )
 from tdgs_torch.physics.bodies import BodyState, RigidBodies
+from tdgs_torch.rendering import _colors_per_camera
 from tdgs_torch.strategy import DefaultStrategy
 from tdgs_torch.training.config import Config
 from tdgs_torch.training.trainer import Runner
@@ -180,11 +180,7 @@ def kernel_inputs(sc, render_mode="RGB", backgrounds=None, **kw):
         sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
         sc["viewmats"], sc["Ks"], WIDTH, HEIGHT, sh_degree=3,
         render_mode=render_mode, backgrounds=backgrounds, device=DEVICE, **kw)
-    campos = torch.linalg.inv(sc["viewmats"])[..., :3, 3]
-    dirs = sc["means"][None] - campos[:, None, :]
-    colors = spherical_harmonics(3, dirs, sc["sh"][None].expand(
-        (1,) + tuple(sc["sh"].shape)), masks=(meta["radii"] > 0).all(-1))
-    colors = torch.clamp(colors + 0.5, min=0.0)
+    colors = _colors_per_camera(sc["sh"], 3, sc["means"], sc["viewmats"], meta["radii"])
     if render_mode == "RGB+ED":
         colors = torch.cat([colors, meta["depths"][..., None]], -1)
         if backgrounds is not None:
@@ -533,7 +529,8 @@ def train_parity(name, args, tile_capacity, seed):
         raise RuntimeError(f"train_parity {name}: backward {bwd_rel} > {BWD_RTOL}")
     if not max(seg_rel.values()) <= SEG_RTOL or not bitwise:
         raise RuntimeError(f"train_parity {name}: segment sum {seg_rel}, bitwise {bitwise}")
-    return dict(fwd_err=fwd_err, bwd_abs=bwd_abs, seg_abs=seg_abs,
+    return dict(fwd=fwd_err, bwd=bwd_abs, seg=seg_abs,
+                bwd_rel=max(bwd_rel.values()), seg_rel=max(seg_rel.values()),
                 inputs=(args, img, trans, v_img, v_t, rows))
 
 
@@ -545,8 +542,7 @@ def phase_train_parity(bench, heavy, cap):
     a = train_parity("a_bench", args, 1024, seed=1)
     args_h, _, _ = kernel_inputs(heavy, isect_exact=True)
     b = train_parity("b_heavy_overlap_truncated", args_h, 128, seed=2)
-    errs = dict(fwd=max(a["fwd_err"], b["fwd_err"]), bwd=max(a["bwd_abs"], b["bwd_abs"]),
-                seg=max(a["seg_abs"], b["seg_abs"]))
+    errs = {k: max(a[k], b[k]) for k in ("fwd", "bwd", "seg", "bwd_rel", "seg_rel")}
     return errs, a["inputs"]
 
 
@@ -684,18 +680,28 @@ def phase_render_train(bench, cap, n_steps=20):
     return launches
 
 
-def phase_trainer(root, scene_s, n_steps=100):
+def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100):
     """The port's Runner on make_rich_scene at the JAX package's defaults
     (40 images of 1236x822, 150k ground-truth gaussians, 40k SfM points,
     seed 11), written to ``root`` in ``scene_s`` seconds: packed rasterizer,
     SH 3, DefaultStrategy refining at steps 40 and 80, eval on the test
-    views at the end."""
+    views at the end through the forward-only kernel (1, or 4 for 2DGS).
+    ``model_type="2dgs"`` trains surfels with the normal-consistency and
+    distortion losses live from steps 30 and 10."""
+    if model_type == "2dgs":
+        name, eval_kernel = "trainer_2dgs", R2.KERNEL_FWD
+        kernels = (S.KERNEL, R2.KERNEL_TRAIN, R2.KERNEL_BWD)
+        extra = dict(model_type="2dgs", normal_loss=True, dist_loss=True,
+                     normal_start_iter=30, dist_start_iter=10)
+    else:
+        name, eval_kernel, kernels, extra = "trainer", KERNEL, KERNELS, {}
     cfg = Config(
-        data_dir=root, result_dir=f"{root}/results", data_factor=1,
+        data_dir=root, result_dir=f"{root}/results_{model_type}", data_factor=1,
         max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
         sh_degree_interval=20, rasterizer="packed", tb_every=5,
         strategy=DefaultStrategy(refine_start_iter=20, refine_every=40,
                                  refine_stop_iter=1000, reset_every=10_000),
+        **extra,
     )
     runner = Runner(cfg, device=DEVICE)
     from tdgs_torch.models.gaussians import alive_mask
@@ -707,8 +713,10 @@ def phase_trainer(root, scene_s, n_steps=100):
     out = runner.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
+    _build.reset_launches()
     stats = runner.eval(n_steps)
+    eval_launches = _build.LAUNCHES.get(eval_kernel, 0)
     hist = out["history"]
     # one more step, split: the batch's decode on the host, then the
     # step itself traced (it changes the splats after the eval above)
@@ -719,25 +727,29 @@ def phase_trainer(root, scene_s, n_steps=100):
     finite = all(bool(torch.isfinite(v).all()) for v in runner.splats.values())
     finite = finite and all(np.isfinite([h["loss"] for h in hist]))
     finite = finite and np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
-    emit("trainer", steps=n_steps, scene_s=scene_s, train_images=len(runner.trainset),
+    emit(name, steps=n_steps, scene_s=scene_s, train_images=len(runner.trainset),
          test_images=len(runner.valset), width=int(runner.parser.imsize_dict[1][0]),
          height=int(runner.parser.imsize_dict[1][1]), capacity=runner.capacity,
          alive_init=alive0, steps_per_s=n_steps / wall, wall_s=wall,
-         loss_first=hist[0], loss_last=hist[-1], refines=runner.refines,
-         launches=launches, eval_psnr=stats["psnr"], eval_ssim=stats["ssim"],
+         loss_first=hist[0], loss_last=hist[-1], loss_history=hist,
+         refines=runner.refines, launches=launches, eval_kernel=eval_kernel,
+         eval_launches=eval_launches, eval_psnr=stats["psnr"], eval_ssim=stats["ssim"],
          eval_num_gs=stats["num_GS"], all_finite=bool(finite),
          data_ms_per_step=data_ms, traced_step=step_trace)
     refined = [r["step"] for r in runner.refines]
     if not hist[-1]["loss"] < hist[0]["loss"]:
-        raise RuntimeError(f"trainer: loss did not drop {hist[0]} -> {hist[-1]}")
+        raise RuntimeError(f"{name}: loss did not drop {hist[0]} -> {hist[-1]}")
     if 40 not in refined or 80 not in refined:
-        raise RuntimeError(f"trainer: strategy refined at {refined}, not 40 and 80")
+        raise RuntimeError(f"{name}: strategy refined at {refined}, not 40 and 80")
     if not finite:
-        raise RuntimeError("trainer: non-finite params, loss or eval")
-    for k in KERNELS:
+        raise RuntimeError(f"{name}: non-finite params, loss or eval")
+    for k in kernels:
         if launches[k] < n_steps:
-            raise RuntimeError(f"trainer launched {k} {launches[k]} < {n_steps} times")
-    return launches
+            raise RuntimeError(f"{name} launched {k} {launches[k]} < {n_steps} times")
+    if eval_launches < len(runner.valset):
+        raise RuntimeError(f"{name}: eval launched {eval_kernel} {eval_launches} times "
+                           f"for {len(runner.valset)} views")
+    return launches, eval_launches
 
 
 # ---------------------------------------------------------------------------
@@ -749,17 +761,16 @@ def phase_trainer(root, scene_s, n_steps=100):
 def kernel_inputs_2dgs(sc, render_mode="RGB+ED", distloss=True, **kw):
     """The 2DGS kernels' inputs for one frame, built by the port's own
     projection, SH and tiling (rasterization_2dgs's meta): stream-order
-    feature rows, offsets, the image count and the channel count D."""
+    feature rows, offsets, the image count and the channel count D (3 for
+    "RGB", 4 with the depth channel that "RGB+ED" and distloss add)."""
     out = tdgs_torch.rasterization_2dgs(
         sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
         sc["viewmats"], sc["Ks"], WIDTH, HEIGHT, sh_degree=3, render_mode=render_mode,
         distloss=distloss, device=DEVICE, **kw)
     meta = out[6]
-    campos = torch.linalg.inv(sc["viewmats"])[..., :3, 3]
-    dirs = sc["means"][None] - campos[:, None, :]
-    colors = spherical_harmonics(3, dirs, sc["sh"][None].expand(
-        (1,) + tuple(sc["sh"].shape)), masks=(meta["radii"] > 0).all(-1))
-    colors = torch.cat([torch.clamp(colors + 0.5, min=0.0), meta["depths"][..., None]], -1)
+    colors = _colors_per_camera(sc["sh"], 3, sc["means"], sc["viewmats"], meta["radii"])
+    if distloss or render_mode == "RGB+ED":
+        colors = torch.cat([colors, meta["depths"][..., None]], -1)
     feats = R2.feature_rows(meta["means2d"], meta["ray_transforms"], colors,
                             meta["normals"], meta["opacities"])
     rows = feats[meta["flatten_ids"].long()].contiguous()
@@ -795,14 +806,62 @@ def kernel_work_2dgs(args, tile_capacity, evaluations):
     return out
 
 
-def parity_2dgs(name, args, tile_capacity, seed):
-    """Kernels 4, 5 and 6 against their plain versions on the same inputs,
-    random cotangents; fails above the tolerances."""
-    rows, offsets, I, D, W, H, ts = args
-    geo = (rows, offsets, I, D, W, H, ts)
-    inf = R2.rasterize_2dgs_inference(*geo, None, tile_capacity)
-    p_img, p_nrm, p_T, p_dist, p_med, evals = R2.rasterize_2dgs_fwd_plain(
-        *geo, tile_capacity, depth_row=D - 1, compute_distort=True)
+def _abs_err(a, b):
+    return float((a - b).abs().max())
+
+
+def inference_errors(args, tile_capacity, plain, backgrounds=None):
+    """Kernel 4 against its plain version: ``plain`` is
+    rasterize_2dgs_fwd_plain's output on ``args``, with the background
+    blended as the wrapper's CPU path blends it. max|Δ| of colours, alpha
+    and normals, and whether the kernel's outputs are finite."""
+    I, D = args[2], args[3]
+    img, alp, nrm = R2.rasterize_2dgs_inference(*args, backgrounds, tile_capacity)
+    p_img, p_nrm, p_T = plain[:3]
+    p_alp = 1.0 - p_T
+    if backgrounds is not None:
+        p_img = p_img + (1.0 - p_alp)[..., None] * backgrounds.reshape(I, 1, 1, D)
+    finite = all(bool(torch.isfinite(x).all()) for x in (img, alp, nrm))
+    return dict(colors=_abs_err(img, p_img), alpha=_abs_err(alp[..., 0], p_alp),
+                normals=_abs_err(nrm, p_nrm)), finite
+
+
+def stream_stats(offsets, tile_capacity):
+    counts = torch.diff(offsets.long())
+    return dict(n_isects=int(counts.sum()),
+                tiles_cut=int((counts > max_entries_per_tile(tile_capacity)).sum()))
+
+
+def parity_2dgs_inference(name, args, backgrounds, tile_capacity=1024):
+    """Kernel 4 as its main paths call it, "RGB" (D = 3): without a
+    background (the bench render) and with one blended in the kernel (the
+    Runner's eval). Fails above TOL."""
+    plain = R2.rasterize_2dgs_fwd_plain(*args, tile_capacity)
+    errs, finite = {}, True
+    for case, bg in (("no_background", None), ("background", backgrounds)):
+        errs[case], ok = inference_errors(args, tile_capacity, plain, bg)
+        finite = finite and ok
+    worst = max(max(e.values()) for e in errs.values())
+    emit("parity_2dgs", case=name, tile_capacity=tile_capacity, D=args[3],
+         **stream_stats(args[1], tile_capacity), pixel_entry_evaluations=int(plain[5]),
+         alpha_mean=float((1.0 - plain[2]).mean()), inference_max_abs_err=errs, tol=TOL,
+         finite=finite)
+    if not finite:
+        raise RuntimeError(f"parity_2dgs {name}: non-finite kernel output")
+    if not worst <= TOL:
+        raise RuntimeError(f"parity_2dgs {name}: kernel 4 {errs} > {TOL}")
+    return dict(fwd=worst, evaluations=int(plain[5]), inputs=args)
+
+
+def parity_2dgs(name, geo, tile_capacity, seed):
+    """Kernels 4, 5 and 6 against their plain versions on "RGB+ED" inputs
+    with the distortion (the training path's), random cotangents; fails
+    above the tolerances."""
+    D = geo[3]
+    plain = R2.rasterize_2dgs_fwd_plain(*geo, tile_capacity, depth_row=D - 1,
+                                        compute_distort=True)
+    p_img, p_nrm, p_T, p_dist, p_med, evals = plain
+    fwd_err, fwd_finite = inference_errors(geo, tile_capacity, plain)
     train = R2.rasterize_2dgs_train_fwd(*geo, tile_capacity, D - 1, True)
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     cot = [torch.randn(x.shape, generator=g, device=DEVICE) for x in train[:4]]
@@ -810,31 +869,25 @@ def parity_2dgs(name, args, tile_capacity, seed):
     want_rows = R2.rasterize_2dgs_bwd_plain(*geo, *train[:4], *cot, tile_capacity, D - 1, True)
     torch.cuda.synchronize()
 
-    def err(a, b):
-        return float((a - b).abs().max())
-
-    fwd_err = dict(colors=err(inf[0], p_img), alpha=err(inf[1][..., 0], 1.0 - p_T),
-                   normals=err(inf[2], p_nrm))
-    train_err = dict(colors=err(train[0], p_img), transmittance=err(train[2], p_T),
-                     normals=err(train[1], p_nrm), distortion=err(train[3], p_dist))
+    # colours, transmittance and normals are held to TOL, the distortion
+    # to DIST_RTOL, the median to MEDIAN_SHARE
+    train_err = dict(colors=_abs_err(train[0], p_img), transmittance=_abs_err(train[2], p_T),
+                     normals=_abs_err(train[1], p_nrm))
     dist_rel = _rel(train[3], p_dist)
     median_share = float(((train[4] - p_med).abs() > 1e-5).float().mean())
     groups = {"means2d": slice(0, 2), "t0_tpx_tpy": slice(2, 11), "opacity": slice(11, 12),
               "channels": slice(12, None)}
     bwd_rel = {k: _rel(v_rows[:, c], want_rows[:, c]) for k, c in groups.items()}
-    counts = torch.diff(offsets.long())
-    finite = all(bool(torch.isfinite(x).all()) for x in (*inf, *train, v_rows))
+    finite = fwd_finite and all(bool(torch.isfinite(x).all()) for x in (*train, v_rows))
     emit("parity_2dgs", case=name, tile_capacity=tile_capacity, D=D,
-         n_isects=int(counts.sum()), tiles_cut=int(
-             (counts > max_entries_per_tile(tile_capacity)).sum()),
-         pixel_entry_evaluations=int(evals), alpha_mean=float((1.0 - p_T).mean()),
-         inference_max_abs_err=fwd_err, train_max_abs_err=train_err, tol=TOL,
+         **stream_stats(geo[1], tile_capacity), pixel_entry_evaluations=int(evals),
+         alpha_mean=float((1.0 - p_T).mean()), inference_max_abs_err=fwd_err,
+         train_max_abs_err=train_err, tol=TOL, distortion_max_abs_err=_abs_err(train[3], p_dist),
          distortion_max_rel_err=dist_rel, dist_rtol=DIST_RTOL,
          distortion_max=float(p_dist.abs().max()), median_differs_share=median_share,
          median_share_tol=MEDIAN_SHARE, bwd_max_rel_err=bwd_rel, bwd_rtol=BWD_RTOL,
-         bwd_max_abs_err=err(v_rows, want_rows), finite=finite)
-    worst = max(max(fwd_err.values()), train_err["colors"], train_err["transmittance"],
-                train_err["normals"])
+         bwd_max_abs_err=_abs_err(v_rows, want_rows), finite=finite)
+    worst = max(max(fwd_err.values()), max(train_err.values()))
     if not finite:
         raise RuntimeError(f"parity_2dgs {name}: non-finite kernel output")
     if not worst <= TOL or not dist_rel <= DIST_RTOL or not median_share <= MEDIAN_SHARE:
@@ -842,32 +895,46 @@ def parity_2dgs(name, args, tile_capacity, seed):
                            f"distortion {dist_rel}, median {median_share}")
     if not max(bwd_rel.values()) <= BWD_RTOL:
         raise RuntimeError(f"parity_2dgs {name}: backward {bwd_rel} > {BWD_RTOL}")
-    return dict(fwd=max(fwd_err.values()), train=max(train_err.values()),
-                bwd=err(v_rows, want_rows), evaluations=int(evals),
+    return dict(fwd=max(fwd_err.values()), train=max(train_err.values()), dist_rel=dist_rel,
+                median_share=median_share, bwd=_abs_err(v_rows, want_rows),
+                bwd_rel=max(bwd_rel.values()), evaluations=int(evals),
                 inputs=(geo, train, cot))
 
 
-def phase_parity_2dgs(bench, heavy):
-    """The bench scene at 1080p (SH 3, RGB+ED, distortion, K = 16) and a
-    truncating case (60k large surfels, tile_capacity = 128)."""
-    args, _ = kernel_inputs_2dgs(bench, tile_capacity=1024, max_tiles_per_gauss=16)
-    a = parity_2dgs("a_bench_rgb_ed_dist", args, 1024, seed=3)
+def phase_parity_2dgs(bench, heavy, cap):
+    """Kernel 4 at the bench render's shapes (the bench scene at 1080p, SH
+    3, "RGB", K = 16, stream capacity ``cap``), with and without a
+    background; kernels 4, 5 and 6 at the training step's (the same with
+    "RGB+ED" and the distortion) and on a truncating case (60k large
+    surfels, tile_capacity = 128)."""
+    kw = dict(tile_capacity=1024, max_tiles_per_gauss=16, isect_capacity=cap)
+    args_rgb, _ = kernel_inputs_2dgs(bench, render_mode="RGB", distloss=False, **kw)
+    bg = torch.tensor([[0.3, 0.5, 0.7]], device=DEVICE)
+    rgb = parity_2dgs_inference("a_bench_rgb", args_rgb, bg)
+    args, _ = kernel_inputs_2dgs(bench, **kw)
+    a = parity_2dgs("b_bench_rgb_ed_dist", args, 1024, seed=3)
     args_h, _ = kernel_inputs_2dgs(heavy, tile_capacity=128, isect_exact=True)
-    b = parity_2dgs("b_heavy_overlap_truncated", args_h, 128, seed=4)
-    return {k: max(a[k], b[k]) for k in ("fwd", "train", "bwd")}, a
+    b = parity_2dgs("c_heavy_overlap_truncated", args_h, 128, seed=4)
+    errs = {k: max(a[k], b[k]) for k in ("train", "dist_rel", "median_share", "bwd", "bwd_rel")}
+    errs["fwd"] = max(rgb["fwd"], a["fwd"], b["fwd"])
+    return errs, rgb, a
 
 
-def measure_kernels_2dgs(par, reps=20):
-    """Times of kernels 4, 5 and 6 at the bench shapes with their plain
-    versions' and their bounds. No PyTorch call composites a sorted tile
-    stream, so there is no library yardstick."""
-    geo, train, cot = par["inputs"]
+def measure_kernels_2dgs(rgb, ed, reps=20):
+    """Times of kernel 4 at the bench render's shapes ("RGB", no
+    background) and of kernels 5 and 6 at the training step's ("RGB+ED",
+    distortion), with their plain versions' and their bounds. No PyTorch
+    call composites a sorted tile stream, so there is no library
+    yardstick."""
     tc = 1024
+    geo_rgb = rgb["inputs"]
+    geo, train, cot = ed["inputs"]
     D = geo[3]
-    work = kernel_work_2dgs(geo, tc, par["evaluations"])
+    work = kernel_work_2dgs(geo, tc, ed["evaluations"])
+    work[R2.KERNEL_FWD] = kernel_work_2dgs(geo_rgb, tc, rgb["evaluations"])[R2.KERNEL_FWD]
     calls = {
-        R2.KERNEL_FWD: (lambda: R2.rasterize_2dgs_inference(*geo, None, tc),
-                        lambda: R2.rasterize_2dgs_fwd_plain(*geo, tc)),
+        R2.KERNEL_FWD: (lambda: R2.rasterize_2dgs_inference(*geo_rgb, None, tc),
+                        lambda: R2.rasterize_2dgs_fwd_plain(*geo_rgb, tc)),
         R2.KERNEL_TRAIN: (lambda: R2.rasterize_2dgs_train_fwd(*geo, tc, D - 1, True),
                           lambda: R2.rasterize_2dgs_fwd_plain(*geo, tc, D - 1, True)),
         R2.KERNEL_BWD: (lambda: R2.rasterize_2dgs_bwd(*geo, *train[:4], *cot, tc, D - 1, True),
@@ -994,64 +1061,6 @@ def phase_render_train_2dgs(bench, cap, n_steps=20):
     return launches
 
 
-def phase_trainer_2dgs(root, n_steps=100):
-    """The port's Runner with model_type="2dgs", the normal-consistency and
-    distortion losses live from steps 30 and 10, on make_rich_scene at its
-    defaults: packed rasterizer, SH 3, DefaultStrategy refining at steps 40
-    and 80, eval through kernel 4 at the end."""
-    cfg = Config(
-        data_dir=root, result_dir=f"{root}/results_2dgs", data_factor=1,
-        max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
-        sh_degree_interval=20, rasterizer="packed", tb_every=5, model_type="2dgs",
-        normal_loss=True, dist_loss=True, normal_start_iter=30, dist_start_iter=10,
-        strategy=DefaultStrategy(refine_start_iter=20, refine_every=40,
-                                 refine_stop_iter=1000, reset_every=10_000),
-    )
-    runner = Runner(cfg, device=DEVICE)
-    from tdgs_torch.models.gaussians import alive_mask
-
-    alive0 = int(alive_mask(runner.splats).sum())
-    kernels = (S.KERNEL, R2.KERNEL_TRAIN, R2.KERNEL_BWD)
-    _build.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = runner.train()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
-    _build.reset_launches()
-    stats = runner.eval(n_steps)
-    eval_launches = _build.LAUNCHES.get(R2.KERNEL_FWD, 0)
-    hist = out["history"]
-    t1 = time.perf_counter()
-    batch = runner._batch([0])
-    data_ms = (time.perf_counter() - t1) * 1e3
-    step_trace = traced(lambda: runner.train_step(batch, n_steps + 1, cfg.sh_degree))
-    finite = all(bool(torch.isfinite(v).all()) for v in runner.splats.values())
-    finite = finite and all(np.isfinite([h["loss"] for h in hist]))
-    finite = finite and np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"])
-    emit("trainer_2dgs", steps=n_steps, train_images=len(runner.trainset),
-         test_images=len(runner.valset), capacity=runner.capacity, alive_init=alive0,
-         steps_per_s=n_steps / wall, wall_s=wall, loss_first=hist[0], loss_last=hist[-1],
-         loss_history=hist, refines=runner.refines, launches=launches,
-         eval_kernel4_launches=eval_launches, eval_psnr=stats["psnr"],
-         eval_ssim=stats["ssim"], eval_num_gs=stats["num_GS"], all_finite=bool(finite),
-         data_ms_per_step=data_ms, traced_step=step_trace)
-    refined = [r["step"] for r in runner.refines]
-    if not hist[-1]["loss"] < hist[0]["loss"]:
-        raise RuntimeError(f"trainer_2dgs: loss did not drop {hist[0]} -> {hist[-1]}")
-    if 40 not in refined or 80 not in refined:
-        raise RuntimeError(f"trainer_2dgs: strategy refined at {refined}, not 40 and 80")
-    if not finite:
-        raise RuntimeError("trainer_2dgs: non-finite params, loss or eval")
-    for k in kernels:
-        if launches[k] < n_steps:
-            raise RuntimeError(f"trainer_2dgs launched {k} {launches[k]} < {n_steps} times")
-    if eval_launches < len(runner.valset):
-        raise RuntimeError(f"trainer_2dgs eval launched kernel 4 {eval_launches} times")
-    return launches
-
-
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1083,71 +1092,69 @@ def main():
         t0 = time.perf_counter()
         make_rich_scene(root, device=DEVICE)
         scene_s = time.perf_counter() - t0
-        trainer_launches = phase_trainer(root, scene_s)
+        trainer_launches, trainer_eval = phase_trainer(root, scene_s)
         k_train = measure_train_kernels(train_inputs)
 
-        errs_2dgs, par_2dgs = phase_parity_2dgs(bench, heavy)
         cap_2dgs = bench_capacity_2dgs(bench)
+        errs_2dgs, par_rgb, par_ed = phase_parity_2dgs(bench, heavy, cap_2dgs)
         render_2dgs_launches = phase_bench_render_2dgs(bench, cap_2dgs)
         train_2dgs_launches = phase_render_train_2dgs(bench, cap_2dgs)
-        trainer_2dgs_launches = phase_trainer_2dgs(root)
+        trainer_2dgs_launches, trainer_2dgs_eval = phase_trainer(root, scene_s, "2dgs")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    k_2dgs = measure_kernels_2dgs(par_2dgs)
+    timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed))
 
-    sources = {
-        KERNEL: ("tdgs_torch/csrc/rasterize_packed_fwd.cu",
-                 "tdgs/ops/rasterize_pallas_packed.py:322",
-                 max(max_err, train_errs["fwd"])),
-        KERNEL_BWD: ("tdgs_torch/csrc/rasterize_packed_bwd.cu",
-                     "tdgs/ops/rasterize_pallas_packed.py:645", train_errs["bwd"]),
-        S.KERNEL: ("tdgs_torch/csrc/segment_sum.cu",
-                   "tdgs/ops/segment_sum_pallas.py:48", train_errs["seg"]),
-    }
-    kernels = {"kernels": []}
-    for name, (src, replaces, err) in sources.items():
-        k = k_train[name]
-        entry = {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            # launches in the training path's run (render_train); the
-            # trainer's and the rally's runs beside them
-            "launches": train_launches[name], "max_abs_err": err,
-            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-            "trainer_launches": trainer_launches[name],
-        }
-        if name == KERNEL:
-            entry.update(rally_launches=rally_launches, rally_ms=k_rally["ms"],
-                         rally_plain_ms=k_rally["plain_ms"],
-                         rally_bound_ms=k_rally["bound_ms"],
-                         bench_render_ms=k_bench["ms"])
-        kernels["kernels"].append(entry)
-    sources_2dgs = {
-        # launches: kernel 4 in the bench-scale render's run, kernels 5 and 6
-        # in the bench-scale training step's; the trainer's runs beside them
-        R2.KERNEL_FWD: ("tdgs/ops/rasterize_2dgs_pallas.py:84", errs_2dgs["fwd"],
-                        render_2dgs_launches, None),
-        R2.KERNEL_TRAIN: ("tdgs/ops/rasterize_2dgs_pallas.py:457", errs_2dgs["train"],
+    # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
+    # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs),
+    # the error and the tolerance it is held to, the other paths' launches)
+    pallas_2dgs = "tdgs/ops/rasterize_2dgs_pallas.py"
+    table = {
+        KERNEL: ("rasterize_packed_fwd.cu", "tdgs/ops/rasterize_pallas_packed.py:322",
+                 train_launches[KERNEL],
+                 dict(max_abs_err=max(max_err, train_errs["fwd"]), abs_tol=TOL),
+                 dict(trainer_launches=trainer_launches[KERNEL],
+                      trainer_eval_launches=trainer_eval, rally_launches=rally_launches,
+                      rally_ms=k_rally["ms"], rally_plain_ms=k_rally["plain_ms"],
+                      rally_bound_ms=k_rally["bound_ms"], bench_render_ms=k_bench["ms"])),
+        KERNEL_BWD: ("rasterize_packed_bwd.cu", "tdgs/ops/rasterize_pallas_packed.py:645",
+                     train_launches[KERNEL_BWD],
+                     dict(max_abs_err=train_errs["bwd"], max_rel_err=train_errs["bwd_rel"],
+                          rtol=BWD_RTOL),
+                     dict(trainer_launches=trainer_launches[KERNEL_BWD])),
+        S.KERNEL: ("segment_sum.cu", "tdgs/ops/segment_sum_pallas.py:48",
+                   train_launches[S.KERNEL],
+                   dict(max_abs_err=train_errs["seg"], max_rel_err=train_errs["seg_rel"],
+                        rtol=SEG_RTOL),
+                   dict(trainer_launches=trainer_launches[S.KERNEL],
+                        render_train_2dgs_launches=train_2dgs_launches[S.KERNEL],
+                        trainer_2dgs_launches=trainer_2dgs_launches[S.KERNEL])),
+        R2.KERNEL_FWD: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:84", render_2dgs_launches,
+                        dict(max_abs_err=errs_2dgs["fwd"], abs_tol=TOL),
+                        dict(trainer_2dgs_eval_launches=trainer_2dgs_eval)),
+        R2.KERNEL_TRAIN: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:457",
                           train_2dgs_launches[R2.KERNEL_TRAIN],
-                          trainer_2dgs_launches[R2.KERNEL_TRAIN]),
-        R2.KERNEL_BWD: ("tdgs/ops/rasterize_2dgs_pallas.py:596", errs_2dgs["bwd"],
+                          dict(max_abs_err=errs_2dgs["train"], abs_tol=TOL,
+                               distortion_max_rel_err=errs_2dgs["dist_rel"],
+                               dist_rtol=DIST_RTOL,
+                               median_differs_share=errs_2dgs["median_share"],
+                               median_share_tol=MEDIAN_SHARE),
+                          dict(trainer_launches=trainer_2dgs_launches[R2.KERNEL_TRAIN])),
+        R2.KERNEL_BWD: ("rasterize_2dgs_bwd.cu", f"{pallas_2dgs}:596",
                         train_2dgs_launches[R2.KERNEL_BWD],
-                        trainer_2dgs_launches[R2.KERNEL_BWD]),
+                        dict(max_abs_err=errs_2dgs["bwd"], max_rel_err=errs_2dgs["bwd_rel"],
+                             rtol=BWD_RTOL),
+                        dict(trainer_launches=trainer_2dgs_launches[R2.KERNEL_BWD])),
     }
-    for name, (replaces, err, launches, trainer_n) in sources_2dgs.items():
-        k = k_2dgs[name]
-        src = ("tdgs_torch/csrc/rasterize_2dgs_bwd.cu" if name == R2.KERNEL_BWD
-               else "tdgs_torch/csrc/rasterize_2dgs_fwd.cu")
-        kernels["kernels"].append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": k["ms"],
+    kernels = []
+    for name, (src, replaces, launches, errs, others) in table.items():
+        k = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"tdgs_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches, **errs, "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None, "trainer_launches": trainer_n,
+            "library_ms": k["library_ms"], **others,
         })
-    seg = next(k for k in kernels["kernels"] if k["name"] == S.KERNEL)
-    seg.update(render_train_2dgs_launches=train_2dgs_launches[S.KERNEL],
-               trainer_2dgs_launches=trainer_2dgs_launches[S.KERNEL])
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,12 @@
 //
 // A per-entry feature row holds, in this order,
 //   [mx, my, t0 (3), tpx (3), tpy (3), op, channels (DA)]
-// with t0 = M0 x M1, tpx = M1 x M2 and tpy = M2 x M0 (the wrapper forms the
-// cross products of the ray transform's rows), so that for a pixel centre
-// (px, py) the ray-splat intersection is tmp = t0 + tpx px + tpy py.
+// with t0 = T0 x T1, tpx = T1 x T2 and tpy = T2 x T0, where T0, T1, T2 are
+// the rows of K [RS_u, RS_v, mean_c], i.e. the columns of the projection's
+// ray transform M (the wrapper forms them, rasterize_2dgs_packed.py
+// feature_rows; the JAX package takes M's rows instead, see ROADMAP, faults
+// on the reference side), so that for a pixel centre (px, py) the ray-splat
+// intersection is tmp = t0 + tpx px + tpy py.
 // Then, with tmpz guarded at 1e-9,
 //   sigma3d = (tmpx^2 + tmpy^2) / tmpz^2,  sigma2d = 2 ((mx-px)^2 + (my-py)^2)
 //   sigma   = min(sigma3d, sigma2d) / 2
