@@ -3,8 +3,10 @@ each against its plain PyTorch version, drive the domino-rally frame end to
 end at 1920x1080, time the bench-scale render, drive 3DGS training (the
 bench-scale forward+backward step, and the Runner on a rich procedural
 COLMAP scene), then the same for 2DGS surfels (the bench-scale render and
-training step, the Runner with the normal and distortion losses), and
-print one JSON line per phase.
+training step, the Runner with the normal and distortion losses) and for
+3DGUT (the world-space eval3d rasterizer at the bench scale, σ* against
+float64, the Runner with the mcmc preset, the command line), and print one
+JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -44,6 +46,8 @@ from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed_inference_plain,
 )
 from tdgs_torch.ops import rasterize_2dgs_packed as R2
+from tdgs_torch.ops import rasterize_eval3d_packed as E
+from tdgs_torch.ops.camera_models import RollingShutterType
 from tdgs_torch.physics import (
     PhysicsParams,
     extract_bodies_from_splats,
@@ -55,12 +59,13 @@ from tdgs_torch.physics import (
 )
 from tdgs_torch.physics.bodies import BodyState, RigidBodies
 from tdgs_torch.rendering import _colors_per_camera
-from tdgs_torch.strategy import DefaultStrategy
+from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
 from tdgs_torch.training.config import Config
 from tdgs_torch.training.trainer import Runner
 from tdgs_torch.utils.test_data import (
     DOMINO_BACKGROUND,
     make_domino_scene_arrays,
+    make_colmap_test_scene,
     make_rich_scene,
 )
 
@@ -72,6 +77,7 @@ SEG_RTOL = 1e-5  # kernel 3 vs plain: max|Δ| / max|plain| per column group
 KERNELS = (KERNEL, KERNEL_BWD, S.KERNEL)
 DIST_RTOL = 1e-3  # kernel 5 vs plain: distortion, max|Δ| / max|plain|
 MEDIAN_SHARE = 0.01  # kernel 5 vs plain: share of pixels whose median differs
+SIGMA_TOL = 1e-3  # eval3d σ* (float32, σ* < 4) vs float64, absolute
 
 # FP32 operations of one (pixel, entry) evaluation that both compositing
 # kernels make: sigma 11, exp 2, alpha 2, tests 2, transmittance 3
@@ -113,6 +119,30 @@ def bwd_2dgs_ops_per_eval(DA):
     terms (14), the depth term (1), the channels (DA), and one add per
     value into the entry's sums (12 + DA)."""
     return WALK_OPS_2DGS + 1 + 2 * DA + 22 + 3 + 6 + 1 + 3 + 2 + 14 + 1 + DA + 12 + DA
+
+
+# FP32 operations of one (pixel, entry) evaluation of the eval3d walk
+# (rasterize_eval3d_common.cuh and the kernels' loops): r = M d 15, g.r 5,
+# the cross product 9, |c|^2 5, |r|^2 and its floor 6, the division and the
+# half 2, the gate 1, exp 2, alpha 2, the 1/255 test 1, transmittance 2, the
+# cutoff test 1; g = g0 + M o' adds 18 when the camera is not central
+WALK_OPS_EVAL3D = 51
+
+
+def fwd_eval3d_ops_per_eval(D, central):
+    """Kernel 7: the walk, the weight (1), a multiply-add per channel."""
+    return WALK_OPS_EVAL3D + (0 if central else 18) + 1 + 2 * D
+
+
+def bwd_eval3d_ops_per_eval(D, central):
+    """Kernel 8: the walk, w (1), r_ch (2·D), the prefix (2), 1/(1 − α)
+    and v_alpha (6), the clamp test (1), v_sigma and the opacity term (3),
+    k and coef (4), u = r × c (9), v_r and v_g (6), d M (9, or 27 with the
+    o' terms), v_d (18, and v_o' 18 more), the colours (D), and one add per
+    value into the entry's sums (13 + D)."""
+    walk = WALK_OPS_EVAL3D + (0 if central else 18)
+    per_ray = 9 + 18 if central else 27 + 36
+    return walk + 1 + 2 * D + 2 + 6 + 1 + 3 + 4 + 9 + 6 + per_ray + D + 13 + D
 
 
 # H100 SXM published peaks: HBM bytes/s, FP32 (non-tensor) FLOP/s
@@ -685,22 +715,32 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100):
     (40 images of 1236x822, 150k ground-truth gaussians, 40k SfM points,
     seed 11), written to ``root`` in ``scene_s`` seconds: packed rasterizer,
     SH 3, DefaultStrategy refining at steps 40 and 80, eval on the test
-    views at the end through the forward-only kernel (1, or 4 for 2DGS).
-    ``model_type="2dgs"`` trains surfels with the normal-consistency and
-    distortion losses live from steps 30 and 10."""
+    views at the end through the forward-only kernel (1, 4 for 2DGS, 7
+    for 3DGUT). ``model_type="2dgs"`` trains surfels with the
+    normal-consistency and distortion losses live from steps 30 and 10;
+    ``"3dgut"`` the mcmc preset with the UT projection and the eval3d
+    rasterizer, MCMC refining at steps 40 and 80 up to 160k gaussians."""
+    strategy = DefaultStrategy(refine_start_iter=20, refine_every=40,
+                               refine_stop_iter=1000, reset_every=10_000)
     if model_type == "2dgs":
         name, eval_kernel = "trainer_2dgs", R2.KERNEL_FWD
         kernels = (S.KERNEL, R2.KERNEL_TRAIN, R2.KERNEL_BWD)
         extra = dict(model_type="2dgs", normal_loss=True, dist_loss=True,
                      normal_start_iter=30, dist_start_iter=10)
+    elif model_type == "3dgut":
+        # the mcmc preset (examples/simple_trainer.py:81-86) with 3DGUT
+        name, eval_kernel = "trainer_3dgut", E.KERNEL_FWD
+        kernels = (E.KERNEL_FWD, E.KERNEL_BWD, S.KERNEL)
+        strategy = MCMCStrategy(cap_max=160_000, refine_start_iter=20, refine_every=40,
+                                refine_stop_iter=1000)
+        extra = dict(with_ut=True, with_eval3d=True, init_opa=0.5, init_scale=0.1,
+                     opacity_reg=0.01, scale_reg=0.01)
     else:
         name, eval_kernel, kernels, extra = "trainer", KERNEL, KERNELS, {}
     cfg = Config(
         data_dir=root, result_dir=f"{root}/results_{model_type}", data_factor=1,
         max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
-        sh_degree_interval=20, rasterizer="packed", tb_every=5,
-        strategy=DefaultStrategy(refine_start_iter=20, refine_every=40,
-                                 refine_stop_iter=1000, reset_every=10_000),
+        sh_degree_interval=20, rasterizer="packed", tb_every=5, strategy=strategy,
         **extra,
     )
     runner = Runner(cfg, device=DEVICE)
@@ -1061,6 +1101,391 @@ def phase_render_train_2dgs(bench, cap, n_steps=20):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# eval3d / 3DGUT: kernels 7 and 8, the bench-scale render and training step,
+# the Runner with the MCMC preset, the command line
+# ---------------------------------------------------------------------------
+
+
+def rolling_shutter_kw(sc):
+    """A TOP_TO_BOTTOM rolling shutter whose end pose has moved 2 cm along x
+    and turned 0.5° about y, with the UT projection tiling it."""
+    end = sc["viewmats"].clone()
+    a = np.deg2rad(0.5)
+    rot = torch.tensor([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]],
+                       dtype=torch.float32, device=end.device)
+    end[:, :3, :3] = rot @ end[:, :3, :3]
+    end[:, 0, 3] += 0.02
+    return dict(with_ut=True, rolling_shutter=RollingShutterType.TOP_TO_BOTTOM,
+                viewmats_rs=end)
+
+
+def kernel_inputs_eval3d(sc, **kw):
+    """Kernels 7 and 8's inputs for one frame, built by the port's own
+    projection, SH, tiling, rays and rows (rasterization's meta): (rows,
+    d, o', offsets, I, D, W, H, tile size), with the scene's feature rows
+    and rays for the float64 check."""
+    _, _, meta = tdgs_torch.rasterization(
+        sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
+        sc["viewmats"], sc["Ks"], WIDTH, HEIGHT, sh_degree=3, with_eval3d=True,
+        device=DEVICE, **kw)
+    colors = _colors_per_camera(sc["sh"], 3, sc["means"], sc["viewmats"], meta["radii"])
+    rs = dict(rolling_shutter=kw.get("rolling_shutter", RollingShutterType.GLOBAL),
+              viewmats_rs=kw.get("viewmats_rs"))
+    ts = meta["tile_size"]
+    d, o, o_ref = E.tile_rays_world(1, meta["tile_width"], meta["tile_height"], ts,
+                                    WIDTH, HEIGHT, sc["viewmats"], sc["Ks"], **rs)
+    N = sc["means"].shape[0]
+    feats = E.feature_rows(sc["means"], sc["quats"], sc["scales"],
+                           meta["opacities"].reshape(1, N), colors.reshape(1, N, -1), o_ref)
+    rows = feats[meta["flatten_ids"].long()].contiguous()
+    geo = (rows, d.contiguous(), None if o is None else o.contiguous(),
+           meta["isect_offsets"], 1, colors.shape[-1], WIDTH, HEIGHT, ts)
+    return geo, dict(meta=meta, rs=rs)
+
+
+def _quadratic_form_rows(sc, o_ref, ids):
+    """The JAX package's eval3d rows in float32 (rasterize_eval3d_pallas.py
+    :386-398): w = Σ⁻¹μ′, mAm = μ′ᵀΣ⁻¹μ′, prec6, gathered in stream order."""
+    from tdgs_torch.ops.transforms import quat_scale_to_covar_sym6
+
+    p00, p01, p02, p11, p12, p22 = quat_scale_to_covar_sym6(
+        sc["quats"], 1.0 / torch.clamp(sc["scales"], min=1e-8))
+    m = sc["means"] - o_ref[0]
+    w = torch.stack([p00 * m[:, 0] + p01 * m[:, 1] + p02 * m[:, 2],
+                     p01 * m[:, 0] + p11 * m[:, 1] + p12 * m[:, 2],
+                     p02 * m[:, 0] + p12 * m[:, 1] + p22 * m[:, 2]], -1)
+    mAm = (w * m).sum(-1, keepdim=True)
+    prec6 = torch.stack([p00, p11, p22, 2.0 * p01, 2.0 * p02, 2.0 * p12], -1)
+    return torch.cat([w, mAm, prec6], -1)[ids]
+
+
+def _quadratic_form_sigma(q, d):
+    """σ* = ½(mAm − (g·r)²/rr) of a central camera, as the JAX kernels take
+    it (:210-216), in float32. q: [n, L, 10] rows, d: [n, P, 3] rays."""
+    dd6 = torch.stack([d[..., 0] * d[..., 0], d[..., 1] * d[..., 1], d[..., 2] * d[..., 2],
+                       d[..., 0] * d[..., 1], d[..., 0] * d[..., 2], d[..., 1] * d[..., 2]], -1)
+    gr = -torch.bmm(d, q[..., 0:3].transpose(1, 2))
+    rr = torch.clamp(torch.bmm(dd6, q[..., 4:10].transpose(1, 2)), min=1e-12)
+    return 0.5 * (q[..., 3][:, None, :] - gr * gr / rr)
+
+
+def _quantiles(errs):
+    e = torch.sort(torch.cat(errs))[0]
+    n = e.numel()
+    return {k: float(e[min(int(f * n), n - 1)]) for k, f in
+            (("median", 0.5), ("p99", 0.99), ("max", 1.0))} if n else {}
+
+
+def sigma_f64_error(sc, geo, extra, tile_capacity, limit=4.0, budget=1 << 22):
+    """|σ*(float32) − σ*(float64)| over the (pixel, entry) pairs of the cut
+    ranges, inside the image, in front of the camera, with float64 σ*
+    below ``limit``: the port's (the plain version's arithmetic, which is
+    the kernels' operation for operation) and, for a central camera, the
+    JAX package's quadratic form in float32. The float64 σ* takes the rows
+    and the rays again in float64 from the same float32 scene. Returns
+    (quantiles of the port's error, of the quadratic form's, of mAm, pairs)."""
+    rows, d, o, offsets, I, D, W, H, ts = geo
+    meta = extra["meta"]
+    f64 = {k: sc[k].double() for k in ("means", "quats", "scales", "viewmats", "Ks")}
+    rs = dict(extra["rs"])
+    if rs["viewmats_rs"] is not None:
+        rs["viewmats_rs"] = rs["viewmats_rs"].double()
+    d64, o64, o_ref64 = E.tile_rays_world(1, meta["tile_width"], meta["tile_height"], ts,
+                                          W, H, f64["viewmats"], f64["Ks"], **rs)
+    N = sc["means"].shape[0]
+    ids = meta["flatten_ids"].long()
+    feats64 = E.feature_rows(f64["means"], f64["quats"], f64["scales"],
+                             meta["opacities"].reshape(1, N).double(),
+                             torch.zeros((1, N, D), dtype=torch.float64, device=DEVICE),
+                             o_ref64)
+    rows64 = feats64[ids]
+    qrows = None
+    if o is None:
+        o_ref = -(sc["viewmats"][:, :3, :3].transpose(1, 2) @ sc["viewmats"][:, :3, 3:])[..., 0]
+        qrows = _quadratic_form_rows(sc, o_ref, ids)
+    r32, r64 = E._response_eval3d(rows, d, o), E._response_eval3d(rows64, d64, o64)
+    counts = torch.clamp(torch.diff(offsets.long()), 0, max_entries_per_tile(tile_capacity))
+    starts = offsets[:-1].long()
+    tw = meta["tile_width"]
+    P = ts * ts
+    p = torch.arange(P, device=DEVICE)
+    T = counts.shape[0]
+    chunk = max(1, budget // (P * max(int(counts.max()), 1)))
+    errs, qerrs, mams = [], [], []
+    for t0 in range(0, T, chunk):
+        tt = torch.arange(t0, min(t0 + chunk, T), device=DEVICE)
+        L = int(counts[tt].max())
+        if L == 0:
+            continue
+        lane = torch.arange(L, device=DEVICE)
+        valid = lane[None, :] < counts[tt, None]
+        idx = torch.where(valid, starts[tt, None] + lane[None, :], 0)
+        s32 = r32(tt, idx, None, None, None)[0]
+        s64 = r64(tt, idx, None, None, None)[0]
+        px = (tt % tw * ts)[:, None] + p % ts
+        py = (tt // tw * ts)[:, None] + p // ts
+        inside = ((px < W) & (py < H))[:, :, None]
+        sel = valid[:, None, :] & inside & (s64 >= 0) & (s64 < limit) & (s32 >= 0)
+        errs.append((s32.double() - s64)[sel].abs().float())
+        if qrows is not None:
+            q = qrows[idx]
+            qerrs.append((_quadratic_form_sigma(q, d[tt]).double() - s64)[sel].abs().float())
+            mams.append(q[..., 3][:, None, :].expand_as(s64)[sel])
+    pairs = sum(int(e.numel()) for e in errs)
+    return _quantiles(errs), _quantiles(qerrs), _quantiles(mams), pairs
+
+
+EVAL3D_GROUPS = {"M": slice(0, 9), "g0": slice(9, 12), "opacity": slice(12, 13),
+                 "colors": slice(13, None)}
+
+
+def parity_eval3d(name, geo, tile_capacity, seed, backgrounds):
+    """Kernels 7 (both calls) and 8 against their plain versions on the
+    same inputs, random cotangents; fails above the tolerances."""
+    rows, d, o, offsets, I, D = geo[:6]
+    stream = geo[:9]
+    p_img, p_T, evals = E.rasterize_eval3d_fwd_plain(*stream, tile_capacity)
+    fwd_err, finite = {}, True
+    for case, bg in (("no_background", None), ("background", backgrounds)):
+        img, alp = E.rasterize_eval3d_inference(*stream, bg, tile_capacity)
+        want = p_img if bg is None else p_img + p_T[..., None] * bg.reshape(I, 1, 1, D)
+        fwd_err[case] = dict(colors=_abs_err(img, want), alpha=_abs_err(alp[..., 0], 1.0 - p_T))
+        finite = finite and bool(torch.isfinite(img).all()) and bool(torch.isfinite(alp).all())
+    img, T = E.rasterize_eval3d_train_fwd(*stream, tile_capacity)
+    fwd_err["train"] = dict(colors=_abs_err(img, p_img), transmittance=_abs_err(T, p_T))
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    v_img = torch.randn(img.shape, generator=g, device=DEVICE)
+    v_T = torch.randn(T.shape, generator=g, device=DEVICE)
+    got = E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tile_capacity)
+    want = E.rasterize_eval3d_bwd_plain(*stream, img, T, v_img, v_T, tile_capacity)
+    torch.cuda.synchronize()
+    bwd_rel = {k: _rel(got[0][:, c], want[0][:, c]) for k, c in EVAL3D_GROUPS.items()}
+    bwd_rel["v_d"] = _rel(got[1], want[1])
+    if o is not None:
+        bwd_rel["v_o"] = _rel(got[2], want[2])
+    finite = finite and all(bool(torch.isfinite(x).all()) for x in got if x is not None)
+    worst = max(max(e.values()) for e in fwd_err.values())
+    emit("parity_eval3d", case=name, tile_capacity=tile_capacity, D=D, central=o is None,
+         **stream_stats(offsets, tile_capacity), pixel_entry_evaluations=int(evals),
+         alpha_mean=float((1.0 - p_T).mean()), fwd_max_abs_err=fwd_err, tol=TOL,
+         bwd_max_rel_err=bwd_rel, bwd_rtol=BWD_RTOL,
+         bwd_max_abs_err=_abs_err(got[0], want[0]), finite=finite)
+    if not finite:
+        raise RuntimeError(f"parity_eval3d {name}: non-finite kernel output")
+    if not worst <= TOL:
+        raise RuntimeError(f"parity_eval3d {name}: forward {fwd_err} > {TOL}")
+    if not max(bwd_rel.values()) <= BWD_RTOL:
+        raise RuntimeError(f"parity_eval3d {name}: backward {bwd_rel} > {BWD_RTOL}")
+    return dict(fwd=worst, bwd=_abs_err(got[0], want[0]), bwd_rel=max(bwd_rel.values()),
+                evaluations=int(evals), inputs=(stream, img, T, v_img, v_T))
+
+
+def phase_parity_eval3d(bench, heavy, cap):
+    """Kernels 7 and 8 at the bench shapes (the bench scene at 1080p, SH 3,
+    "RGB", central, K = 16, stream capacity ``cap``), with and without a
+    background, σ* there against float64; a rolling-shutter case (UT
+    tiling, a moved end pose); a truncating case (60k large gaussians,
+    tile_capacity = 128)."""
+    bg = torch.tensor([[0.3, 0.5, 0.7]], device=DEVICE)
+    kw = dict(tile_capacity=1024, max_tiles_per_gauss=16, isect_capacity=cap)
+    geo, extra = kernel_inputs_eval3d(bench, **kw)
+    a = parity_eval3d("a_bench_rgb_central", geo, 1024, 5, bg)
+    port, quadratic, mAm, pairs = sigma_f64_error(bench, geo, extra, 1024)
+    sigma_err = port["max"]
+    emit("parity_eval3d_sigma", case="a_bench_rgb_central", sigma_limit=4.0,
+         pairs=pairs, sigma_max_abs_err_vs_f64=sigma_err, tol=SIGMA_TOL,
+         port_abs_err_vs_f64=port, reference_quadratic_form_abs_err_vs_f64=quadratic,
+         mAm=mAm)
+    if not sigma_err <= SIGMA_TOL:
+        raise RuntimeError(f"parity_eval3d: σ* vs float64 {sigma_err} > {SIGMA_TOL}")
+    geo_rs, extra_rs = kernel_inputs_eval3d(bench, **kw, **rolling_shutter_kw(bench))
+    b = parity_eval3d("b_bench_rgb_rolling_shutter", geo_rs, 1024, 6, bg)
+    geo_h, _ = kernel_inputs_eval3d(heavy, tile_capacity=128, isect_exact=True)
+    c = parity_eval3d("c_heavy_overlap_truncated", geo_h, 128, 7, bg)
+    errs = {k: max(a[k], b[k], c[k]) for k in ("fwd", "bwd", "bwd_rel")}
+    errs["sigma"] = sigma_err
+    return errs, a
+
+
+def kernel_work_eval3d(geo, tile_capacity, evaluations):
+    """Bytes and operations of kernels 7 and 8 on these inputs, each input
+    read once and each output written once, and their bounds."""
+    rows, d, o, offsets, I, D, W, H, _ = geo
+    F = rows.shape[1]
+    central = o is None
+    counts = torch.clamp(torch.diff(offsets.long()), 0, max_entries_per_tile(tile_capacity))
+    entries = int(counts.sum())
+    n_pix = I * W * H
+    n_rays = d.numel() // 3
+    ray_bytes = n_rays * (3 if central else 6) * 4
+    read = entries * F * 4 + offsets.numel() * 4 + ray_bytes
+    work = {
+        E.KERNEL_FWD: (read + n_pix * (D + 1) * 4,
+                       evaluations * fwd_eval3d_ops_per_eval(D, central)),
+        # the forward's colours and T with their cotangents per pixel; one
+        # row per stream slot and the ray gradients written
+        E.KERNEL_BWD: (read + n_pix * 2 * (D + 1) * 4 + rows.shape[0] * F * 4 + ray_bytes,
+                       evaluations * bwd_eval3d_ops_per_eval(D, central)),
+    }
+    out = {}
+    for name, (n_bytes, n_ops) in work.items():
+        t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+        out[name] = dict(bytes=n_bytes, fp32_ops=n_ops, evaluations=evaluations,
+                         entries=entries, bound_ms=max(t_b, t_o),
+                         bound_by="bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def measure_kernels_eval3d(a, reps=20):
+    """Times of kernel 7 (the forward-only call, no background: the bench
+    render; and the training call) and kernel 8 at the bench shapes, with
+    their plain versions' and their bounds. No PyTorch call composites a
+    sorted tile stream, so there is no library yardstick."""
+    tc = 1024
+    stream, img, T, v_img, v_T = a["inputs"]
+    work = kernel_work_eval3d(stream, tc, a["evaluations"])
+    calls = {
+        E.KERNEL_FWD: (lambda: E.rasterize_eval3d_inference(*stream, None, tc),
+                       lambda: E.rasterize_eval3d_fwd_plain(*stream, tc)),
+        E.KERNEL_BWD: (lambda: E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tc),
+                       lambda: E.rasterize_eval3d_bwd_plain(*stream, img, T, v_img, v_T, tc)),
+    }
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        out[name] = dict(ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 1),
+                         library_ms=None, **work[name])
+    out[E.KERNEL_FWD]["train_call_ms"] = time_ms(
+        lambda: E.rasterize_eval3d_train_fwd(*stream, tc), reps)
+    emit("kernels_eval3d", **out)
+    return out
+
+
+def phase_bench_render_eval3d(bench, cap, n_frames=20):
+    """20 frames of the 200k scene through the world-space rasterizer
+    (kernel 7's forward-only call), each re-projected and re-sorted, as the
+    JAX package's bench.py:210-232 times them."""
+
+    def frame(i):
+        img, _, meta = tdgs_torch.rasterization(
+            bench["means"], bench["quats"], bench["scales"],
+            bench["opacities"] * (1.0 + 1e-5 * i), bench["sh"], bench["viewmats"],
+            bench["Ks"], WIDTH, HEIGHT, sh_degree=3, tile_capacity=1024,
+            max_tiles_per_gauss=16, isect_capacity=cap, rasterizer="eval3d_packed",
+            device=DEVICE)
+        return img, meta
+
+    frame(0)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    acc = torch.zeros((), device=DEVICE)
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        img, meta = frame(i)
+        acc += img.mean()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.LAUNCHES.get(E.KERNEL_FWD, 0)
+    emit("bench_render_eval3d", frames=n_frames, fps=n_frames / wall, wall_s=wall,
+         n_gaussians=int(bench["means"].shape[0]), isect_capacity=cap,
+         n_isects=meta["n_isects"], n_dropped=meta["n_dropped"], launches=launches,
+         finite=bool(torch.isfinite(acc)), traced_frame=traced(lambda: frame(0)))
+    if launches < n_frames:
+        raise RuntimeError(f"bench_render_eval3d launched kernel 7 {launches} < {n_frames} times")
+    if not bool(torch.isfinite(acc)):
+        raise RuntimeError("bench_render_eval3d: non-finite frame")
+    return launches
+
+
+def phase_render_train_eval3d(bench, cap, n_steps=20):
+    """The JAX package's bench.py training step with model="eval3d"
+    (bench.py:236-282) on the port: rasterization(rasterizer=
+    "eval3d_packed"), loss = img.mean() + alpha.mean(), gradients w.r.t.
+    means, quats, scales, opacities and SH, 20 steps at 1920x1080 with 200k
+    gaussians."""
+    names = ("means", "quats", "scales", "opacities", "sh")
+    leaves = [bench[k].clone().requires_grad_(True) for k in names]
+    box = {}
+
+    def forward(i):
+        m, q, sc, op, sh = leaves
+        img, alpha, meta = tdgs_torch.rasterization(
+            m, q, sc, op * (1.0 + 1e-5 * i), sh, bench["viewmats"], bench["Ks"],
+            WIDTH, HEIGHT, sh_degree=3, rasterizer="eval3d_packed", tile_capacity=1024,
+            max_tiles_per_gauss=16, isect_capacity=cap, device=DEVICE)
+        box["meta"] = meta
+        return img.mean() + alpha.mean()
+
+    def step(i):
+        loss = forward(i)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    step(0)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    ev = []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss, grads = step(i)
+        e1.record()
+        ev.append((e0, e1))
+        finite &= torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = (E.KERNEL_FWD, E.KERNEL_BWD, S.KERNEL)
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
+    step_ms = [a.elapsed_time(b) for a, b in ev]
+    holder = {}
+
+    def fwd_only():
+        holder["loss"] = forward(0)
+
+    def bwd_only():
+        torch.autograd.grad(holder["loss"], leaves)
+
+    fwd_trace = traced(fwd_only)
+    bwd_trace = traced(bwd_only)
+    emit("render_train_eval3d", steps=n_steps, width=WIDTH, height=HEIGHT,
+         n_gaussians=int(leaves[0].shape[0]), isect_capacity=cap,
+         n_isects=box["meta"]["n_isects"], n_dropped=box["meta"]["n_dropped"],
+         fps=n_steps / wall, wall_s=wall, step_ms_mean=float(np.mean(step_ms)),
+         step_ms_p50=float(np.percentile(step_ms, 50)), launches=launches,
+         all_finite=bool(finite), traced_forward=fwd_trace, traced_backward=bwd_trace)
+    if not bool(finite):
+        raise RuntimeError("render_train_eval3d: non-finite loss or gradient")
+    for k in kernels:
+        if launches[k] < n_steps:
+            raise RuntimeError(f"render_train_eval3d launched {k} {launches[k]} < {n_steps} times")
+    return launches
+
+
+def phase_cli_3dgut(root, n_steps=60):
+    """``python -m tdgs_torch.simple_trainer mcmc --with-ut --with-eval3d``
+    on the 64x48 test scene (make_colmap_test_scene), 60 steps, on the card,
+    in its own process."""
+    scene = f"{root}/cli_scene"
+    make_colmap_test_scene(scene, device=DEVICE)
+    cmd = [sys.executable, "-m", "tdgs_torch.simple_trainer", "mcmc", "--with-ut",
+           "--with-eval3d", "--data-dir", scene, "--result-dir", f"{root}/cli_out",
+           "--data-factor", "1", "--max-steps", str(n_steps), "--eval-steps", str(n_steps),
+           "--save-steps", "", "--cap-max", "2000", "--tile-capacity", "256",
+           "--sh-degree", "1", "--sh-degree-interval", "20", "--test-every", "4",
+           "--disable-video"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    stats = json.loads(lines[-1]) if out.returncode == 0 and lines else {}
+    emit("cli_3dgut", command=" ".join(cmd[1:5]), steps=n_steps, rc=out.returncode,
+         wall_s=wall, eval=stats, stderr_tail=out.stderr[-400:] if out.returncode else "")
+    if out.returncode != 0 or not np.isfinite(stats.get("psnr", float("nan"))):
+        raise RuntimeError(f"cli_3dgut: rc {out.returncode}, {out.stderr[-2000:]}")
+    return stats
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1100,14 +1525,24 @@ def main():
         render_2dgs_launches = phase_bench_render_2dgs(bench, cap_2dgs)
         train_2dgs_launches = phase_render_train_2dgs(bench, cap_2dgs)
         trainer_2dgs_launches, trainer_2dgs_eval = phase_trainer(root, scene_s, "2dgs")
+
+        # the eval3d tiling of the bench render is the 3DGS one: same capacity
+        errs_e3, par_e3 = phase_parity_eval3d(bench, heavy, cap)
+        render_e3_launches = phase_bench_render_eval3d(bench, cap)
+        train_e3_launches = phase_render_train_eval3d(bench, cap)
+        trainer_e3_launches, trainer_e3_eval = phase_trainer(root, scene_s, "3dgut")
+        phase_cli_3dgut(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed))
+    timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed),
+                   **measure_kernels_eval3d(par_e3))
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
-    # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs),
-    # the error and the tolerance it is held to, the other paths' launches)
+    # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
+    # in bench_render_eval3d, 8 in render_train_eval3d), the error and the
+    # tolerance it is held to, the other paths' launches)
     pallas_2dgs = "tdgs/ops/rasterize_2dgs_pallas.py"
+    pallas_e3 = "tdgs/ops/rasterize_eval3d_pallas.py"
     table = {
         KERNEL: ("rasterize_packed_fwd.cu", "tdgs/ops/rasterize_pallas_packed.py:322",
                  train_launches[KERNEL],
@@ -1127,7 +1562,9 @@ def main():
                         rtol=SEG_RTOL),
                    dict(trainer_launches=trainer_launches[S.KERNEL],
                         render_train_2dgs_launches=train_2dgs_launches[S.KERNEL],
-                        trainer_2dgs_launches=trainer_2dgs_launches[S.KERNEL])),
+                        trainer_2dgs_launches=trainer_2dgs_launches[S.KERNEL],
+                        render_train_eval3d_launches=train_e3_launches[S.KERNEL],
+                        trainer_3dgut_launches=trainer_e3_launches[S.KERNEL])),
         R2.KERNEL_FWD: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:84", render_2dgs_launches,
                         dict(max_abs_err=errs_2dgs["fwd"], abs_tol=TOL),
                         dict(trainer_2dgs_eval_launches=trainer_2dgs_eval)),
@@ -1144,6 +1581,18 @@ def main():
                         dict(max_abs_err=errs_2dgs["bwd"], max_rel_err=errs_2dgs["bwd_rel"],
                              rtol=BWD_RTOL),
                         dict(trainer_launches=trainer_2dgs_launches[R2.KERNEL_BWD])),
+        E.KERNEL_FWD: ("rasterize_eval3d_fwd.cu", f"{pallas_e3}:98", render_e3_launches,
+                       dict(max_abs_err=errs_e3["fwd"], abs_tol=TOL,
+                            sigma_max_abs_err_vs_f64=errs_e3["sigma"], sigma_tol=SIGMA_TOL),
+                       dict(render_train_launches=train_e3_launches[E.KERNEL_FWD],
+                            trainer_launches=trainer_e3_launches[E.KERNEL_FWD],
+                            trainer_eval_launches=trainer_e3_eval,
+                            train_call_ms=timings[E.KERNEL_FWD]["train_call_ms"])),
+        E.KERNEL_BWD: ("rasterize_eval3d_bwd.cu", f"{pallas_e3}:495",
+                       train_e3_launches[E.KERNEL_BWD],
+                       dict(max_abs_err=errs_e3["bwd"], max_rel_err=errs_e3["bwd_rel"],
+                            rtol=BWD_RTOL),
+                       dict(trainer_launches=trainer_e3_launches[E.KERNEL_BWD])),
     }
     kernels = []
     for name, (src, replaces, launches, errs, others) in table.items():

@@ -6,12 +6,15 @@ pytrees works on the arrays directly) and returns the port's tensors on
 ``device``; the ``*_to_numpy`` functions go the other way. Training state
 is the JAX ``Runner``'s: ``splats``, the Adam moments ``opt_state`` (``mu``
 and ``nu``, or a selective-Adam ``count``/``exp_avg``/``exp_avg_sq``) and
-the DefaultStrategy's ``grad2d``/``count``/``radii_norm``. Nothing here
-imports JAX.
+the strategy state (the DefaultStrategy's ``grad2d``/``count``/
+``radii_norm``, the MCMCStrategy's ``binoms`` and ``n_alive``). A training
+``Config`` goes across as a dict of builtins (``config_to_dict``,
+``config_from_dict``), its strategy included. Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -71,6 +74,32 @@ def tree_to_numpy(tree: Any) -> Any:
     """The inverse of ``tree_from_numpy``: tensors → numpy arrays."""
     return tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x,
                     tree)
+
+
+def config_to_dict(cfg: Any) -> Dict[str, Any]:
+    """The fields of a training ``Config`` (the port's or the JAX
+    package's: the same dataclass fields) as a dict, the strategy as
+    ``{"type": class name, **its fields}``."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name == "strategy":
+            v = {"type": type(v).__name__,
+                 **{g.name: getattr(v, g.name) for g in dataclasses.fields(v) if g.compare}}
+        out[f.name] = v
+    return out
+
+
+def config_from_dict(d: Mapping[str, Any]):
+    """The port's ``Config`` from ``config_to_dict``'s output; a strategy
+    type the port does not have raises."""
+    from tdgs_torch import strategy as strategies
+    from tdgs_torch.training.config import Config
+
+    kw = dict(d)
+    strat = dict(kw.pop("strategy"))
+    cls = getattr(strategies, strat.pop("type"))
+    return Config(strategy=cls(**strat), **kw)
 
 
 def runner_state_from_numpy(state: Mapping[str, Any], device: DeviceLike = None) -> Dict:

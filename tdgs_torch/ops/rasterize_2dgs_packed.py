@@ -31,6 +31,8 @@ from tdgs_torch.ops import _build
 from tdgs_torch.ops.rasterize_packed import (
     ALPHA_CLAMP,
     _check,
+    _device_kind,
+    _launch,
     _plain_walk,
     max_entries_per_tile,
     tile_pixels,
@@ -74,7 +76,7 @@ def _response_2dgs(rows):
     rows; the order of operations is the kernels' (rasterize_2dgs_common.cuh).
     geom is (tmpx, tmpy, rtz, σ3d, dx, dy, use3d, px, py, row block)."""
 
-    def response(idx, ids, px, py):
+    def response(tt, idx, ids, px, py):
         f = rows[idx]  # [n, L, F]
 
         def col(j):
@@ -253,22 +255,6 @@ def _check_rows(rows, offsets, n_images, D, image_width, image_height, tile_size
         raise ValueError(f"tile_size {tile_size}: one thread per pixel, whole "
                          "warps, at most 1024")
     return tw, th
-
-
-def _launch(fn, name, *args):
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream(args[0].device).cuda_stream
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    _build.count_launch(name)
-
-
-def _device_kind(t):
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
 
 
 def rasterize_2dgs_inference(rows, offsets, n_images, D, image_width, image_height,

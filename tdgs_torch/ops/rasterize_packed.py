@@ -70,11 +70,11 @@ def _plain_walk(n_images, image_width, image_height, tile_size, offsets,
     """The walk every plain version shares: each tile's cut range, α from
     the caller's σ, the skip tests and the running product with the 1e-4
     inclusion rule, in chunks of tiles whose [tiles, pixels, entries] block
-    stays under ``budget`` elements. ``response(idx, ids, px, py)`` gives
-    (σ [n, P, L], opacities [n, 1, L], geom) for stream positions ``idx``,
-    gaussian rows ``ids`` [n, L] (``idx`` itself when ``flatten_ids`` is
-    None: features already in stream order) and pixel centres ``px``,
-    ``py`` [n, P]."""
+    stays under ``budget`` elements. ``response(tt, idx, ids, px, py)``
+    gives (σ [n, P, L], opacities [n, 1, L], geom) for tiles ``tt`` [n],
+    stream positions ``idx``, gaussian rows ``ids`` [n, L] (``idx`` itself
+    when ``flatten_ids`` is None: features already in stream order) and
+    pixel centres ``px``, ``py`` [n, P]; σ < 0 skips the entry."""
     tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
     device = offsets.device
     P = tile_size * tile_size
@@ -104,7 +104,7 @@ def _plain_walk(n_images, image_width, image_height, tile_size, offsets,
         t_in = tt % (tw * th)
         px = ((t_in % tw) * tile_size)[:, None] + pxl[None, :]  # [n, P]
         py = ((t_in // tw) * tile_size)[:, None] + pyl[None, :]
-        sigma, op, geom = response(idx, ids, px, py)
+        sigma, op, geom = response(tt, idx, ids, px, py)
         vis = torch.exp(-sigma)
         op_vis = op * vis
         alpha = torch.clamp(op_vis, max=ALPHA_CLAMP)
@@ -124,7 +124,7 @@ def _response_3dgs(means2d, conics, opacities):
     con = conics.reshape(-1, 3)
     op = opacities.reshape(-1)
 
-    def response(idx, ids, px, py):
+    def response(tt, idx, ids, px, py):
         dx = m2[ids, 0][:, None, :] - px[:, :, None]  # [n, P, L]
         dy = m2[ids, 1][:, None, :] - py[:, :, None]
         ca, cb, cc = (con[ids, k][:, None, :] for k in range(3))
@@ -238,6 +238,25 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"{name}: must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _launch(fn, name, *args):
+    """Call a kernel's C entry on the current stream of ``args[0]``'s
+    device (tensors as pointers, None as null), raise on its
+    cudaError_t, count the launch."""
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream(args[0].device).cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    _build.count_launch(name)
+
+
+def _device_kind(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
 
 
 def _load_fwd():

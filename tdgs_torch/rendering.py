@@ -2,11 +2,14 @@
 ``tdgs/rendering.py:43 rasterization``, 3DGS, and ``:583
 rasterization_2dgs``, surfels).
 
-Two rasterizers are ported for each: ``"packed_inference"`` (forward only)
-and ``"packed"`` (differentiable: the training path), both through the
-hand-written CUDA kernels on the card and their plain PyTorch versions on
-the CPU. The ``meta`` dicts carry the same keys as the JAX package's; their
-``isect_offsets`` is the packed stream's [T + 1] offsets.
+Two screen-space rasterizers are ported for each: ``"packed_inference"``
+(forward only) and ``"packed"`` (differentiable: the training path). 3DGS
+also has the world-space ``"eval3d_packed"`` (3DGUT, ``with_eval3d``),
+differentiable, with the unscented-transform projection for its tiling
+(``with_ut``). All run through the hand-written CUDA kernels on the card
+and their plain PyTorch versions on the CPU. The ``meta`` dicts carry the
+same keys as the JAX package's; their ``isect_offsets`` is the packed
+stream's [T + 1] offsets.
 """
 
 from __future__ import annotations
@@ -17,12 +20,15 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from tdgs_torch._device import DeviceLike, as_float, as_optional_float, resolve_device
+from tdgs_torch.ops.camera_models import RollingShutterType
 from tdgs_torch.ops.projection import fully_fused_projection
 from tdgs_torch.ops.projection_2dgs import fully_fused_projection_2dgs
+from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut
 from tdgs_torch.ops.rasterize_2dgs_packed import (
     rasterize_to_pixels_2dgs_packed,
     rasterize_to_pixels_2dgs_packed_inference,
 )
+from tdgs_torch.ops.rasterize_eval3d_packed import rasterize_to_pixels_eval3d_packed
 from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed,
     rasterize_to_pixels_packed_inference,
@@ -37,8 +43,7 @@ RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
 _NOT_PORTED = {
     "jax": "ROADMAP queue 1, slice-1 remainders",
     "pallas": "ROADMAP queue 1, remaining modules; queue 2, kernels 9-10",
-    "eval3d": "ROADMAP queue 1, eval3d/3DGUT family",
-    "eval3d_packed": "ROADMAP queue 1, eval3d/3DGUT family",
+    "eval3d": "ROADMAP queue 1, eval3d/3DGUT remainders: the dense jnp path",
 }
 
 
@@ -93,6 +98,14 @@ def rasterization(
     rasterizer: str = "packed_inference",
     means2d_offset=None,  # [..., C, N, 2]
     means2d_abs_tap=None,  # [..., C, N, 2]
+    with_ut: bool = False,
+    radial_coeffs=None,  # [..., C, 6] or [..., C, 4] (fisheye)
+    tangential_coeffs=None,  # [..., C, 2]
+    thin_prism_coeffs=None,  # [..., C, 4]
+    ftheta_coeffs=None,  # FThetaCameraDistortionParameters
+    rolling_shutter: Optional[RollingShutterType] = None,
+    viewmats_rs=None,  # [..., C, 4, 4] frame-end poses
+    with_eval3d: bool = False,
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Rasterize N 3D Gaussians to C cameras (arbitrary leading batch dims).
@@ -106,8 +119,19 @@ def rasterization(
     to the projected means (pass zeros: its gradient is the screen-space
     gradient the DefaultStrategy reads); the gradient of
     ``means2d_abs_tap`` (zeros) is the per-gaussian sum of |per-tile
-    screen-space gradients| (AbsGS)."""
-    if rasterizer not in ("packed_inference", "packed"):
+    screen-space gradients| (AbsGS).
+
+    3DGUT: ``with_ut`` projects through the unscented transform (the camera
+    model's distortion coefficients, FTheta, ``rolling_shutter`` between
+    ``viewmats`` and ``viewmats_rs``); ``with_eval3d`` selects the
+    world-space ``"eval3d_packed"`` rasterizer, which evaluates each
+    gaussian along the pixels' true rays (differentiable, gradients also to
+    ``viewmats`` and ``viewmats_rs``); the projection then only feeds the
+    tiling. eval3d takes unbatched gaussians, quats and scales, and no
+    AbsGS tap."""
+    if with_eval3d and not rasterizer.startswith("eval3d"):
+        rasterizer = "eval3d_packed"
+    if rasterizer not in ("packed_inference", "packed", "eval3d_packed"):
         item = _NOT_PORTED.get(rasterizer)
         if item is None:
             raise ValueError(f"unknown rasterizer {rasterizer!r}")
@@ -125,6 +149,10 @@ def rasterization(
     viewmats = as_float(viewmats, dev)
     Ks = as_float(Ks, dev)
     backgrounds = as_optional_float(backgrounds, dev)
+    radial_coeffs, tangential_coeffs, thin_prism_coeffs, viewmats_rs = (
+        as_optional_float(x, dev)
+        for x in (radial_coeffs, tangential_coeffs, thin_prism_coeffs, viewmats_rs))
+    rolling_shutter = RollingShutterType(rolling_shutter or RollingShutterType.GLOBAL)
 
     meta: Dict = {}
     batch_dims = tuple(means.shape[:-2])
@@ -148,13 +176,32 @@ def rasterization(
     if viewmats.shape != batch_dims + (C, 4, 4) or Ks.shape != batch_dims + (C, 3, 3):
         raise ValueError(f"viewmats {viewmats.shape} / Ks {Ks.shape}")
 
+    if rasterizer == "eval3d_packed":
+        if batch_dims:
+            raise ValueError("eval3d takes unbatched [N] gaussians")
+        if covars is not None:
+            raise ValueError("eval3d needs quats and scales, not covars")
+    if with_ut and covars is not None:
+        raise ValueError("with_ut needs quats and scales, not covars")
+
     calc_compensations = rasterize_mode == "antialiased"
-    radii, means2d, depths, conics, compensations = fully_fused_projection(
-        means, quats, scales, viewmats, Ks, width, height,
-        eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
-        radius_clip=radius_clip, calc_compensations=calc_compensations,
-        camera_model=camera_model, opacities=opacities, covars=covars,
-    )  # [..., C, N, ...]
+    if with_ut:
+        radii, means2d, depths, conics, compensations = fully_fused_projection_with_ut(
+            means, quats, scales, opacities, viewmats, Ks, width, height,
+            eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
+            radius_clip=radius_clip, calc_compensations=calc_compensations,
+            camera_model=camera_model, radial_coeffs=radial_coeffs,
+            tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
+            ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
+            viewmats_rs=viewmats_rs,
+        )
+    else:
+        radii, means2d, depths, conics, compensations = fully_fused_projection(
+            means, quats, scales, viewmats, Ks, width, height,
+            eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
+            radius_clip=radius_clip, calc_compensations=calc_compensations,
+            camera_model=camera_model, opacities=opacities, covars=covars,
+        )  # [..., C, N, ...]
 
     if means2d_offset is not None:
         means2d = means2d + means2d_offset
@@ -216,7 +263,22 @@ def rasterization(
         isect.offsets, isect.flatten_ids,
     )
     bg = None if backgrounds is None else backgrounds.contiguous()
-    if rasterizer == "packed":
+    if rasterizer == "eval3d_packed":
+        # the projection only tiled: the response is taken along the rays
+        render_colors, render_alphas = rasterize_to_pixels_eval3d_packed(
+            means, quats, scales, colors_cn.reshape(I, N, -1).contiguous(),
+            opacities_cn.reshape(I, N).contiguous(), viewmats.reshape(I, 4, 4),
+            Ks.reshape(I, 3, 3), width, height, tile_size, isect.offsets,
+            isect.flatten_ids, camera_model=camera_model, radial_coeffs=radial_coeffs,
+            tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
+            ftheta_coeffs=ftheta_coeffs,
+            backgrounds=None if bg is None else bg.reshape(I, -1),
+            tile_capacity=tile_capacity, rolling_shutter=rolling_shutter,
+            viewmats_rs=None if viewmats_rs is None else viewmats_rs.reshape(I, 4, 4),
+        )
+        render_colors = render_colors.reshape((C, height, width, -1))
+        render_alphas = render_alphas.reshape((C, height, width, 1))
+    elif rasterizer == "packed":
         render_colors, render_alphas = rasterize_to_pixels_packed(
             *raster_args, backgrounds=bg, tile_capacity=tile_capacity,
             absgrad_dummy=(None if means2d_abs_tap is None

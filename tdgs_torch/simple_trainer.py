@@ -3,15 +3,19 @@
 ``Config`` fields, the same presets, plus ``--device``. It trains 3DGS, or
 2DGS surfels with ``--model-type 2dgs`` (with ``--normal-loss`` and
 ``--dist-loss``, live from ``--normal-start-iter`` and ``--dist-start-iter``),
-then evaluates on the test views.
+or 3DGUT with the ``mcmc`` preset and ``--with-ut --with-eval3d``, then
+evaluates on the test views.
 
     python -m tdgs_torch.simple_trainer default --data-dir <colmap scene> \\
         --data-factor 1 --result-dir results/scene [--device cpu]
     python -m tdgs_torch.simple_trainer default --model-type 2dgs \\
         --normal-loss --dist-loss --data-dir <colmap scene> [--device cpu]
+    python -m tdgs_torch.simple_trainer mcmc --with-ut --with-eval3d \\
+        --cap-max 100000 --data-dir <colmap scene> [--device cpu]
 
-The ``mcmc`` preset raises until the MCMC strategy is ported. The camera
-trajectory video is not ported either: the run says so and skips it.
+The ``mcmc`` preset is the MCMC strategy with ``init_opa=0.5``,
+``init_scale=0.1``, ``opacity_reg=0.01`` and ``scale_reg=0.01``. The camera
+trajectory video is not ported: the run says so and skips it.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import dataclasses
 import json
 import sys
 
-from tdgs_torch.strategy import DefaultStrategy
+from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
 from tdgs_torch.training.config import Config
 from tdgs_torch.training.trainer import Runner
 
@@ -70,15 +74,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def config_from_args(args) -> Config:
     if args.preset == "mcmc":
-        raise NotImplementedError(
-            "the mcmc preset needs the MCMC strategy, which is not ported yet "
-            "(ROADMAP queue 1: 3DGS training remainders)")
-    strategy = DefaultStrategy(verbose=True, absgrad=args.absgrad)
-    if args.grow_grad2d is not None:
-        strategy.grow_grad2d = args.grow_grad2d
-    elif args.absgrad:
-        strategy.grow_grad2d = 0.0008
-    kwargs = {}
+        strategy = MCMCStrategy(cap_max=args.cap_max, verbose=True)
+        kwargs = dict(init_opa=0.5, init_scale=0.1, opacity_reg=0.01, scale_reg=0.01)
+    else:
+        strategy = DefaultStrategy(verbose=True, absgrad=args.absgrad)
+        if args.grow_grad2d is not None:
+            strategy.grow_grad2d = args.grow_grad2d
+        elif args.absgrad:
+            strategy.grow_grad2d = 0.0008
+        kwargs = {}
     for f in dataclasses.fields(Config):
         v = getattr(args, f.name, None)
         if v is None or f.name == "strategy":

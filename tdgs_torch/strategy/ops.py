@@ -1,20 +1,28 @@
-"""Strategy primitives at fixed capacity (port of the DefaultStrategy half
-of ``tdgs/strategy/ops.py``): masked writes into dead rows instead of
-growing the arrays, so shapes stay those of the capacity.
+"""Strategy primitives at fixed capacity (port of ``tdgs/strategy/ops.py``):
+masked writes into dead rows instead of growing the arrays, so shapes stay
+those of the capacity.
 
 Optimizer and strategy state are nested dicts (or tuples) of tensors; an
 operation touches every floating tensor whose leading dim is the capacity.
+The MCMC operations come in two halves: a draw from a ``torch.Generator``
+(``mcmc_sample_sources``, ``position_noise``) and a deterministic core that
+takes the drawn indices or noise (``refine_mcmc``,
+``inject_noise_to_position``), so that a test can hand the core the JAX
+package's draws.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from tdgs_torch.models.gaussians import DEAD_OPACITY_LOGIT, SplatParams
-from tdgs_torch.ops.transforms import quat_to_rotmat
+from tdgs_torch.ops.relocation import compute_relocation
+from tdgs_torch.ops.transforms import quat_scale_to_covar_preci, quat_to_rotmat
+
+_EPS = float(torch.finfo(torch.float32).eps)
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -188,3 +196,92 @@ def reset_opacities(params: SplatParams, opt_state: Any,
         return leaf
 
     return params, tree_map(f, opt_state)
+
+
+def mcmc_sample_sources(params: SplatParams, generator: torch.Generator, n_before: int,
+                        min_opacity: float = 0.005) -> Optional[torch.Tensor]:
+    """One source row [C] (int64) per row of the capacity, drawn from the
+    alive rows of the active region [0, n_before) with probability ∝
+    opacity; None when no row is alive."""
+    op = torch.sigmoid(params["opacities"])
+    slots = torch.arange(op.shape[0], device=op.device)
+    alive = (slots < n_before) & (op > min_opacity)
+    if not bool(alive.any()):
+        return None
+    probs = torch.where(alive, op, torch.zeros_like(op))
+    return torch.multinomial(probs, op.shape[0], replacement=True, generator=generator)
+
+
+def refine_mcmc(
+    params: SplatParams,
+    opt_state: Any,
+    sampled: torch.Tensor,  # [C] int: each row's drawn source
+    n_before: int,  # active-region size before this refine
+    n_target: int,  # active-region size after (≥ n_before)
+    binoms: torch.Tensor,
+    min_opacity: float = 0.005,
+) -> Tuple[SplatParams, Any, torch.Tensor]:
+    """One MCMC refine at fixed capacity: relocate the dead rows of the
+    active region and activate the new rows [n_before, n_target).
+
+    Every target row (dead in the active region, or new) takes the
+    parameters of its drawn source, and both get the Eq.-9 relocation
+    opacity and scale (``compute_relocation``, with the count of targets
+    that drew the source, plus the source itself); the optimizer moments of
+    every touched row are zeroed. Returns (params, opt_state, number of
+    dead rows relocated)."""
+    C = params["means"].shape[0]
+    op = torch.sigmoid(params["opacities"])
+    slots = torch.arange(C, device=op.device)
+    dead = (slots < n_before) & (op <= min_opacity)
+    target = dead | ((slots >= n_before) & (slots < n_target))
+    sampled = sampled.to(torch.int64)
+
+    cnt = torch.zeros(C, dtype=torch.int64, device=op.device).index_add_(
+        0, sampled, target.to(torch.int64))
+    ratios = cnt[sampled] + 1
+    new_op, new_scales = compute_relocation(op[sampled], torch.exp(params["scales"][sampled]),
+                                            ratios, binoms)
+    new_op_logit = _logit(torch.clamp(new_op, min_opacity, 1.0 - _EPS))
+    new_log_scales = torch.log(torch.clamp(new_scales, min=1e-12))
+
+    # the sources first: every target that drew a source writes the same
+    # values into it
+    src = sampled[target]
+    opacities = params["opacities"].clone()
+    opacities[src] = new_op_logit[target]
+    scales = params["scales"].clone()
+    scales[src] = new_log_scales[target]
+    upd = dict(params, opacities=opacities, scales=scales)
+
+    # then the targets copy their (updated) sources
+    out = {}
+    for name, p in upd.items():
+        m = target.reshape((C,) + (1,) * (p.dim() - 1))
+        out[name] = torch.where(m, p[sampled], p)
+    opt_state = zero_opt_rows(opt_state, target | (cnt > 0))
+    return out, opt_state, dead.sum()
+
+
+def position_noise(params: SplatParams, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal noise shaped like the means."""
+    means = params["means"]
+    return torch.randn(means.shape, generator=generator, device=means.device)
+
+
+def inject_noise_to_position(
+    params: SplatParams,
+    noise: torch.Tensor,  # [C, 3] standard normal
+    scaler: float,
+    active_mask: Optional[torch.Tensor] = None,  # [C]
+) -> SplatParams:
+    """MCMC exploration: means += Σ·ε·σ(100·((1 − op) − 0.995))·scaler, so
+    that only near-dead gaussians (opacity ≲ 0.005) move."""
+    op = torch.sigmoid(params["opacities"])
+    covars, _ = quat_scale_to_covar_preci(params["quats"], torch.exp(params["scales"]),
+                                          compute_preci=False)
+    gate = torch.sigmoid(100.0 * ((1.0 - op) - 0.995))
+    step = torch.einsum("nij,nj->ni", covars, noise * gate[:, None] * scaler)
+    if active_mask is not None:
+        step = torch.where(active_mask[:, None], step, torch.zeros_like(step))
+    return dict(params, means=params["means"] + step)

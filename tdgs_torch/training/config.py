@@ -12,7 +12,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import List, Literal, Optional, Tuple
 
-from tdgs_torch.strategy import DefaultStrategy, Strategy
+from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy, Strategy
 
 
 @dataclass
@@ -55,7 +55,10 @@ class Config:
     max_tiles_per_gauss: int = 32
     isect_exact: bool = False
 
-    # model family
+    # model family; 3DGUT: with_ut projects through the unscented transform,
+    # with_eval3d rasterizes in world space along the pixels' rays. eval3d
+    # renders never touch means2d, so the DefaultStrategy's screen-gradient
+    # criterion never grows anything there: 3DGUT trains with MCMCStrategy
     model_type: Literal["3dgs", "2dgs"] = "3dgs"
     with_ut: bool = False
     with_eval3d: bool = False
@@ -163,7 +166,8 @@ class Config:
             refine_start_iter=int(strat.refine_start_iter * s),
             refine_stop_iter=int(strat.refine_stop_iter * s),
             refine_every=max(1, int(strat.refine_every * s)),
-            reset_every=max(1, int(strat.reset_every * s)),
+            **({"reset_every": max(1, int(strat.reset_every * s))}
+               if isinstance(strat, DefaultStrategy) else {}),
         )
         return dataclasses.replace(
             self,
@@ -178,13 +182,18 @@ class Config:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for a feature set here that the
-        port does not have yet, naming its ROADMAP queue."""
+        port does not have yet, naming its ROADMAP queue, and ``ValueError``
+        for a 3DGUT combination the trainer refuses (as the JAX Runner
+        asserts: with_ut needs with_eval3d, eval3d is 3DGS)."""
+        if self.with_ut and not self.with_eval3d:
+            raise ValueError("training with with_ut requires with_eval3d")
+        if self.with_eval3d and self.model_type != "3dgs":
+            raise ValueError("with_eval3d is a 3DGS render path")
         unported = [
-            (self.with_ut or self.with_eval3d, "with_ut/with_eval3d", "eval3d/3DGUT family"),
             (self.sharded, "sharded", "parallel/"),
             (self.pose_opt or self.pose_noise > 0.0, "pose_opt/pose_noise",
-             "eval3d/3DGUT family"),
-            (self.app_opt, "app_opt", "eval3d/3DGUT family"),
+             "eval3d/3DGUT remainders: training/modules.py"),
+            (self.app_opt, "app_opt", "eval3d/3DGUT remainders: training/modules.py"),
             (self.use_bilateral_grid, "use_bilateral_grid", "remaining modules"),
             (self.with_segmentation or bool(self.load_instance_masks),
              "with_segmentation/load_instance_masks", "segmentation"),
@@ -194,8 +203,6 @@ class Config:
             (self.compression is not None, "compression", "remaining modules"),
             (not self.disable_viewer, "the viewer", "remaining modules"),
             (self.ckpt_format != "pickle", "ckpt_format='orbax'", "3DGS training remainders"),
-            (not isinstance(self.strategy, DefaultStrategy), "MCMCStrategy",
-             "3DGS training remainders"),
             (self.rasterizer in ("jax", "pallas"), f"rasterizer={self.rasterizer!r}",
              "slice-1 remainders and remaining modules"),
             (self.camera_model != "pinhole", f"camera_model={self.camera_model!r}",

@@ -9,12 +9,17 @@ forward kernel; backward kernel and segment-sum kernel under autograd) →
 → DefaultStrategy accumulation and refine. With ``model_type="2dgs"`` the
 render is ``rasterization_2dgs`` in "RGB+ED" (kernels 5 and 6, the segment
 sum) and the loss adds the normal-consistency and distortion terms.
+With ``with_eval3d`` (3DGUT) the render is the world-space
+``"eval3d_packed"`` rasterizer (kernels 7 and 8, the segment sum), tiled by
+the UT projection with ``with_ut``, and without the screen-space taps;
+3DGUT trains with the MCMCStrategy (relocation, 5% growth up to
+``cap_max``, position noise every step).
 Gaussian state is the JAX package's fixed-capacity layout (dead rows
 padded), and capacity may double between steps (``maybe_grow_capacity``).
 Everything runs eagerly in PyTorch on the runner's device; random draws
 come from one ``torch.Generator``. Eval renders the test views through the
-forward-only ``packed_inference`` rasterizer and reports PSNR and SSIM
-(LPIPS is not ported).
+forward-only ``packed_inference`` rasterizer (kernel 7's forward-only call
+under eval3d) and reports PSNR and SSIM (LPIPS is not ported).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from tdgs_torch.datasets import Dataset, Parser
 from tdgs_torch.models import gaussians as G
 from tdgs_torch.ops.adam import adam_moments
 from tdgs_torch.rendering import rasterization, rasterization_2dgs
-from tdgs_torch.strategy import DefaultStrategy
+from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
 from tdgs_torch.strategy.ops import pad_rows, tree_map
 from tdgs_torch.training import losses as L
 from tdgs_torch.training.config import Config
@@ -110,8 +115,8 @@ class _MetricsLog:
 
 
 class Runner:
-    """Training runner for single-device 3DGS or 2DGS with the
-    DefaultStrategy."""
+    """Training runner for single-device 3DGS (screen-space or 3DGUT) or
+    2DGS, with the DefaultStrategy or the MCMCStrategy."""
 
     def __init__(self, cfg: Config, device: DeviceLike = None):
         cfg = cfg.adjusted()
@@ -140,8 +145,12 @@ class Runner:
         self.opt_state = self.optimizer.init(self.splats)
         self.strategy = cfg.strategy
         self.strategy.check_sanity(self.splats)
-        self.strategy_state = self.strategy.initialize_state(
-            self.splats, scene_scale=self.scene_scale)
+        if isinstance(self.strategy, MCMCStrategy):
+            self.strategy_state = self.strategy.initialize_state(
+                self.splats, n_alive=self.n_init)
+        else:
+            self.strategy_state = self.strategy.initialize_state(
+                self.splats, scene_scale=self.scene_scale)
 
     # ------------------------------------------------------------------
     def _init_splats(self) -> G.SplatParams:
@@ -160,7 +169,11 @@ class Runner:
                     * 2 - 1) * cfg.init_extent * self.parser.scene_scale)
             rgbs = None
         n_init = pts.shape[0]
-        capacity = cfg.capacity if cfg.capacity is not None else 4 * n_init
+        self.n_init = n_init
+        capacity = cfg.capacity
+        if capacity is None:
+            capacity = (cfg.strategy.cap_max if isinstance(cfg.strategy, MCMCStrategy)
+                        else 4 * n_init)
         return G.create_splats(
             pts, rgbs, self.generator, sh_degree=cfg.sh_degree,
             init_opacity=cfg.init_opa, init_scale_mult=cfg.init_scale,
@@ -173,7 +186,9 @@ class Runner:
                          backgrounds=None, render_mode="RGB",
                          rasterizer: Optional[str] = None):
         """Render ``params`` to the cameras; ``rasterizer`` defaults to the
-        config's (``"auto"`` is the differentiable ``"packed"``)."""
+        config's (``"auto"`` is the differentiable ``"packed"``). With
+        ``with_eval3d`` every render is ``"eval3d_packed"``, and the
+        screen-space taps are dropped: that render never reads means2d."""
         cfg = self.cfg
         means, quats, scales, opacities, sh = G.splat_activations(params)
         if rasterizer is None:
@@ -189,6 +204,8 @@ class Runner:
                 rasterizer=rasterizer, device=self.device,
             )
             return out[0], out[1], out[6]
+        if cfg.with_eval3d:
+            means2d_offset = means2d_abs_tap = None
         return rasterization(
             means, quats, scales, opacities, sh, viewmats, Ks, width, height,
             sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
@@ -198,7 +215,8 @@ class Runner:
             isect_capacity=cfg.isect_capacity,
             max_tiles_per_gauss=cfg.max_tiles_per_gauss, isect_exact=cfg.isect_exact,
             means2d_offset=means2d_offset, means2d_abs_tap=means2d_abs_tap,
-            backgrounds=backgrounds, render_mode=render_mode, device=self.device,
+            backgrounds=backgrounds, render_mode=render_mode, with_ut=cfg.with_ut,
+            with_eval3d=cfg.with_eval3d, device=self.device,
         )
 
     # ------------------------------------------------------------------
@@ -218,7 +236,8 @@ class Runner:
                                        device=dev).expand(B, 3)
         else:
             backgrounds = None
-        use_tap = isinstance(self.strategy, DefaultStrategy)
+        # eval3d renders give no screen-space gradients (means2d only tiles)
+        use_tap = isinstance(self.strategy, DefaultStrategy) and not cfg.with_eval3d
         use_absgrad = use_tap and self.strategy.absgrad
 
         params = {k: v.detach().requires_grad_(True) for k, v in self.splats.items()}

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 compositing forward (kernel 1), its backward (kernel 2), the sorted
-segment sum (kernel 3), and the 2DGS forwards (kernels 4 and 5) and
-backward (kernel 6).
+segment sum (kernel 3), the 2DGS forwards (kernels 4 and 5) and
+backward (kernel 6), and the eval3d (3DGUT) forward (kernel 7) and
+backward (kernel 8).
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card. The file imports neither JAX nor the JAX package, so it also
@@ -18,7 +19,8 @@ launches must agree bit for bit. The 2DGS kernels are held as kernels 1
 and 2 are, with the distortion and the gradient groups relative to their
 scale and median depth, a selected entry, allowed to differ in 1% of the
 pixels (the plain version's cumprod on the card rounds its running
-product differently at the 1e-4 cutoff).
+product differently at the 1e-4 cutoff). The eval3d kernels are held as
+kernels 1 and 2 are, the ray gradients per group like the rows.
 """
 
 import numpy as np
@@ -345,4 +347,136 @@ def test_2dgs_autograd_on_card_matches_cpu(cuda_device, n_images):
         loss.backward()
         grads[str(dev)] = [x.grad.cpu() for x in leaves + [dummy]]
     for name, g, w in zip(names + ("abs",), grads[str(cuda_device)], grads["cpu"]):
+        assert _rel_err(g, w) <= 1e-3, name
+
+
+def _eval3d_stream(seed, D, n_images=1, rolling_shutter=False, N=300):
+    """Random gaussians tiled by the port's projection on the CPU, with the
+    eval3d rows and rays; a TOP_TO_BOTTOM shutter whose end pose has moved
+    when ``rolling_shutter``."""
+    from tdgs_torch.ops import rasterize_eval3d_packed as E
+    from tdgs_torch.ops.camera_models import RollingShutterType
+    from tdgs_torch.ops.projection import fully_fused_projection
+
+    rng = np.random.default_rng(seed)
+    means = (rng.normal(size=(N, 3)) * [1.0, 0.8, 0.5] + [0, 0, 5]).astype(np.float32)
+    quats = rng.normal(size=(N, 4)).astype(np.float32)
+    scales = rng.uniform(0.05, 0.3, size=(N, 3)).astype(np.float32)
+    viewmats = np.tile(np.eye(4, dtype=np.float32), (n_images, 1, 1))
+    viewmats[1:, :3, 3] = [0.3, -0.2, 0.1]
+    Ks = np.tile(np.array([[40.0, 0, W / 2], [0, 40, H / 2], [0, 0, 1]], np.float32),
+                 (n_images, 1, 1))
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(means=means, quats=quats, scales=scales, viewmats=viewmats, Ks=Ks).items()}
+    radii, means2d, depths, _, _ = fully_fused_projection(
+        t["means"], t["quats"], t["scales"], t["viewmats"], t["Ks"], W, H)
+    isect = isect_tiles_packed(means2d, radii, depths, 16, 3, 3, max_tiles_per_gauss=16)
+    rs = {}
+    if rolling_shutter:
+        end = t["viewmats"].clone()
+        end[:, 0, 3] += 0.15
+        rs = dict(rolling_shutter=RollingShutterType.TOP_TO_BOTTOM, viewmats_rs=end)
+    d, o, o_ref = E.tile_rays_world(n_images, 3, 3, 16, W, H, t["viewmats"], t["Ks"], **rs)
+    t["colors"] = torch.from_numpy(rng.uniform(0, 1, size=(n_images, N, D)).astype(np.float32))
+    t["opacities"] = torch.from_numpy(
+        rng.uniform(0.05, 0.95, size=(n_images, N)).astype(np.float32))
+    feats = E.feature_rows(t["means"], t["quats"], t["scales"], t["opacities"], t["colors"],
+                           o_ref)
+    return dict(t, rows=feats[isect.flatten_ids.long()].contiguous(), d=d.contiguous(),
+                o=None if o is None else o.contiguous(), offsets=isect.offsets,
+                flatten_ids=isect.flatten_ids, rs=rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3, 8, 32])  # every templated channel bound
+@pytest.mark.parametrize("tile_capacity", [128, 1024])
+@pytest.mark.parametrize("rolling_shutter", [False, True])
+def test_eval3d_kernels_match_plain_on_card(cuda_device, D, tile_capacity, rolling_shutter):
+    from tdgs_torch.ops import rasterize_eval3d_packed as E
+
+    n_images = 2 if rolling_shutter else 1
+    s = _eval3d_stream(180 + D, D, n_images, rolling_shutter)
+    dev = cuda_device
+    o = None if s["o"] is None else s["o"].to(dev)
+    geo = (s["rows"].to(dev), s["d"].to(dev), o, s["offsets"].to(dev), n_images, D, W, H, 16)
+    tc = tile_capacity
+    bg = torch.linspace(0.1, 0.9, D, device=dev).repeat(n_images, 1)
+
+    before = {k: _build.LAUNCHES.get(k, 0) for k in (E.KERNEL_FWD, E.KERNEL_BWD)}
+    img, alp = E.rasterize_eval3d_inference(*geo, bg, tc)
+    p_img, p_T, _ = E.rasterize_eval3d_fwd_plain(*geo, tc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(img, p_img + p_T[..., None] * bg[:, None, None, :],
+                               rtol=0, atol=ATOL)
+    torch.testing.assert_close(alp[..., 0], 1.0 - p_T, rtol=0, atol=ATOL)
+    assert float(alp.max()) > 0.5  # the gaussians cover pixels
+
+    img, T = E.rasterize_eval3d_train_fwd(*geo, tc)
+    torch.testing.assert_close(img, p_img, rtol=0, atol=ATOL)
+    torch.testing.assert_close(T, p_T, rtol=0, atol=ATOL)
+    rng = np.random.default_rng(D + 7 * n_images)
+    v_img, v_T = (torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+                  for x in (img, T))
+    got = E.rasterize_eval3d_bwd(*geo, img, T, v_img, v_T, tc)
+    want = E.rasterize_eval3d_bwd_plain(*geo, img, T, v_img, v_T, tc)
+    torch.cuda.synchronize()
+    after = {k: _build.LAUNCHES.get(k, 0) for k in before}
+    assert after[E.KERNEL_FWD] == before[E.KERNEL_FWD] + 2
+    assert after[E.KERNEL_BWD] == before[E.KERNEL_BWD] + 1
+    assert got[0].shape == want[0].shape == (geo[0].shape[0], 13 + D)
+    groups = {"M": slice(0, 9), "g0": slice(9, 12), "opacity": slice(12, 13),
+              "colors": slice(13, None)}
+    for name, cols in groups.items():
+        assert _rel_err(got[0][:, cols], want[0][:, cols]) <= 1e-3, name
+    assert _rel_err(got[1], want[1]) <= 1e-3, "v_d"
+    if rolling_shutter:
+        assert _rel_err(got[2], want[2]) <= 1e-3, "v_o"
+    else:
+        assert got[2] is None
+    n = int(s["offsets"][-1])
+    assert float(got[0][n:].abs().sum()) == 0.0  # the stream's padding
+
+
+@pytest.mark.cuda
+def test_eval3d_wrappers_reject_bad_inputs(cuda_device):
+    from tdgs_torch.ops import rasterize_eval3d_packed as E
+
+    s = _eval3d_stream(190, 3, N=30)
+    rows, d, offs = (s[k].to(cuda_device) for k in ("rows", "d", "offsets"))
+    with pytest.raises(TypeError):  # int64 offsets
+        E.rasterize_eval3d_inference(rows, d, None, offs.long(), 1, 3, W, H, 16)
+    with pytest.raises(ValueError):  # rows of the wrong width for D
+        E.rasterize_eval3d_train_fwd(rows, d, None, offs, 1, 4, W, H, 16)
+    with pytest.raises(ValueError):  # operands on two devices
+        E.rasterize_eval3d_inference(rows, d.cpu(), None, offs, 1, 3, W, H, 16)
+    with pytest.raises(ValueError):  # rays of the wrong shape
+        E.rasterize_eval3d_train_fwd(rows, d[:, :100], None, offs, 1, 3, W, H, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rolling_shutter", [False, True])
+def test_eval3d_autograd_on_card_matches_cpu(cuda_device, rolling_shutter):
+    """The whole differentiable eval3d rasterizer: kernels 7, 8 and the
+    segment sum on the card against the plain versions on the CPU, with a
+    background; gradients to the gaussians and to both poses."""
+    from tdgs_torch.ops.rasterize_eval3d_packed import rasterize_to_pixels_eval3d_packed
+
+    s = _eval3d_stream(195, 3, 2, rolling_shutter)
+    names = ["means", "quats", "scales", "colors", "opacities", "viewmats"]
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        rng = np.random.default_rng(195)
+        leaves = [s[k].to(dev).clone().requires_grad_(True) for k in names]
+        rs = {}
+        if rolling_shutter:
+            rs = dict(s["rs"], viewmats_rs=s["rs"]["viewmats_rs"].to(dev).requires_grad_(True))
+        img, alp = rasterize_to_pixels_eval3d_packed(
+            *leaves, s["Ks"].to(dev), W, H, 16, s["offsets"].to(dev),
+            s["flatten_ids"].to(dev), backgrounds=torch.tensor([[0.2, 0.5, 0.8]] * 2,
+                                                               device=dev), **rs)
+        loss = sum((x * torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32))
+                    .to(dev)).sum() for x in (img, alp))
+        inputs = leaves + ([rs["viewmats_rs"]] if rolling_shutter else [])
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(loss, inputs)]
+    for name, g, w in zip(names + ["viewmats_rs"], grads[str(cuda_device)], grads["cpu"]):
         assert _rel_err(g, w) <= 1e-3, name

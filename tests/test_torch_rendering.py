@@ -90,8 +90,8 @@ def test_rasterization_depth_only_and_batched_cameras():
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), atol=5 * ATOL)
 
 
-# "packed" is ported (the training path); "eval3d" takes its place here
-@pytest.mark.parametrize("rasterizer", ["jax", "eval3d", "pallas", "eval3d_packed"])
+# "packed" and "eval3d_packed" are ported; the dense jnp "eval3d" is not
+@pytest.mark.parametrize("rasterizer", ["jax", "eval3d", "pallas"])
 def test_unported_rasterizers_raise(rasterizer):
     means, quats, scales, opac, sh, viewmats, Ks = _scene(502, N=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -123,8 +123,14 @@ def test_simple_trainer_cli_on_cpu(scene, tmp_path, capsys):
     assert rc == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1])["psnr"] > 0
-    with pytest.raises(NotImplementedError):
-        main(["mcmc", "--data-dir", scene, "--device", "cpu"])
+    rc = main(["mcmc", "--with-ut", "--with-eval3d", "--data-dir", scene,
+               "--result-dir", str(tmp_path / "m"), "--data-factor", "1", "--max-steps", "12",
+               "--eval-steps", "12", "--save-steps", "", "--cap-max", "256",
+               "--tile-capacity", "256", "--sh-degree", "1", "--test-every", "4",
+               "--tb-every", "4", "--disable-video", "--device", "cpu"])
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1])["psnr"] > 0
 
 
 def test_png_codec_reads_every_filter(tmp_path):

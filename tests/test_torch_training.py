@@ -425,7 +425,7 @@ def test_runner_config_raises_for_unported_features(tmp_path):
     base = Config(data_dir=str(tmp_path), result_dir=str(tmp_path / "r"))
     base.check_ported()
     dataclasses.replace(base, model_type="2dgs", normal_loss=True, dist_loss=True).check_ported()
-    for change in (dict(model_type="2dgs", sharded=True), dict(with_eval3d=True),
+    for change in (dict(model_type="2dgs", sharded=True), dict(pose_opt=True),
                    dict(app_opt=True), dict(sharded=True), dict(compression="png"),
                    dict(depth_loss=True), dict(rasterizer="jax"), dict(disable_viewer=False)):
         with pytest.raises(NotImplementedError):
