@@ -5,8 +5,10 @@ bench-scale forward+backward step, and the Runner on a rich procedural
 COLMAP scene), then the same for 2DGS surfels (the bench-scale render and
 training step, the Runner with the normal and distortion losses) and for
 3DGUT (the world-space eval3d rasterizer at the bench scale, σ* against
-float64, the Runner with the mcmc preset, the command line), and print one
-JSON line per phase.
+float64, the Runner with the mcmc preset, the command line) and for the
+tile-dense rasterizer (``rasterizer="pallas"``: kernels 9 and 10 at the
+bench scale, the bench render and training step, the Runner, the
+image-fitting example), and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -46,6 +48,7 @@ from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed_inference_plain,
 )
 from tdgs_torch.ops import rasterize_2dgs_packed as R2
+from tdgs_torch.ops import rasterize_pallas as RP
 from tdgs_torch.ops import rasterize_eval3d_packed as E
 from tdgs_torch.ops.camera_models import RollingShutterType
 from tdgs_torch.physics import (
@@ -61,6 +64,7 @@ from tdgs_torch.physics.bodies import BodyState, RigidBodies
 from tdgs_torch.rendering import _colors_per_camera
 from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
 from tdgs_torch.training.config import Config
+from tdgs_torch.ops.tiling import derive_isect_capacity
 from tdgs_torch.training.trainer import Runner
 from tdgs_torch.utils.test_data import (
     DOMINO_BACKGROUND,
@@ -75,6 +79,7 @@ TOL = 1e-3  # kernel vs plain version, absolute, colors and alphas
 BWD_RTOL = 1e-3  # kernel 2 vs plain: max|Δ| / max|plain| per gradient group
 SEG_RTOL = 1e-5  # kernel 3 vs plain: max|Δ| / max|plain| per column group
 KERNELS = (KERNEL, KERNEL_BWD, S.KERNEL)
+DENSE_KERNELS = (RP.KERNEL_FWD, RP.KERNEL_BWD, S.KERNEL)
 DIST_RTOL = 1e-3  # kernel 5 vs plain: distortion, max|Δ| / max|plain|
 MEDIAN_SHARE = 0.01  # kernel 5 vs plain: share of pixels whose median differs
 SIGMA_TOL = 1e-3  # eval3d σ* (float32, σ* < 4) vs float64, absolute
@@ -644,11 +649,15 @@ def bench_capacity(bench):
     return int(meta["n_isects"] * 1.25)
 
 
-def phase_render_train(bench, cap, n_steps=20):
+def phase_render_train(bench, cap, n_steps=20, rasterizer="packed"):
     """The JAX package's bench.py 3DGS training step (bench.py:236-282) on
     the port: loss = img.mean() + alpha.mean() through rasterization(
     rasterizer="packed"), gradients w.r.t. means, quats, scales, opacities
-    and SH, 20 steps at 1920x1080 with 200k gaussians."""
+    and SH, 20 steps at 1920x1080 with 200k gaussians. ``rasterizer=
+    "pallas"``: the same step through the tile-dense path (kernels 9, 10
+    and 3), phase ``render_train_pallas``."""
+    name, kernels = (("render_train", KERNELS) if rasterizer == "packed"
+                     else ("render_train_pallas", DENSE_KERNELS))
     names = ("means", "quats", "scales", "opacities", "sh")
     leaves = [bench[k].clone().requires_grad_(True) for k in names]
     box = {}
@@ -657,7 +666,7 @@ def phase_render_train(bench, cap, n_steps=20):
         m, q, sc, op, sh = leaves
         img, alpha, meta = tdgs_torch.rasterization(
             m, q, sc, op * (1.0 + 1e-5 * i), sh, bench["viewmats"], bench["Ks"],
-            WIDTH, HEIGHT, sh_degree=3, rasterizer="packed", tile_capacity=1024,
+            WIDTH, HEIGHT, sh_degree=3, rasterizer=rasterizer, tile_capacity=1024,
             max_tiles_per_gauss=16, isect_capacity=cap, device=DEVICE)
         box["meta"] = meta
         return img.mean() + alpha.mean()
@@ -682,7 +691,7 @@ def phase_render_train(bench, cap, n_steps=20):
         finite &= torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads]).all()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
     step_ms = [a.elapsed_time(b) for a, b in ev]
 
     # one step traced in its two halves
@@ -696,21 +705,21 @@ def phase_render_train(bench, cap, n_steps=20):
 
     fwd_trace = traced(fwd_only)
     bwd_trace = traced(bwd_only)
-    emit("render_train", steps=n_steps, width=WIDTH, height=HEIGHT,
+    emit(name, steps=n_steps, width=WIDTH, height=HEIGHT,
          n_gaussians=int(leaves[0].shape[0]), isect_capacity=cap,
          n_isects=box["meta"]["n_isects"], n_dropped=box["meta"]["n_dropped"],
          fps=n_steps / wall, wall_s=wall, step_ms_mean=float(np.mean(step_ms)),
          step_ms_p50=float(np.percentile(step_ms, 50)), launches=launches,
          all_finite=bool(finite), traced_forward=fwd_trace, traced_backward=bwd_trace)
     if not bool(finite):
-        raise RuntimeError("render_train: non-finite loss or gradient")
-    for k in KERNELS:
+        raise RuntimeError(f"{name}: non-finite loss or gradient")
+    for k in kernels:
         if launches[k] < n_steps:
-            raise RuntimeError(f"render_train launched {k} {launches[k]} < {n_steps} times")
+            raise RuntimeError(f"{name} launched {k} {launches[k]} < {n_steps} times")
     return launches
 
 
-def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100):
+def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100, rasterizer="packed"):
     """The port's Runner on make_rich_scene at the JAX package's defaults
     (40 images of 1236x822, 150k ground-truth gaussians, 40k SfM points,
     seed 11), written to ``root`` in ``scene_s`` seconds: packed rasterizer,
@@ -719,7 +728,9 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100):
     for 3DGUT). ``model_type="2dgs"`` trains surfels with the
     normal-consistency and distortion losses live from steps 30 and 10;
     ``"3dgut"`` the mcmc preset with the UT projection and the eval3d
-    rasterizer, MCMC refining at steps 40 and 80 up to 160k gaussians."""
+    rasterizer, MCMC refining at steps 40 and 80 up to 160k gaussians.
+    ``rasterizer="pallas"`` trains 3DGS through the tile-dense path (kernels
+    9, 10 and 3; phase ``trainer_pallas``), eval still through kernel 1."""
     strategy = DefaultStrategy(refine_start_iter=20, refine_every=40,
                                refine_stop_iter=1000, reset_every=10_000)
     if model_type == "2dgs":
@@ -735,12 +746,14 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100):
                                 refine_stop_iter=1000)
         extra = dict(with_ut=True, with_eval3d=True, init_opa=0.5, init_scale=0.1,
                      opacity_reg=0.01, scale_reg=0.01)
+    elif rasterizer == "pallas":
+        name, eval_kernel, kernels, extra = "trainer_pallas", KERNEL, DENSE_KERNELS, {}
     else:
         name, eval_kernel, kernels, extra = "trainer", KERNEL, KERNELS, {}
     cfg = Config(
-        data_dir=root, result_dir=f"{root}/results_{model_type}", data_factor=1,
+        data_dir=root, result_dir=f"{root}/results_{name}", data_factor=1,
         max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
-        sh_degree_interval=20, rasterizer="packed", tb_every=5, strategy=strategy,
+        sh_degree_interval=20, rasterizer=rasterizer, tb_every=5, strategy=strategy,
         **extra,
     )
     runner = Runner(cfg, device=DEVICE)
@@ -1486,6 +1499,222 @@ def phase_cli_3dgut(root, n_steps=60):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# tile-dense: kernels 9 and 10, the bench-scale render and training step,
+# the Runner with rasterizer="pallas", the image-fitting example
+# ---------------------------------------------------------------------------
+
+
+def dense_capacity(sc, max_tiles_per_gauss=16):
+    """The dense tiling's isect_capacity for a scene, sized as the JAX
+    package's bench.py:100-105 sizes it (derive_isect_capacity, 10%
+    headroom)."""
+    return derive_isect_capacity(sc["means"], sc["quats"], sc["scales"], sc["opacities"],
+                                 sc["viewmats"], sc["Ks"], WIDTH, HEIGHT,
+                                 max_tiles_per_gauss=max_tiles_per_gauss, device=DEVICE)
+
+
+def kernel_inputs_dense(sc, tile_capacity, render_mode="RGB", **kw):
+    """Kernel 9's inputs for one frame: the port's projection, SH and dense
+    tiling (rasterization's meta with rasterizer="pallas"), then the
+    per-tile gather. Returns (rows [T, cap, 6 + D], counts [T], meta)."""
+    with torch.no_grad():
+        _, _, meta = tdgs_torch.rasterization(
+            sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
+            sc["viewmats"], sc["Ks"], WIDTH, HEIGHT, sh_degree=3, render_mode=render_mode,
+            rasterizer="pallas", tile_capacity=tile_capacity, device=DEVICE, **kw)
+        colors = _colors_per_camera(sc["sh"], 3, sc["means"], sc["viewmats"], meta["radii"])
+        if render_mode == "RGB+ED":
+            colors = torch.cat([colors, meta["depths"][..., None]], -1)
+        rows, counts = RP.dense_rows(meta["means2d"], meta["conics"], colors,
+                                     meta["opacities"], meta["isect_offsets"],
+                                     meta["flatten_ids"], meta["n_isects"], tile_capacity)
+    return rows.contiguous(), counts, meta
+
+
+def dense_stats(meta, counts, tile_capacity):
+    offs = meta["isect_offsets"].reshape(-1).long()
+    ranges = torch.diff(torch.cat([offs, offs.new_tensor([meta["n_isects"]])]))
+    return dict(n_isects=meta["n_isects"], n_dropped=meta["n_dropped"],
+                isect_capacity=int(meta["flatten_ids"].shape[0]),
+                valid_slots=int(counts.sum()), max_tile_range=int(ranges.max()),
+                tiles_cut=int((ranges > tile_capacity).sum()))
+
+
+def parity_dense(name, sc, tile_capacity, seed, backgrounds=None, must_cut=False, **kw):
+    """Kernels 9 and 10 against their plain versions on one frame's dense
+    rows; the background (if any) blended as the wrapper blends it; random
+    cotangents. Fails above TOL (forward) or BWD_RTOL per gradient group,
+    or, with ``must_cut``, if no tile holds more than ``tile_capacity``
+    entries."""
+    render_mode = kw.pop("render_mode", "RGB")
+    rows, counts, meta = kernel_inputs_dense(sc, tile_capacity, render_mode, **kw)
+    stats = dense_stats(meta, counts, tile_capacity)
+    D = rows.shape[-1] - RP.GEOM_COLS
+    geo = (1, WIDTH, HEIGHT, 16)
+    img, trans = RP.rasterize_dense_fwd(rows, counts, *geo)
+    img_p, trans_p = RP.rasterize_dense_fwd_plain(rows, counts, *geo)
+    fwd = dict(colors=_abs_err(img, img_p), transmittance=_abs_err(trans, trans_p))
+    if backgrounds is not None:
+        bg = backgrounds.reshape(1, 1, 1, D)
+        fwd["with_background"] = _abs_err(img + trans[..., None] * bg,
+                                          img_p + trans_p[..., None] * bg)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    v_img = torch.randn(img.shape, generator=g, device=DEVICE)
+    v_t = torch.randn(trans.shape, generator=g, device=DEVICE)
+    v_rows = RP.rasterize_dense_bwd(rows, counts, *geo, img, trans, v_img, v_t)
+    want = RP.rasterize_dense_bwd_plain(rows, counts, *geo, img, trans, v_img, v_t)
+    torch.cuda.synchronize()
+    bwd_rel = {k: _rel(v_rows[..., c], want[..., c]) for k, c in GROUPS.items()}
+    finite = all(bool(torch.isfinite(x).all()) for x in (img, trans, v_rows))
+    emit("parity_dense", case=name, tile_capacity=tile_capacity, D=D,
+         **stats, alpha_mean=float((1 - trans_p).mean()),
+         fwd_max_abs_err=fwd, tol=TOL, bwd_max_rel_err=bwd_rel, bwd_rtol=BWD_RTOL,
+         bwd_max_abs_err=_abs_err(v_rows, want), finite=finite)
+    if not finite:
+        raise RuntimeError(f"parity_dense {name}: non-finite kernel output")
+    if must_cut and not stats["tiles_cut"]:
+        raise RuntimeError(f"parity_dense {name}: no tile is cut at {tile_capacity}")
+    if not max(fwd.values()) <= TOL:
+        raise RuntimeError(f"parity_dense {name}: forward {fwd} > {TOL}")
+    if not max(bwd_rel.values()) <= BWD_RTOL:
+        raise RuntimeError(f"parity_dense {name}: backward {bwd_rel} > {BWD_RTOL}")
+    return dict(fwd=max(fwd.values()), bwd=_abs_err(v_rows, want),
+                bwd_rel=max(bwd_rel.values()),
+                inputs=(rows, counts, geo, img, trans, v_img, v_t))
+
+
+def phase_parity_dense(bench, heavy, cap):
+    """Kernels 9 and 10 at the bench frame's dense shapes (200k gaussians,
+    K = 16, ``cap`` from derive_isect_capacity, tile_capacity 1024): "RGB"
+    with a background and "RGB+ED" (D = 4); and on a truncating case (60k
+    large gaussians, tile_capacity = 128)."""
+    bg = torch.tensor([0.3, 0.5, 0.7], device=DEVICE)
+    kw = dict(max_tiles_per_gauss=16, isect_capacity=cap)
+    a = parity_dense("a_bench_rgb_background", bench, 1024, 5, backgrounds=bg, **kw)
+    b = parity_dense("b_bench_rgb_ed", bench, 1024, 6, render_mode="RGB+ED", **kw)
+    c = parity_dense("c_heavy_overlap_truncated", heavy, 128, 7, must_cut=True,
+                     max_tiles_per_gauss=32, isect_capacity=dense_capacity(heavy, 32))
+    return {k: max(x[k] for x in (a, b, c)) for k in ("fwd", "bwd", "bwd_rel")}, a
+
+
+def measure_kernels_dense(a, reps=20):
+    """Times of kernels 9 and 10 at the bench frame's dense shapes ("RGB",
+    tile_capacity 1024), with their plain versions' and their bounds. No
+    PyTorch call composites a tile's slots, so there is no library
+    yardstick."""
+    rows, counts, geo, img, trans, v_img, v_t = a["inputs"]
+    T, cap, F = rows.shape
+    D = F - RP.GEOM_COLS
+    evals = RP.dense_evaluations(rows, counts, *geo)
+    valid = int(counts.sum())
+    n_pix = WIDTH * HEIGHT
+    # each input read once: the valid rows and the counts, per pixel the
+    # forward's colours and T with their cotangents (backward); outputs
+    # written once: the image and T, or every [T, cap, F] gradient row
+    work = {
+        RP.KERNEL_FWD: (valid * F * 4 + T * 4 + n_pix * (D + 1) * 4,
+                        evals * fwd_ops_per_eval(D)),
+        RP.KERNEL_BWD: (valid * F * 4 + T * 4 + n_pix * (2 * D + 2) * 4 + T * cap * F * 4,
+                        evals * bwd_ops_per_eval(D)),
+    }
+    calls = {
+        RP.KERNEL_FWD: (lambda: RP.rasterize_dense_fwd(rows, counts, *geo),
+                        lambda: RP.rasterize_dense_fwd_plain(rows, counts, *geo)),
+        RP.KERNEL_BWD: (lambda: RP.rasterize_dense_bwd(rows, counts, *geo, img, trans,
+                                                       v_img, v_t),
+                        lambda: RP.rasterize_dense_bwd_plain(rows, counts, *geo, img, trans,
+                                                             v_img, v_t)),
+    }
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        n_bytes, n_ops = work[name]
+        t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+        out[name] = dict(ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 2),
+                         library_ms=None, bound_ms=max(t_b, t_o),
+                         bound_by="bytes" if t_b >= t_o else "operations", bytes=n_bytes,
+                         fp32_ops=n_ops, evaluations=evals, valid_slots=valid,
+                         slots=T * cap)
+    emit("kernels_dense", **out)
+    return out
+
+
+def _psnr(a, b):
+    mse = float(((a.clamp(0, 1) - b.clamp(0, 1)) ** 2).mean())
+    return float("inf") if mse == 0 else -10.0 * float(np.log10(mse))
+
+
+def phase_bench_render_pallas(bench, cap, n_frames=20):
+    """20 frames of the 200k scene through rasterizer="pallas" (dense
+    tiling at the derived capacity, the per-tile gather, kernel 9), each
+    re-projected and re-sorted; then one frame traced, and the same frame
+    through "packed_inference" for comparison (information, not a gate:
+    the two differ only by the packed sort's depth quantisation)."""
+
+    def frame(i, rasterizer="pallas"):
+        img, _, meta = tdgs_torch.rasterization(
+            bench["means"], bench["quats"], bench["scales"],
+            bench["opacities"] * (1.0 + 1e-5 * i), bench["sh"], bench["viewmats"],
+            bench["Ks"], WIDTH, HEIGHT, sh_degree=3, tile_capacity=1024,
+            max_tiles_per_gauss=16, isect_capacity=cap, rasterizer=rasterizer,
+            device=DEVICE)
+        return img, meta
+
+    with torch.no_grad():
+        img0, meta = frame(0)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        acc = torch.zeros((), device=DEVICE)
+        for i in range(n_frames):
+            img, _ = frame(i)
+            acc += img.mean()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _build.LAUNCHES.get(RP.KERNEL_FWD, 0)
+        trace = traced(lambda: frame(0))
+        packed, _ = frame(0, "packed_inference")
+    emit("bench_render_pallas", frames=n_frames, fps=n_frames / wall, wall_s=wall,
+         n_gaussians=int(bench["means"].shape[0]), isect_capacity=cap,
+         n_isects=meta["n_isects"], n_dropped=meta["n_dropped"], kernel_launches=launches,
+         traced_frame=trace, vs_packed_inference_max_abs_diff=_abs_err(img0, packed),
+         vs_packed_inference_psnr_db=_psnr(img0, packed), finite=bool(torch.isfinite(acc)))
+    if not bool(torch.isfinite(acc)):
+        raise RuntimeError("bench_render_pallas: non-finite frame")
+    if launches < n_frames:
+        raise RuntimeError(f"bench_render_pallas launched kernel 9 {launches} < {n_frames} "
+                           "times")
+    return launches
+
+
+def phase_image_fitting(min_iterations=1000):
+    """``python -m tdgs_torch.image_fitting --rasterizer pallas`` at the
+    example's defaults (128x128, 2000 gaussians, 1000 Adam steps) on the
+    card, in its own process. The loss must fall below 0.55 of its start
+    (the JAX package's test margin) and every step must launch kernels 9
+    and 10."""
+    cmd = [sys.executable, "-m", "tdgs_torch.image_fitting", "--rasterizer", "pallas"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    summary = json.loads(lines[-1]) if out.returncode == 0 and lines else {}
+    launches = summary.get("launches", {})
+    emit("image_fitting", command=" ".join(cmd[1:]), rc=out.returncode, process_wall_s=wall,
+         **{k: v for k, v in summary.items() if k != "launches"},
+         launches={k: launches.get(k, 0) for k in DENSE_KERNELS},
+         log_tail=lines[-4:-1], stderr_tail=out.stderr[-400:] if out.returncode else "")
+    if out.returncode != 0:
+        raise RuntimeError(f"image_fitting: rc {out.returncode}, {out.stderr[-2000:]}")
+    if not summary["final_loss"] < 0.55 * summary["initial_loss"]:
+        raise RuntimeError(f"image_fitting: loss {summary['initial_loss']} -> "
+                           f"{summary['final_loss']}")
+    for k in DENSE_KERNELS:
+        if launches.get(k, 0) < min_iterations:
+            raise RuntimeError(f"image_fitting launched {k} {launches.get(k, 0)} times")
+    return {k: launches.get(k, 0) for k in DENSE_KERNELS}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1532,15 +1761,23 @@ def main():
         train_e3_launches = phase_render_train_eval3d(bench, cap)
         trainer_e3_launches, trainer_e3_eval = phase_trainer(root, scene_s, "3dgut")
         phase_cli_3dgut(root)
+
+        cap_dense = dense_capacity(bench)
+        errs_dense, par_dense = phase_parity_dense(bench, heavy, cap_dense)
+        render_dense_launches = phase_bench_render_pallas(bench, cap_dense)
+        train_dense_launches = phase_render_train(bench, cap_dense, rasterizer="pallas")
+        trainer_dense_launches, _ = phase_trainer(root, scene_s, rasterizer="pallas")
+        fitting_launches = phase_image_fitting()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed),
-                   **measure_kernels_eval3d(par_e3))
+                   **measure_kernels_eval3d(par_e3), **measure_kernels_dense(par_dense))
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
-    # in bench_render_eval3d, 8 in render_train_eval3d), the error and the
-    # tolerance it is held to, the other paths' launches)
+    # in bench_render_eval3d, 8 in render_train_eval3d, 9 and 10 in
+    # render_train_pallas), the error and the tolerance it is held to, the
+    # other paths' launches)
     pallas_2dgs = "tdgs/ops/rasterize_2dgs_pallas.py"
     pallas_e3 = "tdgs/ops/rasterize_eval3d_pallas.py"
     table = {
@@ -1564,7 +1801,10 @@ def main():
                         render_train_2dgs_launches=train_2dgs_launches[S.KERNEL],
                         trainer_2dgs_launches=trainer_2dgs_launches[S.KERNEL],
                         render_train_eval3d_launches=train_e3_launches[S.KERNEL],
-                        trainer_3dgut_launches=trainer_e3_launches[S.KERNEL])),
+                        trainer_3dgut_launches=trainer_e3_launches[S.KERNEL],
+                        render_train_pallas_launches=train_dense_launches[S.KERNEL],
+                        trainer_pallas_launches=trainer_dense_launches[S.KERNEL],
+                        image_fitting_launches=fitting_launches[S.KERNEL])),
         R2.KERNEL_FWD: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:84", render_2dgs_launches,
                         dict(max_abs_err=errs_2dgs["fwd"], abs_tol=TOL),
                         dict(trainer_2dgs_eval_launches=trainer_2dgs_eval)),
@@ -1593,6 +1833,18 @@ def main():
                        dict(max_abs_err=errs_e3["bwd"], max_rel_err=errs_e3["bwd_rel"],
                             rtol=BWD_RTOL),
                        dict(trainer_launches=trainer_e3_launches[E.KERNEL_BWD])),
+        RP.KERNEL_FWD: ("rasterize_dense_fwd.cu", "tdgs/ops/rasterize_pallas.py:99",
+                        train_dense_launches[RP.KERNEL_FWD],
+                        dict(max_abs_err=errs_dense["fwd"], abs_tol=TOL),
+                        dict(bench_render_launches=render_dense_launches,
+                             trainer_launches=trainer_dense_launches[RP.KERNEL_FWD],
+                             image_fitting_launches=fitting_launches[RP.KERNEL_FWD])),
+        RP.KERNEL_BWD: ("rasterize_dense_bwd.cu", "tdgs/ops/rasterize_pallas.py:168",
+                        train_dense_launches[RP.KERNEL_BWD],
+                        dict(max_abs_err=errs_dense["bwd"], max_rel_err=errs_dense["bwd_rel"],
+                             rtol=BWD_RTOL),
+                        dict(trainer_launches=trainer_dense_launches[RP.KERNEL_BWD],
+                             image_fitting_launches=fitting_launches[RP.KERNEL_BWD])),
     }
     kernels = []
     for name, (src, replaces, launches, errs, others) in table.items():

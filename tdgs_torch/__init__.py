@@ -22,13 +22,21 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from tdgs_torch.ops.projection import fully_fused_projection  # noqa: E402
+from tdgs_torch.ops.rasterize_jax import (  # noqa: E402
+    rasterize_to_pixels_jax as rasterize_to_pixels,
+)
+from tdgs_torch.ops.rasterize_pallas import rasterize_to_pixels_pallas  # noqa: E402
 from tdgs_torch.ops.rasterize_packed import (  # noqa: E402
     rasterize_to_pixels_packed,
     rasterize_to_pixels_packed_inference,
     rasterize_to_pixels_packed_inference_plain,
 )
 from tdgs_torch.ops.sh import spherical_harmonics  # noqa: E402
-from tdgs_torch.ops.tiling import isect_offset_encode, isect_tiles_packed  # noqa: E402
+from tdgs_torch.ops.tiling import (  # noqa: E402
+    isect_offset_encode,
+    isect_tiles,
+    isect_tiles_packed,
+)
 from tdgs_torch.ops.transforms import (  # noqa: E402
     quat_scale_to_covar_preci,
     quat_to_rotmat,
@@ -43,10 +51,13 @@ __all__ = [
     "rasterization_2dgs",
     "spherical_harmonics",
     "isect_offset_encode",
+    "isect_tiles",
     "isect_tiles_packed",
     "fully_fused_projection",
     "quat_scale_to_covar_preci",
     "quat_to_rotmat",
+    "rasterize_to_pixels",
+    "rasterize_to_pixels_pallas",
     "rasterize_to_pixels_packed",
     "rasterize_to_pixels_packed_inference",
     "rasterize_to_pixels_packed_inference_plain",

@@ -9,7 +9,10 @@ and ``nu``, or a selective-Adam ``count``/``exp_avg``/``exp_avg_sq``) and
 the strategy state (the DefaultStrategy's ``grad2d``/``count``/
 ``radii_norm``, the MCMCStrategy's ``binoms`` and ``n_alive``). A training
 ``Config`` goes across as a dict of builtins (``config_to_dict``,
-``config_from_dict``), its strategy included. Nothing here imports JAX.
+``config_from_dict``), its strategy included. The image-fitting example's
+parameters (``means``, ``scales``, ``quats``, ``opacities``, ``colors``)
+go across with ``image_fitting_params_from_numpy`` and back with
+``image_fitting_params_to_numpy``. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +42,23 @@ def splats_from_numpy(splats: Mapping[str, Any],
     """Splat parameter dict (means, quats, scales, opacities, sh0, shN, ...)."""
     dev = resolve_device(device)
     return {k: _tensor(v, dev) for k, v in splats.items()}
+
+
+IMAGE_FITTING_KEYS = ("means", "scales", "quats", "opacities", "colors")
+
+
+def image_fitting_params_from_numpy(params: Mapping[str, Any],
+                                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The image-fitting parameter dict (``examples/image_fitting.py
+    init_params``, or a fitted state) → float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: _tensor(params[k], dev) for k in IMAGE_FITTING_KEYS}
+
+
+def image_fitting_params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's image-fitting parameters → float32 numpy arrays."""
+    return {k: params[k].detach().cpu().numpy().astype(np.float32)
+            for k in IMAGE_FITTING_KEYS}
 
 
 def bodies_from_numpy(bodies: Any, device: DeviceLike = None) -> RigidBodies:

@@ -108,3 +108,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, n_ptrs: int, n_ints: int, slots: bool = False):
+    """The C entry ``tdgs_<name>`` of ``csrc/<name>.cu``: ``n_ptrs``
+    pointers, ``n_ints`` ints, an int64 slot count with ``slots``, then the
+    stream; it returns a cudaError_t."""
+    fn = getattr(load(name), f"tdgs_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + ([ctypes.c_int64] if slots else []) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn

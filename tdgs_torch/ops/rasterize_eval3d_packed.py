@@ -31,7 +31,6 @@ gradients to ``viewmats`` and ``viewmats_rs``.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -272,14 +271,6 @@ def rasterize_eval3d_bwd_plain(rows, d, o, offsets, n_images, D, image_width,
 # ---------------------------------------------------------------------------
 
 
-def _load(name, n_ptrs, n_ints, slots=False):
-    fn = getattr(_build.load(name), f"tdgs_{name}")
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + ([ctypes.c_int64] if slots else []) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_inputs(rows, d, o, offsets, n_images, D, image_width, image_height,
                   tile_size):
     device = rows.device
@@ -306,7 +297,7 @@ def _launch_fwd(rows, d, o, offsets, n_images, D, W, H, tile_size, backgrounds,
         _check("backgrounds", backgrounds, torch.float32, rows.device, (n_images, D))
     out_c = rows.new_empty((n_images, H, W, D))
     out_a = rows.new_empty((n_images, H, W))
-    _launch(_load(KERNEL_FWD, 7, 9), KERNEL_FWD, rows, d, o, offsets,
+    _launch(_build.entry(KERNEL_FWD, 7, 9), KERNEL_FWD, rows, d, o, offsets,
             backgrounds, out_c, out_a, n_images, W, H, tile_size, tw, th, D,
             max_entries_per_tile(tile_capacity), int(write_transmittance))
     return out_c, out_a
@@ -362,7 +353,7 @@ def rasterize_eval3d_bwd(rows, d, o, offsets, n_images, D, image_width, image_he
     v_rows = rows.new_empty(rows.shape)
     v_d = torch.empty_like(d)
     v_o = None if o is None else torch.empty_like(o)
-    _launch(_load(KERNEL_BWD, 11, 8, slots=True), KERNEL_BWD, rows, d, o,
+    _launch(_build.entry(KERNEL_BWD, 11, 8, slots=True), KERNEL_BWD, rows, d, o,
             offsets, *per_pixel, v_rows, v_d, v_o, n_images, W, H, tile_size, tw, th, D,
             max_entries_per_tile(tile_capacity), rows.shape[0])
     return v_rows, v_d, v_o

@@ -66,7 +66,7 @@ class _Chunk(NamedTuple):
 
 
 def _plain_walk(n_images, image_width, image_height, tile_size, offsets,
-                flatten_ids, tile_capacity, budget, response):
+                flatten_ids, tile_capacity, budget, response, ranges=None):
     """The walk every plain version shares: each tile's cut range, α from
     the caller's σ, the skip tests and the running product with the 1e-4
     inclusion rule, in chunks of tiles whose [tiles, pixels, entries] block
@@ -74,16 +74,22 @@ def _plain_walk(n_images, image_width, image_height, tile_size, offsets,
     gives (σ [n, P, L], opacities [n, 1, L], geom) for tiles ``tt`` [n],
     stream positions ``idx``, gaussian rows ``ids`` [n, L] (``idx`` itself
     when ``flatten_ids`` is None: features already in stream order) and
-    pixel centres ``px``, ``py`` [n, P]; σ < 0 skips the entry."""
+    pixel centres ``px``, ``py`` [n, P]; σ < 0 skips the entry.
+    ``ranges=(starts, counts)`` [T] gives each tile's stream range itself,
+    in place of ``offsets`` and the cut (the dense layout: tile t owns
+    slots t·cap .. t·cap + count_t)."""
     tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
-    device = offsets.device
     P = tile_size * tile_size
     T_total = n_images * tw * th
     fids = None if flatten_ids is None else flatten_ids.to(torch.int64)
 
-    offs = offsets.to(torch.int64)
-    starts = offs[:-1]
-    counts = torch.clamp(offs[1:] - starts, 0, max_entries_per_tile(tile_capacity))
+    if ranges is None:
+        offs = offsets.to(torch.int64)
+        starts = offs[:-1]
+        counts = torch.clamp(offs[1:] - starts, 0, max_entries_per_tile(tile_capacity))
+    else:
+        starts, counts = (r.to(torch.int64) for r in ranges)
+    device = starts.device
     p = torch.arange(P, device=device)
     pxl = (p % tile_size).to(torch.float32) + 0.5
     pyl = (p // tile_size).to(torch.float32) + 0.5
@@ -158,20 +164,25 @@ def _plain_composite(
 ):
     """Composite every tile; returns (colors [I, H, W, D], T [I, H, W],
     (pixel, entry) evaluations a front-to-back walk with early exit makes)."""
-    image_dims, I, N, D, tw, th = _dims(
-        means2d, colors, image_width, image_height, tile_size
-    )
-    device = means2d.device
-    P = tile_size * tile_size
-    T_total = I * tw * th
-    col = colors.reshape(I * N, D)
+    _, I, N, D, _, _ = _dims(means2d, colors, image_width, image_height, tile_size)
+    walk = _plain_walk(I, image_width, image_height, tile_size, offsets, flatten_ids,
+                       tile_capacity, budget, _response_3dgs(means2d, conics, opacities))
+    return composite_walk(walk, colors.reshape(I * N, D), I, image_width, image_height,
+                          tile_size)
 
-    out_c = torch.zeros((T_total, P, D), dtype=torch.float32, device=device)
+
+def composite_walk(walk, col, n_images, image_width, image_height, tile_size):
+    """The 3DGS plain forward over a plain walk whose entries' colours are
+    ``col[ids]``: (colors [I, H, W, D], T [I, H, W], (pixel, entry)
+    evaluations of a front-to-back walk with early exit)."""
+    tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
+    device = col.device
+    P = tile_size * tile_size
+    T_total = n_images * tw * th
+    out_c = torch.zeros((T_total, P, col.shape[1]), dtype=torch.float32, device=device)
     out_T = torch.ones((T_total, P, 1), dtype=torch.float32, device=device)
     n_evals = torch.zeros((), dtype=torch.int64, device=device)
-    for c in _plain_walk(I, image_width, image_height, tile_size, offsets, flatten_ids,
-                         tile_capacity, budget,
-                         _response_3dgs(means2d, conics, opacities)):
+    for c in walk:
         alpha, included = c.alpha, c.included
         w = torch.where(included, alpha * c.T_prev, torch.zeros_like(alpha))
         out_c[c.tt] = torch.bmm(w, col[c.ids])
@@ -179,7 +190,7 @@ def _plain_composite(
                                         torch.ones_like(alpha)).prod(-1)
         n_evals += walked_evaluations(c, image_width, image_height)
 
-    args = (I, tw, th, tile_size, image_height, image_width)
+    args = (n_images, tw, th, tile_size, image_height, image_width)
     return untile(out_c, *args), untile(out_T, *args)[..., 0], n_evals
 
 
@@ -426,12 +437,25 @@ def rasterize_packed_bwd_plain(
     each entry's tile, zero for entries past the cut, past the cutoff or
     past offsets[-1]. ``out_colors``/``out_T`` are the training forward's
     outputs, ``v_colors``/``v_T`` their cotangents."""
-    image_dims, I, N, D, tw, th = _dims(
-        means2d, colors, image_width, image_height, tile_size
-    )
-    col = colors.reshape(I * N, D)
-    F = 6 + D
+    _, I, N, D, _, _ = _dims(means2d, colors, image_width, image_height, tile_size)
+    walk = _plain_walk(I, image_width, image_height, tile_size, offsets, flatten_ids,
+                       tile_capacity, budget, _response_3dgs(means2d, conics, opacities))
+    v_rows = torch.zeros((flatten_ids.shape[0], 6 + D), dtype=torch.float32,
+                         device=means2d.device)
+    backward_walk(walk, colors.reshape(I * N, D), I, image_width, image_height, tile_size,
+                  out_colors, out_T, v_colors, v_T, v_rows)
+    return v_rows
 
+
+def backward_walk(walk, col, n_images, image_width, image_height, tile_size,
+                  out_colors, out_T, v_colors, v_T, v_rows):
+    """The 3DGS plain backward over a plain walk whose entries' colours are
+    ``col[ids]``: writes each walked entry's row ``[d mx, d my, d a, d b,
+    d c, d op, d colors]`` into ``v_rows`` [stream, 6 + D] at its stream
+    position, from the forward's ``out_colors`` [I, H, W, D] and ``out_T``
+    [I, H, W] and their cotangents."""
+    I, D = n_images, col.shape[1]
+    tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
     # per-pixel inputs, tile-major; pixels outside the image contribute 0
     vcol_img = v_colors.reshape(I, image_height, image_width, D)
     totq_img = (vcol_img * out_colors.reshape(I, image_height, image_width, D)).sum(
@@ -440,11 +464,7 @@ def rasterize_packed_bwd_plain(
     vcol_t, totq_t, va_t = (tile_pixels(x, I, tw, th, tile_size)
                             for x in (vcol_img, totq_img, va_img))
 
-    v_rows = torch.zeros((flatten_ids.shape[0], F), dtype=torch.float32,
-                         device=means2d.device)
-    for c in _plain_walk(I, image_width, image_height, tile_size, offsets, flatten_ids,
-                         tile_capacity, budget,
-                         _response_3dgs(means2d, conics, opacities)):
+    for c in walk:
         tt, valid, idx, ids = c.tt, c.valid, c.idx, c.ids
         dx, dy, (ca, cb, cc) = c.geom
         vis, op_vis, alpha, T_prev = c.vis, c.op_vis, c.alpha, c.T_prev
@@ -471,7 +491,6 @@ def rasterize_packed_bwd_plain(
             torch.bmm(w.transpose(1, 2), vcol),  # [n, L, D]
         ], dim=-1)  # [n, L, F]
         v_rows[idx[valid]] = rows[valid]
-    return v_rows
 
 
 def rasterize_packed_bwd(

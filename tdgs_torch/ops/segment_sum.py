@@ -24,8 +24,8 @@ MAX_COLUMNS = 64
 
 
 def segment_rows_sum_plain(
-    rows: torch.Tensor,  # [E, F] float32, stream order
-    perm: torch.Tensor,  # [E] int64: a stable sort's permutation of the ids
+    rows: torch.Tensor,  # [R, F] float32, stream order
+    perm: torch.Tensor,  # [E] int64: a stable sort's permutation into rows
     sids: torch.Tensor,  # [E] sorted ids; ids outside [0, n_rows) are ignored
     n_rows: int,
     abs_cols: bool = False,
@@ -56,13 +56,14 @@ def _load_kernel():
 
 
 def segment_rows_sum(
-    rows: torch.Tensor,  # [E, F] float32
-    perm: torch.Tensor,  # [E] int64
+    rows: torch.Tensor,  # [R, F] float32, read only through perm
+    perm: torch.Tensor,  # [E] int64 positions into rows
     sids: torch.Tensor,  # [E] int32 sorted
     n_rows: int,
     abs_cols: bool = False,
 ) -> torch.Tensor:
-    """Per-row sums of the sorted segments → [n_rows, F (+2)].
+    """Per-row sums of the sorted segments → [n_rows, F (+2)]. ``perm`` may
+    name fewer rows than ``rows`` holds (a sort of the valid slots only).
 
     CUDA tensors launch the CUDA kernel (or raise); CPU tensors take the
     plain version."""
@@ -71,7 +72,8 @@ def segment_rows_sum(
         return segment_rows_sum_plain(rows, perm, sids, n_rows, abs_cols)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    E, F = rows.shape
+    F = rows.shape[1]
+    E = sids.shape[0]
     for name, t, dtype in (("rows", rows, torch.float32), ("perm", perm, torch.int64),
                            ("sids", sids, torch.int32)):
         if t.dtype != dtype:
@@ -80,8 +82,9 @@ def segment_rows_sum(
             raise ValueError(f"{name}: expected device {device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
-    if perm.shape != (E,) or sids.shape != (E,):
-        raise ValueError(f"perm {tuple(perm.shape)} / sids {tuple(sids.shape)} for {E} rows")
+    if rows.dim() != 2 or perm.shape != (E,) or sids.shape != (E,):
+        raise ValueError(f"rows {tuple(rows.shape)} / perm {tuple(perm.shape)} / "
+                         f"sids {tuple(sids.shape)}")
     if not 1 <= F <= MAX_COLUMNS or (abs_cols and F < 2):
         raise ValueError(f"rows: 1..{MAX_COLUMNS} columns supported, got {F}")
     if E >= 2**31:
@@ -100,35 +103,43 @@ def segment_rows_sum(
     return out
 
 
-def sort_ids(ids: torch.Tensor, n_valid: Optional[torch.Tensor] = None):
+def sort_ids(ids: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
+             mask: Optional[torch.Tensor] = None):
     """(sorted ids int32, permutation int64) of a stable sort. Slots at or
     past ``n_valid`` (a 0-d device tensor: stream padding) are given an id
     past every row, so they sort last and fall in no segment; this needs no
-    host sync."""
+    host sync. Slots where ``mask`` is False (invalid slots inside the
+    stream) are left out before the sort: only the valid ids are sorted,
+    and the permutation names their positions in ``ids``. Finding them
+    waits for the device once."""
     ids = ids.to(torch.int32)
     if n_valid is not None:
         pos = torch.arange(ids.shape[0], device=ids.device)
         ids = torch.where(pos < n_valid, ids, torch.iinfo(torch.int32).max)
+    if mask is not None:
+        keep = torch.nonzero(mask.reshape(-1)).reshape(-1)
+        sids, order = torch.sort(ids[keep], stable=True)
+        return sids.contiguous(), keep[order].contiguous()
     sids, perm = torch.sort(ids, stable=True)
     return sids.contiguous(), perm.contiguous()
 
 
 class _GatherRowsSegsum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feats, ids, n_valid, abs_tap):
-        ctx.save_for_backward(ids, n_valid)
+    def forward(ctx, feats, ids, n_valid, abs_tap, mask):
+        ctx.save_for_backward(ids, n_valid, mask)
         ctx.n_rows, ctx.F = feats.shape
         ctx.with_abs = abs_tap is not None
         return feats[ids.long()]
 
     @staticmethod
     def backward(ctx, v_rows):
-        ids, n_valid = ctx.saved_tensors
-        sids, perm = sort_ids(ids, n_valid)
+        ids, n_valid, mask = ctx.saved_tensors
+        sids, perm = sort_ids(ids, n_valid, mask)
         sums = segment_rows_sum(v_rows.contiguous(), perm, sids, ctx.n_rows,
                                 abs_cols=ctx.with_abs)
         v_abs = sums[:, ctx.F:] if ctx.with_abs else None
-        return sums[:, :ctx.F], None, None, v_abs
+        return sums[:, :ctx.F], None, None, v_abs, None
 
 
 def gather_rows_segsum(
@@ -136,10 +147,12 @@ def gather_rows_segsum(
     ids: torch.Tensor,  # [E] int32
     n_valid: Optional[torch.Tensor] = None,  # 0-d: slots at or past it are padding
     abs_tap: Optional[torch.Tensor] = None,  # [n_rows, 2] zeros
+    mask: Optional[torch.Tensor] = None,  # [E] bool: False slots are padding
 ) -> torch.Tensor:
     """``feats[ids]`` whose VJP is a stable sort of ``ids`` and the segment
     sum above, in place of an atomic scatter-add. Slots at or past
-    ``n_valid`` send no gradient back. The gradient of ``abs_tap`` is the
-    per-row sum of |cotangent[:, 0:2]| (the AbsGS signal of the JAX
+    ``n_valid``, and slots where ``mask`` is False, send no gradient back
+    (their ids may be anything in range). The gradient of ``abs_tap`` is
+    the per-row sum of |cotangent[:, 0:2]| (the AbsGS signal of the JAX
     package's ``absgrad_tap``, taken after the gather)."""
-    return _GatherRowsSegsum.apply(feats, ids, n_valid, abs_tap)
+    return _GatherRowsSegsum.apply(feats, ids, n_valid, abs_tap, mask)

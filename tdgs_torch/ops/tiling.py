@@ -1,26 +1,43 @@
 """Tile intersection + depth sorting (PyTorch port of
-``tdgs/ops/tiling.py:154 isect_tiles_packed``).
+``tdgs/ops/tiling.py``: the packed stream ``isect_tiles_packed`` :154, the
+dense buffers ``isect_tiles`` :43, and the footprint count behind
+``derive_isect_capacity`` :485).
 
-The contract is the JAX package's: one packed int32 key
+The contracts are the JAX package's. Packed: one int32 key
 ``(image*n_tiles + tile) << depth_bits | qdepth`` per (gaussian, tile)
-entry, sorted, with per-tile ranges ``offsets[t]..offsets[t+1]``. What
-differs is what PyTorch allows: shapes may depend on the data, so only the
-real entries are built and sorted, and the sorted stream is padded with
-sentinel keys to the length the JAX package would give (``N*K`` for the
-capped expansion, ``capacity`` otherwise). ``n_isects`` and ``n_dropped``
-come back as Python ints.
+entry, sorted, with per-tile ranges ``offsets[t]..offsets[t+1]``. Dense:
+int32 keys ``image*n_tiles + tile`` ordered by float32 depth within a key,
+at a fixed capacity. What differs is what PyTorch allows: shapes may
+depend on the data, so only the real entries are built and sorted, and the
+sorted buffers are padded with sentinel keys to the length the JAX package
+would give (``N*K`` for the capped expansion, ``capacity`` otherwise).
+``n_isects`` and ``n_dropped`` come back as Python ints.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tdgs_torch._device import constant
+from tdgs_torch._device import DeviceLike, as_float, constant, resolve_device
+from tdgs_torch.ops.projection import fully_fused_projection
 
 INT32_SENTINEL = 2**31 - 1
+
+
+class IsectResult(NamedTuple):
+    """Dense intersection buffers, length ``capacity``, sorted by (key,
+    depth); entries past ``n_isects`` are padding (sentinel key, +inf
+    depth, id 0)."""
+
+    tiles_per_gauss: torch.Tensor  # [..., N] int32: covered tiles before the cap
+    isect_keys: torch.Tensor  # [capacity] int32: image * n_tiles + tile
+    isect_depths: torch.Tensor  # [capacity] float32
+    flatten_ids: torch.Tensor  # [capacity] int32: image * N + gaussian
+    n_isects: int
+    n_dropped: int
 
 
 class IsectPacked(NamedTuple):
@@ -53,6 +70,141 @@ def _tile_bboxes(means2d_f, radii_f, tile_size, tile_width, tile_height):
     ).to(torch.int32)
     alive = (radii_f > 0.0).all(dim=-1)
     return tile_mins, tile_maxs, alive
+
+
+def _tiles_full(means2d, radii, tile_size, tile_width, tile_height):
+    """Per gaussian of the flattened [I, N] images: (tile mins [I, N, 2],
+    bbox widths [I, N], covered tiles [I, N] (0 where a radius is not
+    positive), liveness [I, N])."""
+    N = means2d.shape[-2]
+    I = math.prod(means2d.shape[:-2]) if means2d.shape[:-2] else 1
+    means2d_f = means2d.reshape(I, N, 2)
+    tile_mins, tile_maxs, alive = _tile_bboxes(
+        means2d_f, radii.reshape(I, N, 2).to(means2d_f.dtype), tile_size, tile_width,
+        tile_height)
+    w_g = tile_maxs[..., 0] - tile_mins[..., 0]
+    h_g = tile_maxs[..., 1] - tile_mins[..., 1]
+    return tile_mins, w_g, torch.where(alive, w_g * h_g, torch.zeros_like(w_g)), alive
+
+
+def orderable_bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 → int64 in [0, 2^32) whose integer order is the float
+    order: the bits as a signed int32, magnitude bits flipped for negative
+    floats (so −0.0 sorts just before +0.0 and −inf first, as ``lax.sort``'s
+    total order puts them), then shifted up by 2^31. NaNs sort past +inf."""
+    b = x.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b) + 2**31
+
+
+def isect_tiles(
+    means2d: torch.Tensor,  # [..., N, 2]
+    radii: torch.Tensor,  # [..., N, 2]
+    depths: torch.Tensor,  # [..., N]
+    tile_size: int,
+    tile_width: int,
+    tile_height: int,
+    capacity: int,
+    max_tiles_per_gauss: int = 32,
+    sort: bool = True,
+) -> IsectResult:
+    """Sorted (tile, depth) intersection buffers at a fixed capacity (port
+    of ``tdgs/ops/tiling.py:43 isect_tiles``).
+
+    Each gaussian keeps the first ``max_tiles_per_gauss`` tiles of its
+    bbox in row-major order; entries are enumerated image, gaussian, tile
+    (the JAX package's cumsum order), and those past ``capacity`` in that
+    order are dropped before the sort. ``n_dropped`` counts both cuts. The
+    sort is one stable ``torch.sort`` of ``key << 32 | orderable_bits(depth)``,
+    which orders as ``lax.sort``'s stable two-key (key, depth) sort does, so
+    ``flatten_ids`` agree slot for slot. ``sort=False`` keeps the
+    enumeration order."""
+    device = means2d.device
+    image_dims = tuple(means2d.shape[:-2])
+    N = means2d.shape[-2]
+    tile_mins, w_g, tiles_full, _ = _tiles_full(
+        means2d, radii, tile_size, tile_width, tile_height)
+    G = tiles_full.numel()
+    tiles_capped = torch.clamp(tiles_full, max=max_tiles_per_gauss).reshape(-1).to(torch.int64)
+    total = int(tiles_capped.sum())
+    n_isects = min(total, capacity)
+    n_dropped = int((tiles_full.reshape(-1) - tiles_capped).sum()) + max(total - capacity, 0)
+
+    owner = torch.repeat_interleave(
+        torch.arange(G, device=device), tiles_capped, output_size=total)[:n_isects]
+    k_in = torch.arange(n_isects, device=device) - (
+        torch.cumsum(tiles_capped, 0) - tiles_capped)[owner]
+    mins_o = tile_mins.reshape(G, 2).to(torch.int64)[owner]
+    w_o = torch.clamp(w_g.reshape(-1).to(torch.int64)[owner], min=1)
+    dy = k_in // w_o
+    keys = ((owner // N) * (tile_width * tile_height)
+            + (mins_o[:, 1] + dy) * tile_width + mins_o[:, 0] + k_in - dy * w_o)
+    deps = depths.reshape(G).to(torch.float32)[owner]
+    if sort:
+        order = torch.sort((keys << 32) | orderable_bits(deps), stable=True).indices
+        keys, deps, owner = keys[order], deps[order], owner[order]
+
+    keys_s = torch.full((capacity,), INT32_SENTINEL, dtype=torch.int32, device=device)
+    deps_s = torch.full((capacity,), float("inf"), dtype=torch.float32, device=device)
+    fids_s = torch.zeros((capacity,), dtype=torch.int32, device=device)
+    keys_s[:n_isects] = keys.to(torch.int32)
+    deps_s[:n_isects] = deps
+    fids_s[:n_isects] = owner.to(torch.int32)
+    return IsectResult(
+        tiles_per_gauss=tiles_full.reshape(image_dims + (N,)).to(torch.int32),
+        isect_keys=keys_s, isect_depths=deps_s, flatten_ids=fids_s,
+        n_isects=n_isects, n_dropped=n_dropped,
+    )
+
+
+def count_isects(
+    means2d: torch.Tensor,  # [..., N, 2]
+    radii: torch.Tensor,  # [..., N, 2]
+    tile_size: int,
+    tile_width: int,
+    tile_height: int,
+    max_tiles_per_gauss: Optional[int] = None,
+) -> Tuple[int, int]:
+    """(capped, full) tile-intersection counts of a projected scene (port
+    of ``tdgs/ops/tiling.py:449``); ``capped`` applies the per-gaussian
+    ``max_tiles_per_gauss`` clamp (None: exact coverage, capped = full)."""
+    tiles_full = _tiles_full(means2d, radii, tile_size, tile_width, tile_height)[2]
+    full = int(tiles_full.sum())
+    if max_tiles_per_gauss is None:
+        return full, full
+    return int(torch.clamp(tiles_full, max=max_tiles_per_gauss).sum()), full
+
+
+@torch.no_grad()
+def derive_isect_capacity(
+    means,
+    quats,
+    scales,
+    opacities,
+    viewmats,
+    Ks,
+    width: int,
+    height: int,
+    tile_size: int = 16,
+    max_tiles_per_gauss: Optional[int] = 16,
+    headroom: float = 1.1,
+    device: DeviceLike = None,
+    **proj_kwargs,
+) -> int:
+    """``isect_capacity`` for a scene (port of ``tdgs/ops/tiling.py:485``):
+    the port's projection and the footprint count, ``headroom`` times the
+    capped count rounded up to a multiple of 4096 (at least 4096). Waits
+    for the device: call it once per scene, not per step. Runs on the card
+    unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    radii, means2d, _, _, _ = fully_fused_projection(
+        *(as_float(x, dev) for x in (means, quats, scales, viewmats, Ks)),
+        width, height, opacities=as_float(opacities, dev), **proj_kwargs,
+    )
+    capped, _ = count_isects(
+        means2d, radii, tile_size, math.ceil(width / tile_size),
+        math.ceil(height / tile_size), max_tiles_per_gauss=max_tiles_per_gauss,
+    )
+    return max(-(-int(capped * headroom) // 4096) * 4096, 4096)
 
 
 def isect_tiles_packed(
@@ -101,26 +253,14 @@ def isect_tiles_packed(
     # sentinel, or the entry would be taken for padding
     depth_levels = max((1 << depth_bits) - 2, 1)
 
-    means2d_f = means2d.reshape(I, N, 2)
-    radii_f = radii.reshape(I, N, 2).to(means2d_f.dtype)
     depths_f = depths.reshape(I, N).to(torch.float32)
-
-    tile_mins, tile_maxs, alive = _tile_bboxes(
-        means2d_f, radii_f, tile_size, tile_width, tile_height
-    )
-    w_g = tile_maxs[..., 0] - tile_mins[..., 0]
-    h_g = tile_maxs[..., 1] - tile_mins[..., 1]
-    tiles_full = torch.where(alive, w_g * h_g, torch.zeros_like(w_g))
+    tile_mins, w_g, tiles_full, alive = _tiles_full(
+        means2d, radii, tile_size, tile_width, tile_height)
 
     G = I * N
     if exact_depth:
         qdepth = torch.zeros((G,), dtype=torch.int64, device=device)
-        # the float bits compared as signed int32 (a monotone map for the
-        # positive depths that survive culling), shifted into [0, 2^32)
-        depth_key = (
-            depths_f.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
-            + 2**31
-        )
+        depth_key = orderable_bits(depths_f).reshape(-1)
     else:
         dmin = torch.min(torch.where(alive, depths_f, float("inf")))
         dmax = torch.max(torch.where(alive, depths_f, float("-inf")))

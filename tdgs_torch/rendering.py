@@ -6,10 +6,14 @@ Two screen-space rasterizers are ported for each: ``"packed_inference"``
 (forward only) and ``"packed"`` (differentiable: the training path). 3DGS
 also has the world-space ``"eval3d_packed"`` (3DGUT, ``with_eval3d``),
 differentiable, with the unscented-transform projection for its tiling
-(``with_ut``). All run through the hand-written CUDA kernels on the card
-and their plain PyTorch versions on the CPU. The ``meta`` dicts carry the
-same keys as the JAX package's; their ``isect_offsets`` is the packed
-stream's [T + 1] offsets.
+(``with_ut``), and the two tile-dense rasterizers over the dense tiling
+(``isect_tiles``): ``"pallas"`` (kernels 9 and 10 behind autograd) and
+``"jax"`` (the same function in plain tensor ops, differentiated by
+autograd). The kernels run on the card and their plain PyTorch versions on
+the CPU. The ``meta`` dicts carry the same keys as the JAX package's; the
+packed rasterizers' ``isect_offsets`` is the packed stream's [T + 1]
+offsets, the dense ones' the JAX package's [..., C, tile_height,
+tile_width].
 """
 
 from __future__ import annotations
@@ -33,18 +37,26 @@ from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed,
     rasterize_to_pixels_packed_inference,
 )
+from tdgs_torch.ops.rasterize_jax import rasterize_to_pixels_jax
+from tdgs_torch.ops.rasterize_pallas import rasterize_to_pixels_pallas
 from tdgs_torch.ops.sh import spherical_harmonics
-from tdgs_torch.ops.tiling import isect_tiles_packed
+from tdgs_torch.ops.tiling import isect_offset_encode, isect_tiles, isect_tiles_packed
 from tdgs_torch.utils.depth import depth_to_normal, rotate
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
 
 # rasterizers of the JAX package that wait for a later slice of the port
 _NOT_PORTED = {
-    "jax": "ROADMAP queue 1, slice-1 remainders",
-    "pallas": "ROADMAP queue 1, remaining modules; queue 2, kernels 9-10",
     "eval3d": "ROADMAP queue 1, eval3d/3DGUT remainders: the dense jnp path",
 }
+_RASTERIZERS = ("packed_inference", "packed", "eval3d_packed", "jax", "pallas")
+
+
+def default_isect_capacity(I: int, N: int) -> int:
+    """The dense tiling's default capacity (``tdgs/rendering.py:35``): ~8
+    covered tiles per (image, gaussian), rounded up to a power of two."""
+    cap = max(I * N * 8, 1 << 14)
+    return 1 << (cap - 1).bit_length()
 
 
 def _colors_per_camera(colors, sh_degree, means, viewmats, radii):
@@ -115,11 +127,15 @@ def rasterization(
     Returns (render_colors [..., C, H, W, X], render_alphas [..., C, H, W, 1],
     meta).
 
-    ``rasterizer="packed"`` is differentiable. ``means2d_offset`` is added
-    to the projected means (pass zeros: its gradient is the screen-space
-    gradient the DefaultStrategy reads); the gradient of
-    ``means2d_abs_tap`` (zeros) is the per-gaussian sum of |per-tile
-    screen-space gradients| (AbsGS).
+    ``rasterizer="packed"`` is differentiable, and so are the tile-dense
+    ``"pallas"`` (kernels 9 and 10) and ``"jax"`` (plain tensor ops), which
+    tile with ``isect_tiles`` at ``isect_capacity`` entries (default
+    ``default_isect_capacity``) and ignore the ``isect_exact*``/split
+    options, as the JAX package does. ``means2d_offset`` is added to the
+    projected means (pass zeros: its gradient is the screen-space gradient
+    the DefaultStrategy reads); the gradient of ``means2d_abs_tap`` (zeros)
+    is the per-gaussian sum of |per-tile screen-space gradients| (AbsGS;
+    ``"packed"`` and ``"jax"``).
 
     3DGUT: ``with_ut`` projects through the unscented transform (the camera
     model's distortion coefficients, FTheta, ``rolling_shutter`` between
@@ -131,7 +147,7 @@ def rasterization(
     AbsGS tap."""
     if with_eval3d and not rasterizer.startswith("eval3d"):
         rasterizer = "eval3d_packed"
-    if rasterizer not in ("packed_inference", "packed", "eval3d_packed"):
+    if rasterizer not in _RASTERIZERS:
         item = _NOT_PORTED.get(rasterizer)
         if item is None:
             raise ValueError(f"unknown rasterizer {rasterizer!r}")
@@ -205,8 +221,9 @@ def rasterization(
 
     if means2d_offset is not None:
         means2d = means2d + means2d_offset
-    if means2d_abs_tap is not None and rasterizer != "packed":
-        raise ValueError("means2d_abs_tap requires the differentiable 'packed' rasterizer")
+    if means2d_abs_tap is not None and rasterizer not in ("packed", "jax"):
+        raise ValueError("means2d_abs_tap is supported by the 'packed' and 'jax' "
+                         "rasterizers only")
 
     opacities_cn = opacities[..., None, :].expand(batch_dims + (C, N))
     if compensations is not None:
@@ -237,18 +254,35 @@ def rasterization(
 
     tile_width = math.ceil(width / float(tile_size))
     tile_height = math.ceil(height / float(tile_size))
-    isect = isect_tiles_packed(
-        means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
-        max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
-        exact=isect_exact, exact_depth=isect_exact_depth,
-        split_k=isect_split_k, big_capacity=isect_big_capacity,
-    )
+    dense = rasterizer in ("jax", "pallas")
+    if dense:
+        # the dense tiling at a fixed capacity (tdgs/rendering.py:519-547)
+        isect = isect_tiles(
+            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
+            capacity=(default_isect_capacity(I, N) if isect_capacity is None
+                      else isect_capacity),
+            max_tiles_per_gauss=max_tiles_per_gauss,
+        )
+        offsets = isect_offset_encode(isect.isect_keys, I, tile_width, tile_height)
+        meta.update({
+            "tiles_per_gauss": isect.tiles_per_gauss,
+            "isect_depths": isect.isect_depths,
+            "isect_offsets": offsets.reshape(batch_dims + (C, tile_height, tile_width)),
+        })
+    else:
+        isect = isect_tiles_packed(
+            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
+            max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
+            exact=isect_exact, exact_depth=isect_exact_depth,
+            split_k=isect_split_k, big_capacity=isect_big_capacity,
+        )
+        offsets = isect.offsets
+        meta["isect_offsets"] = offsets
     meta.update({
         "tile_width": tile_width,
         "tile_height": tile_height,
         "isect_ids": isect.isect_keys,
         "flatten_ids": isect.flatten_ids,
-        "isect_offsets": isect.offsets,
         "n_isects": isect.n_isects,
         "n_dropped": isect.n_dropped,
         "width": width,
@@ -259,10 +293,10 @@ def rasterization(
     })
     raster_args = (
         means2d.contiguous(), conics.contiguous(), colors_cn.contiguous(),
-        opacities_cn.contiguous(), width, height, tile_size,
-        isect.offsets, isect.flatten_ids,
+        opacities_cn.contiguous(), width, height, tile_size, offsets, isect.flatten_ids,
     )
     bg = None if backgrounds is None else backgrounds.contiguous()
+    abs_dummy = None if means2d_abs_tap is None else means2d_abs_tap.reshape(I * N, 2)
     if rasterizer == "eval3d_packed":
         # the projection only tiled: the response is taken along the rays
         render_colors, render_alphas = rasterize_to_pixels_eval3d_packed(
@@ -278,12 +312,17 @@ def rasterization(
         )
         render_colors = render_colors.reshape((C, height, width, -1))
         render_alphas = render_alphas.reshape((C, height, width, 1))
+    elif rasterizer == "pallas":
+        render_colors, render_alphas = rasterize_to_pixels_pallas(
+            *raster_args, isect.n_isects, backgrounds=bg, tile_capacity=tile_capacity)
+    elif rasterizer == "jax":
+        render_colors, render_alphas = rasterize_to_pixels_jax(
+            *raster_args, isect.n_isects, backgrounds=bg, tile_capacity=tile_capacity,
+            absgrad_dummy=abs_dummy)
     elif rasterizer == "packed":
         render_colors, render_alphas = rasterize_to_pixels_packed(
             *raster_args, backgrounds=bg, tile_capacity=tile_capacity,
-            absgrad_dummy=(None if means2d_abs_tap is None
-                           else means2d_abs_tap.reshape(I * N, 2)),
-        )
+            absgrad_dummy=abs_dummy)
     else:
         render_colors, render_alphas = rasterize_to_pixels_packed_inference(
             *raster_args, backgrounds=bg, tile_capacity=tile_capacity,

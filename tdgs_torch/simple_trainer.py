@@ -12,7 +12,12 @@ evaluates on the test views.
         --normal-loss --dist-loss --data-dir <colmap scene> [--device cpu]
     python -m tdgs_torch.simple_trainer mcmc --with-ut --with-eval3d \\
         --cap-max 100000 --data-dir <colmap scene> [--device cpu]
+    python -m tdgs_torch.simple_trainer default --rasterizer pallas \\
+        --data-dir <colmap scene> [--device cpu]
 
+``--rasterizer`` picks the 3DGS training render: ``packed`` (``auto``),
+or the tile-dense ``pallas`` (kernels 9 and 10) or ``jax`` (its plain
+tensor form); eval renders through ``packed_inference`` either way.
 The ``mcmc`` preset is the MCMC strategy with ``init_opa=0.5``,
 ``init_scale=0.1``, ``opacity_reg=0.01`` and ``scale_reg=0.01``. The camera
 trajectory video is not ported: the run says so and skips it.

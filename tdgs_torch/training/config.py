@@ -203,8 +203,6 @@ class Config:
             (self.compression is not None, "compression", "remaining modules"),
             (not self.disable_viewer, "the viewer", "remaining modules"),
             (self.ckpt_format != "pickle", "ckpt_format='orbax'", "3DGS training remainders"),
-            (self.rasterizer in ("jax", "pallas"), f"rasterizer={self.rasterizer!r}",
-             "slice-1 remainders and remaining modules"),
             (self.camera_model != "pinhole", f"camera_model={self.camera_model!r}",
              "slice-1 remainders"),
         ]

@@ -4,7 +4,9 @@
 
 One training step: splat activations → ``rasterization(rasterizer=
 "packed")`` with the screen-space taps (projection, SH, tile sort, then the
-forward kernel; backward kernel and segment-sum kernel under autograd) →
+forward kernel; backward kernel and segment-sum kernel under autograd; or,
+with ``Config.rasterizer`` "pallas", the dense tiling and kernels 9 and 10,
+or "jax", their plain tensor form) →
 (1−λ)·L1 + λ·(1−SSIM) → gradients → selective Adam without bias correction
 → DefaultStrategy accumulation and refine. With ``model_type="2dgs"`` the
 render is ``rasterization_2dgs`` in "RGB+ED" (kernels 5 and 6, the segment

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 compositing forward (kernel 1), its backward (kernel 2), the sorted
 segment sum (kernel 3), the 2DGS forwards (kernels 4 and 5) and
-backward (kernel 6), and the eval3d (3DGUT) forward (kernel 7) and
-backward (kernel 8).
+backward (kernel 6), the eval3d (3DGUT) forward (kernel 7) and
+backward (kernel 8), and the tile-dense forward (kernel 9) and backward
+(kernel 10).
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card. The file imports neither JAX nor the JAX package, so it also
@@ -20,7 +21,8 @@ and 2 are, with the distortion and the gradient groups relative to their
 scale and median depth, a selected entry, allowed to differ in 1% of the
 pixels (the plain version's cumprod on the card rounds its running
 product differently at the 1e-4 cutoff). The eval3d kernels are held as
-kernels 1 and 2 are, the ray gradients per group like the rows.
+kernels 1 and 2 are, the ray gradients per group like the rows; the
+tile-dense kernels as kernels 1 and 2 are.
 """
 
 import numpy as np
@@ -479,4 +481,150 @@ def test_eval3d_autograd_on_card_matches_cpu(cuda_device, rolling_shutter):
         inputs = leaves + ([rs["viewmats_rs"]] if rolling_shutter else [])
         grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(loss, inputs)]
     for name, g, w in zip(names + ["viewmats_rs"], grads[str(cuda_device)], grads["cpu"]):
+        assert _rel_err(g, w) <= 1e-3, name
+
+
+def _dense_stream(seed, D, n_images=1, N=300, tile_capacity=128):
+    """Random screen-space gaussians through the dense tiling and the
+    per-tile gather, on the CPU: (rows [T, cap, 6 + D], counts, inputs)."""
+    from tdgs_torch.ops.rasterize_pallas import dense_rows
+    from tdgs_torch.ops.tiling import isect_offset_encode, isect_tiles
+
+    rng = np.random.default_rng(seed)
+    I = n_images
+    means2d = rng.uniform(0, [W, H], size=(I, N, 2)).astype(np.float32)
+    A = rng.normal(size=(I, N, 2, 2)).astype(np.float32)
+    cov = A @ np.swapaxes(A, -1, -2) + 2.0 * np.eye(2, dtype=np.float32)
+    inv = np.linalg.inv(cov)
+    conics = np.stack([inv[..., 0, 0], inv[..., 0, 1], inv[..., 1, 1]], -1).astype(np.float32)
+    radii = np.maximum(np.ceil(3.33 * np.sqrt(np.stack(
+        [cov[..., 0, 0], cov[..., 1, 1]], -1))), 10).astype(np.int32)
+    depths = rng.uniform(0.1, 10, size=(I, N)).astype(np.float32)
+    isect = isect_tiles(torch.from_numpy(means2d), torch.from_numpy(radii),
+                        torch.from_numpy(depths), 16, 3, 3, capacity=I * N * 9,
+                        max_tiles_per_gauss=16)
+    offsets = isect_offset_encode(isect.isect_keys, I, 3, 3)
+    inputs = [torch.from_numpy(x) for x in (
+        means2d, conics, rng.uniform(0, 1, size=(I, N, D)).astype(np.float32),
+        rng.uniform(0.05, 0.95, size=(I, N)).astype(np.float32))]
+    rows, counts = dense_rows(*inputs, offsets, isect.flatten_ids, isect.n_isects,
+                              tile_capacity)
+    return rows.detach(), counts, inputs, offsets, isect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 4, 16])
+@pytest.mark.parametrize("tile_capacity", [128, 1024])  # with and without cuts
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_dense_kernels_match_plain_on_card(cuda_device, D, tile_capacity, n_images):
+    from tdgs_torch.ops import rasterize_pallas as RP
+
+    rows, counts, _, offsets, isect = _dense_stream(200 + D, D, n_images,
+                                                    tile_capacity=tile_capacity)
+    ends = torch.cat([offsets.reshape(-1)[1:].long(), torch.tensor([isect.n_isects])])
+    cut = bool((ends - offsets.reshape(-1).long() > tile_capacity).any())
+    assert cut == (tile_capacity == 128)  # the small capacity cuts tiles
+    rows_c, counts_c = rows.to(cuda_device), counts.to(cuda_device)
+    geo = (n_images, W, H, 16)
+    before = _build.LAUNCHES.get(RP.KERNEL_FWD, 0)
+    img, trans = RP.rasterize_dense_fwd(rows_c, counts_c, *geo)
+    assert _build.LAUNCHES[RP.KERNEL_FWD] == before + 1
+    img_p, trans_p = RP.rasterize_dense_fwd_plain(rows_c, counts_c, *geo)
+    torch.testing.assert_close(img, img_p, rtol=0, atol=ATOL)
+    torch.testing.assert_close(trans, trans_p, rtol=0, atol=ATOL)
+    assert float(trans_p.min()) < 0.5  # the scene covers pixels
+    # with a background, blended outside the kernel as the wrapper blends it
+    bg = torch.linspace(0.1, 0.9, D, device=cuda_device)
+    torch.testing.assert_close(img + trans[..., None] * bg, img_p + trans_p[..., None] * bg,
+                               rtol=0, atol=ATOL)
+    rng = np.random.default_rng(D)
+    v_img = torch.from_numpy(rng.normal(size=tuple(img.shape)).astype(np.float32)).to(cuda_device)
+    v_t = torch.from_numpy(rng.normal(size=tuple(trans.shape)).astype(np.float32)).to(cuda_device)
+    before = _build.LAUNCHES.get(RP.KERNEL_BWD, 0)
+    got = RP.rasterize_dense_bwd(rows_c, counts_c, *geo, img, trans, v_img, v_t)
+    assert _build.LAUNCHES[RP.KERNEL_BWD] == before + 1
+    want = RP.rasterize_dense_bwd_plain(rows_c, counts_c, *geo, img, trans, v_img, v_t)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == rows.shape and bool(torch.isfinite(got).all())
+    for name, cols in GROUPS.items():
+        assert _rel_err(got[..., cols], want[..., cols]) <= 1e-3, name
+    slot = torch.arange(rows.shape[1], device=cuda_device)
+    assert float(got[slot[None, :] >= counts_c[:, None].long()].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_dense_wrappers_reject_bad_inputs(cuda_device):
+    from tdgs_torch.ops import rasterize_pallas as RP
+
+    rows, counts, _, _, _ = _dense_stream(210, 3, N=30)
+    rows, counts = rows.to(cuda_device), counts.to(cuda_device)
+    with pytest.raises(TypeError):  # int64 counts
+        RP.rasterize_dense_fwd(rows, counts.long(), 1, W, H, 16)
+    with pytest.raises(ValueError):  # rows for another image count
+        RP.rasterize_dense_fwd(rows, counts, 2, W, H, 16)
+    with pytest.raises(ValueError):  # operands on two devices
+        RP.rasterize_dense_fwd(rows, counts.cpu(), 1, W, H, 16)
+    with pytest.raises(ValueError):  # more channels than the kernels take
+        wide = torch.zeros(rows.shape[:-1] + (6 + 33,), device=cuda_device)
+        RP.rasterize_dense_fwd(wide, counts, 1, W, H, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_images", [1, 2])
+def test_dense_autograd_on_card_matches_cpu(cuda_device, n_images):
+    """The whole "pallas" rasterizer: the gather, kernels 9, 10 and the
+    segment sum on the card against the plain versions on the CPU, with a
+    background; gradients to every input."""
+    from tdgs_torch.ops.rasterize_pallas import KERNEL_BWD, KERNEL_FWD, rasterize_to_pixels_pallas
+
+    _, _, inputs, offsets, isect = _dense_stream(220, 3, n_images, tile_capacity=256)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        rng = np.random.default_rng(220)
+        leaves = [x.to(dev).clone().requires_grad_(True) for x in inputs]
+        before = {k: _build.LAUNCHES.get(k, 0) for k in (KERNEL_FWD, KERNEL_BWD, S.KERNEL)}
+        img, alp = rasterize_to_pixels_pallas(
+            *leaves, W, H, 16, offsets.to(dev), isect.flatten_ids.to(dev), isect.n_isects,
+            backgrounds=torch.tensor([[0.2, 0.5, 0.8]] * n_images, device=dev),
+            tile_capacity=256)
+        loss = sum((x * torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32))
+                    .to(dev)).sum() for x in (img, alp))
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        launched = {k: _build.LAUNCHES.get(k, 0) - n for k, n in before.items()}
+        assert launched == ({k: 1 for k in launched} if dev != "cpu"
+                            else {k: 0 for k in launched})
+    for name, g, w in zip(("means2d", "conics", "colors", "opacities"),
+                          grads[str(cuda_device)], grads["cpu"]):
+        assert _rel_err(g, w) <= 1e-3, name
+
+
+@pytest.mark.cuda
+def test_jax_rasterizer_on_card_matches_cpu(cuda_device):
+    """The plain-tensor "jax" dense rasterizer on CUDA tensors against the
+    same on the CPU, with the AbsGS tap: its backward sums through kernel 3
+    and launches neither dense kernel."""
+    from tdgs_torch.ops.rasterize_jax import rasterize_to_pixels_jax
+    from tdgs_torch.ops.rasterize_pallas import KERNEL_BWD, KERNEL_FWD
+
+    _, _, inputs, offsets, isect = _dense_stream(230, 3, 2, N=120, tile_capacity=256)
+    G = inputs[0].shape[0] * inputs[0].shape[1]
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        rng = np.random.default_rng(230)
+        leaves = [x.to(dev).clone().requires_grad_(True) for x in inputs]
+        leaves.append(torch.zeros((G, 2), device=dev, requires_grad=True))
+        before = {k: _build.LAUNCHES.get(k, 0) for k in (KERNEL_FWD, KERNEL_BWD, S.KERNEL)}
+        img, alp = rasterize_to_pixels_jax(
+            *leaves[:4], W, H, 16, offsets.to(dev), isect.flatten_ids.to(dev),
+            isect.n_isects, backgrounds=torch.tensor([[0.2, 0.5, 0.8]] * 2, device=dev),
+            tile_capacity=256, absgrad_dummy=leaves[4])
+        loss = sum((x * torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32))
+                    .to(dev)).sum() for x in (img, alp))
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        launched = {k: _build.LAUNCHES.get(k, 0) - n for k, n in before.items()}
+        assert launched == {KERNEL_FWD: 0, KERNEL_BWD: 0,
+                            S.KERNEL: 0 if dev == "cpu" else 1}
+    for name, g, w in zip(("means2d", "conics", "colors", "opacities", "abs_tap"),
+                          grads[str(cuda_device)], grads["cpu"]):
+        assert float(w.abs().max()) > 0, name
         assert _rel_err(g, w) <= 1e-3, name

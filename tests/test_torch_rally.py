@@ -139,7 +139,8 @@ import tdgs_torch.models.gaussians, tdgs_torch.strategy, tdgs_torch.strategy.ops
 import tdgs_torch.training.losses, tdgs_torch.training.config
 import tdgs_torch.training.trainer, tdgs_torch.datasets, tdgs_torch.simple_trainer
 import tdgs_torch.ops.projection_2dgs, tdgs_torch.ops.rasterize_2dgs_packed
-import tdgs_torch.utils.depth
+import tdgs_torch.utils.depth, tdgs_torch.ops.rasterize_jax
+import tdgs_torch.ops.rasterize_pallas, tdgs_torch.image_fitting
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "tdgs"
              or m.startswith("tdgs.") or m == "optax" or m.startswith("optax."))

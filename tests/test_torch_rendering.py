@@ -90,8 +90,9 @@ def test_rasterization_depth_only_and_batched_cameras():
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), atol=5 * ATOL)
 
 
-# "packed" and "eval3d_packed" are ported; the dense jnp "eval3d" is not
-@pytest.mark.parametrize("rasterizer", ["jax", "eval3d", "pallas"])
+# "packed", "eval3d_packed", "jax" and "pallas" are ported; the dense jnp
+# "eval3d" is not
+@pytest.mark.parametrize("rasterizer", ["eval3d"])
 def test_unported_rasterizers_raise(rasterizer):
     means, quats, scales, opac, sh, viewmats, Ks = _scene(502, N=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

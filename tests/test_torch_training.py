@@ -427,7 +427,8 @@ def test_runner_config_raises_for_unported_features(tmp_path):
     dataclasses.replace(base, model_type="2dgs", normal_loss=True, dist_loss=True).check_ported()
     for change in (dict(model_type="2dgs", sharded=True), dict(pose_opt=True),
                    dict(app_opt=True), dict(sharded=True), dict(compression="png"),
-                   dict(depth_loss=True), dict(rasterizer="jax"), dict(disable_viewer=False)):
+                   dict(depth_loss=True), dict(use_bilateral_grid=True),
+                   dict(disable_viewer=False)):
         with pytest.raises(NotImplementedError):
             dataclasses.replace(base, **change).check_ported()
 
