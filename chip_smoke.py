@@ -11,6 +11,13 @@ bench scale, the bench render and training step, the Runner, the
 image-fitting example), and print one JSON line per phase.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-csrc DIR
+
+The second form also times kernels 3 and 8 against an earlier design of
+theirs, in turns on the same inputs: DIR holds that design's
+``segment_sum.cu``, ``rasterize_eval3d_bwd.cu`` and
+``rasterize_eval3d_common.cuh`` (e.g. from ``git show
+<commit>:tdgs_torch/csrc/segment_sum.cu``) and gets their build.
 
 Needs a CUDA card and this repository's ``tdgs_torch`` package; it exits
 non-zero without either. The last line of standard output is
@@ -20,12 +27,15 @@ reports for the card's name and power limit.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -83,6 +93,7 @@ DENSE_KERNELS = (RP.KERNEL_FWD, RP.KERNEL_BWD, S.KERNEL)
 DIST_RTOL = 1e-3  # kernel 5 vs plain: distortion, max|Δ| / max|plain|
 MEDIAN_SHARE = 0.01  # kernel 5 vs plain: share of pixels whose median differs
 SIGMA_TOL = 1e-3  # eval3d σ* (float32, σ* < 4) vs float64, absolute
+EVAL3D_ROWS_SEGSUM = "segment_sum_on_eval3d_rows"  # kernel 3 timed at F = 13 + D
 
 # FP32 operations of one (pixel, entry) evaluation that both compositing
 # kernels make: sigma 11, exp 2, alpha 2, tests 2, transmittance 3
@@ -234,6 +245,27 @@ def time_ms(fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device time of fn() over reps runs captured in one CUDA graph
+    and replayed, by CUDA events: the host's time to make each call, which
+    exceeds the device's for a kernel of tens of microseconds called
+    through Python, drops out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -610,18 +642,6 @@ def measure_train_kernels(inputs, reps=20):
     bwd_ops = fwd["evaluations"] * bwd_ops_per_eval(D)
     t_b, t_o = bwd_bytes / PEAK_BYTES * 1e3, bwd_ops / PEAK_FP32 * 1e3
 
-    F = 6 + D
-    sids, perm = S.sort_ids(ids, offsets[-1])
-    seg_ms = time_ms(lambda: S.segment_rows_sum(rows, perm, sids, G), reps)
-    seg_plain = time_ms(lambda: S.segment_rows_sum_plain(rows, perm, sids, G), 3)
-    valid_ids = ids[:n_isects].long()
-    valid_rows = rows[:n_isects]
-    lib_ms = time_ms(lambda: torch.zeros((G, F), device=DEVICE).index_add_(
-        0, valid_ids, valid_rows), reps)
-    # sorted id and permutation (4 bytes each) with each row, read once;
-    # the per-gaussian sums written once
-    seg_bytes = n_isects * (F + 2) * 4 + G * F * 4
-    seg_b, seg_o = seg_bytes / PEAK_BYTES * 1e3, n_isects * F / PEAK_FP32 * 1e3
     out = {
         KERNEL: dict(ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd["bound_ms"],
                      bound_by=fwd["bound_by"], library_ms=None,
@@ -630,12 +650,42 @@ def measure_train_kernels(inputs, reps=20):
                          bound_by="bytes" if t_b >= t_o else "operations",
                          library_ms=None, evaluations=fwd["evaluations"],
                          bytes=bwd_bytes, fp32_ops=bwd_ops),
-        S.KERNEL: dict(ms=seg_ms, plain_ms=seg_plain, bound_ms=max(seg_b, seg_o),
-                       bound_by="bytes" if seg_b >= seg_o else "operations",
-                       library_ms=lib_ms, entries=n_isects, rows_out=G, bytes=seg_bytes),
+        S.KERNEL: measure_segment_sum(rows, ids, offsets, G, reps),
     }
     emit("train_kernels", n_isects=n_isects, stream_slots=L, n_gaussians=G, **out)
     return out
+
+
+def measure_segment_sum(rows, ids, offsets, G, reps=20):
+    """Kernel 3 on a backward's per-slot rows [L, F] and their stream ids
+    (the slots past offsets[-1] are padding), summed into G rows: its device
+    time, its plain version's time, its bound, and index_add_ over the valid
+    slots as its library yardstick. The device times come from a CUDA graph
+    (``graph_ms``); the times of back-to-back calls from Python, which the
+    host sets at these sizes, are given beside them."""
+    n_isects = int(offsets[-1])
+    F = rows.shape[1]
+    sids, perm = S.sort_ids(ids, offsets[-1])
+    valid_ids = ids[:n_isects].long()
+    valid_rows = rows[:n_isects]
+
+    def kernel():
+        return S.segment_rows_sum(rows, perm, sids, G)
+
+    def library():
+        return torch.zeros((G, F), device=DEVICE).index_add_(0, valid_ids, valid_rows)
+
+    seg_ms, lib_ms = graph_ms(kernel, reps), graph_ms(library, reps)
+    calls_ms = dict(kernel=time_ms(kernel, reps), library=time_ms(library, reps))
+    seg_plain = time_ms(lambda: S.segment_rows_sum_plain(rows, perm, sids, G), 3)
+    # sorted id and permutation (4 bytes each) with each row, read once;
+    # the per-gaussian sums written once
+    seg_bytes = n_isects * (F + 2) * 4 + G * F * 4
+    seg_b, seg_o = seg_bytes / PEAK_BYTES * 1e3, n_isects * F / PEAK_FP32 * 1e3
+    return dict(ms=seg_ms, plain_ms=seg_plain, bound_ms=max(seg_b, seg_o),
+                bound_by="bytes" if seg_b >= seg_o else "operations",
+                library_ms=lib_ms, back_to_back_calls_ms=calls_ms, entries=n_isects,
+                rows_out=G, columns=F, bytes=seg_bytes)
 
 
 def bench_capacity(bench):
@@ -1304,6 +1354,7 @@ def phase_parity_eval3d(bench, heavy, cap):
     kw = dict(tile_capacity=1024, max_tiles_per_gauss=16, isect_capacity=cap)
     geo, extra = kernel_inputs_eval3d(bench, **kw)
     a = parity_eval3d("a_bench_rgb_central", geo, 1024, 5, bg)
+    a.update(flatten_ids=extra["meta"]["flatten_ids"], n_gaussians=bench["means"].shape[0])
     port, quadratic, mAm, pairs = sigma_f64_error(bench, geo, extra, 1024)
     sigma_err = port["max"]
     emit("parity_eval3d_sigma", case="a_bench_rgb_central", sigma_limit=4.0,
@@ -1370,7 +1421,12 @@ def measure_kernels_eval3d(a, reps=20):
                          library_ms=None, **work[name])
     out[E.KERNEL_FWD]["train_call_ms"] = time_ms(
         lambda: E.rasterize_eval3d_train_fwd(*stream, tc), reps)
-    emit("kernels_eval3d", **out)
+    # kernel 3 on kernel 8's own rows (13 + D columns), as the eval3d VJP
+    # sums them per gaussian
+    v_rows = E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tc)[0]
+    seg = measure_segment_sum(v_rows, a["flatten_ids"], stream[3], a["n_gaussians"], reps)
+    emit("kernels_eval3d", **out, segment_sum_on_eval3d_rows=seg)
+    out[EVAL3D_ROWS_SEGSUM] = seg
     return out
 
 
@@ -1715,13 +1771,174 @@ def phase_image_fitting(min_iterations=1000):
     return {k: launches.get(k, 0) for k in DENSE_KERNELS}
 
 
-def main():
+# ---------------------------------------------------------------------------
+# A/B against an earlier design of kernels 3 and 8 (``--compare-csrc DIR``)
+# ---------------------------------------------------------------------------
+
+def build_compare_libraries(prev_dir):
+    """Build ``prev_dir``'s segment_sum.cu and rasterize_eval3d_bwd.cu (an
+    earlier design of kernels 3 and 8, with its header), both ``nvcc`` at
+    once, into ``prev_dir/build``; returns {variant: ctypes library}."""
+    prev = Path(prev_dir).resolve()
+    out_dir = prev / "build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {"prev_segment_sum": prev / "segment_sum.cu",
+            "prev_eval3d_bwd": prev / "rasterize_eval3d_bwd.cu"}
+    procs = {}
+    for name, src in jobs.items():
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(prev),
+               "-o", str(out_dir / f"lib{name}.so"), str(src)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs, ptxas = {}, {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        ptxas[name] = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
+        libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+    emit("compare_build", variants=sorted(libs), ptxas=ptxas)
+    return libs
+
+
+def _call(fn, *args):
+    """A C entry on the current stream (tensors as pointers, None as null);
+    raises on its cudaError_t. Not counted as a launch of the port."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"compare: CUDA launch failed with cudaError_t {err}")
+
+
+def _segsum_variants(libs, rows, sids, perm, G):
+    """{variant: fn() -> [G, F] sums} for kernel 3 on these inputs: the
+    tree's kernel and the earlier design, which takes an int32 [2, G]
+    scratch."""
+    F = rows.shape[1]
+    fn = libs["prev_segment_sum"].tdgs_segment_sum
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def prev():
+        res = torch.empty((G, F), dtype=torch.float32, device=DEVICE)
+        bounds = torch.empty((2, G), dtype=torch.int32, device=DEVICE)
+        _call(fn, rows, perm, sids, bounds, res, sids.shape[0], G, F, 0)
+        return res
+
+    return {"new": lambda: S.segment_rows_sum(rows, perm, sids, G), "prev": prev}
+
+
+def sm_clock_under(fn, seconds=1.0):
+    """The SM clock (MHz) that nvidia-smi samples every 100 ms while fn()
+    runs back to back for ``seconds``."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        try:
+            text, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+    mhz = sorted(int(v) for v in text.split() if v.strip().isdigit())
+    return dict(samples=len(mhz), median=mhz[len(mhz) // 2] if mhz else None,
+                min=mhz[0] if mhz else None, max=mhz[-1] if mhz else None)
+
+
+def _in_turns(fns, order, reps, timer=time_ms):
+    """Time each variant of ``fns`` at every place it takes in ``order``;
+    {variant: [ms, ...]}."""
+    times = {k: [] for k in fns}
+    for k in order:
+        times[k].append(timer(fns[k], reps))
+    return times
+
+
+def phase_compare(prev_dir, train_inputs, par_e3, reps=20):
+    """Kernels 3 and 8 against the earlier design built from ``prev_dir``,
+    on the same inputs, timed in turns (prev, new, new, prev), with the SM
+    clock sampled while the new kernel runs: kernel 3 at the training
+    path's bench shapes (F = 9) and on kernel 8's rows (F = 16), with
+    index_add_, by CUDA graphs and by calls from Python; kernel 8 at the
+    bench shapes (D = 3, central)."""
+    libs = build_compare_libraries(prev_dir)
+    args, _, _, _, _, rows = train_inputs
+    stream, img, T, v_img, v_T = par_e3["inputs"]
+    tc = 1024
+    v_rows_e3 = E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tc)[0]
+    cases = {"train_F9": (rows, args[8], args[7], args[0].numel() // 2),
+             "eval3d_F16": (v_rows_e3, par_e3["flatten_ids"], stream[3],
+                            par_e3["n_gaussians"])}
+    result = {}
+    for case, (r, ids, offsets, G) in cases.items():
+        sids, perm = S.sort_ids(ids, offsets[-1])
+        fns = _segsum_variants(libs, r, sids, perm, G)
+        n = int(offsets[-1])
+        fns["index_add_"] = lambda r=r, ids=ids, n=n, G=G: torch.zeros(
+            (G, r.shape[1]), device=DEVICE).index_add_(0, ids[:n].long(), r[:n])
+        want = fns["new"]()
+        agree = {k: _rel(fns[k](), want) for k in fns if k != "new"}
+        order = ["prev", "new", "index_add_"]
+        result[case] = dict(
+            entries=n, rows_out=G, columns=r.shape[1], max_rel_diff_vs_new=agree,
+            # device times (CUDA graphs), then back-to-back calls from Python
+            ms=_in_turns(fns, order + order[::-1], reps, graph_ms),
+            back_to_back_calls_ms=_in_turns(fns, ["prev", "new", "new", "prev"], reps),
+            # the rows gathered through the permutation alone
+            perm_gather_ms=graph_ms(lambda r=r, perm=perm: r.index_select(0, perm), reps),
+            sm_clock_mhz=sm_clock_under(fns["new"]))
+
+    rows_e3, d, o, offsets, I, D, W, H, ts = stream
+    tw, th = E._check_inputs(rows_e3, d, o, offsets, I, D, W, H, ts)
+    fn = libs["prev_eval3d_bwd"].tdgs_rasterize_eval3d_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_int64]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def prev_bwd():
+        v_rows, v_d = torch.empty_like(rows_e3), torch.empty_like(d)
+        _call(fn, rows_e3, d, o, offsets, img, T, v_img, v_T, v_rows, v_d, None, I, W, H,
+              ts, tw, th, D, max_entries_per_tile(tc), rows_e3.shape[0])
+        return v_rows, v_d
+
+    fns = {"prev": prev_bwd,
+           "new": lambda: E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tc)[:2]}
+    got, old = fns["new"](), fns["prev"]()
+    torch.cuda.synchronize()
+    agree = {k: _rel(got[0][:, c], old[0][:, c]) for k, c in EVAL3D_GROUPS.items()}
+    agree["v_d"] = _rel(got[1], old[1])
+    times = _in_turns(fns, ["prev", "new", "new", "prev"], reps)
+    result["eval3d_bwd_D3"] = dict(evaluations=par_e3["evaluations"], ms=times,
+                                   max_rel_diff_vs_prev=agree,
+                                   sm_clock_mhz=sm_clock_under(fns["new"]))
+    emit("compare_redesign", prev_dir=str(prev_dir), **result)
+    return result
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare-csrc", default=None, metavar="DIR",
+                        help="also time kernels 3 and 8 against the segment_sum.cu and "
+                             "rasterize_eval3d_bwd.cu (with its header) in DIR, in turns")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = nvidia_smi()
-    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("device", nvidia_smi=smi, clocks_sm_and_max=clocks, torch=torch.__version__,
+         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count())
 
     build_s = _build.build()
     ptxas = {n: [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
@@ -1772,6 +1989,8 @@ def main():
         shutil.rmtree(root, ignore_errors=True)
     timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed),
                    **measure_kernels_eval3d(par_e3), **measure_kernels_dense(par_dense))
+    if opts.compare_csrc:
+        phase_compare(opts.compare_csrc, train_inputs, par_e3)
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
@@ -1804,7 +2023,9 @@ def main():
                         trainer_3dgut_launches=trainer_e3_launches[S.KERNEL],
                         render_train_pallas_launches=train_dense_launches[S.KERNEL],
                         trainer_pallas_launches=trainer_dense_launches[S.KERNEL],
-                        image_fitting_launches=fitting_launches[S.KERNEL])),
+                        image_fitting_launches=fitting_launches[S.KERNEL],
+                        **{f"eval3d_rows_{k}": timings[EVAL3D_ROWS_SEGSUM][k]
+                           for k in ("columns", "ms", "bound_ms", "library_ms")})),
         R2.KERNEL_FWD: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:84", render_2dgs_launches,
                         dict(max_abs_err=errs_2dgs["fwd"], abs_tol=TOL),
                         dict(trainer_2dgs_eval_launches=trainer_2dgs_eval)),

@@ -32,19 +32,28 @@
 // one row of 13 + D floats written per stream slot and the ray gradients
 // -- are small beside that.
 //
-// Design: kernel 6's (rasterize_2dgs_bwd.cu). One block per 16x16 tile,
-// one thread per pixel; entries in batches of 32, copied contiguously from
-// the stream-order rows into shared memory. Each pixel walks forward to the
-// forward's cutoff keeping T_prev and the prefix of q = w r_ch (the JAX
-// formulation, so parity is one to one; the suffix is tot_q minus the
-// prefix, in float32 throughout). Per entry, a warp whose pixels all
-// contribute zero skips the reduction; otherwise it sums its 32 pixels by a
-// shuffle butterfly and lane 0 leaves the warp's 13 + D partial sums in
-// shared memory. After the batch the block sums the 8 warps' partials in a
+// Design: kernel 6's (rasterize_2dgs_bwd.cu) walk. One block per 16x16
+// tile, one thread per pixel; entries in batches of 32, copied
+// contiguously from the stream-order rows into shared memory. Each pixel
+// walks forward to the forward's cutoff keeping T_prev and the prefix of
+// q = w r_ch (the JAX formulation, so parity is one to one; the suffix is
+// tot_q minus the prefix, in float32 throughout). Per entry, a warp whose
+// pixels all contribute zero skips the reduction; otherwise it sums its 32
+// pixels' 13 + D values, padded to NV (16 at D <= 3, 32 at D <= 16, 64
+// beyond), by a transposing reduce-scatter: at each of five levels a lane
+// keeps half of its values and sends the other half to its partner, so the
+// sums end one column to a lane (two at NV = 64) after 16, 31 or 62
+// shuffles at NV = 16, 32 or 64 (NV = 16: 8 + 4 + 2 + 1, then 1 across
+// the halves of the warp), and the warp's partial row goes to shared
+// memory in one coalesced store (a butterfly that left every sum in every
+// lane would take 80 shuffles at D = 3, and shuffles run at a quarter of
+// the FP32 rate). After the batch the block sums the 8 warps' partials in a
 // fixed order and writes the batch's rows, which are contiguous in the
-// stream. Every stream position belongs to one tile, so each row is written
-// once, with no float atomics: the result is deterministic. The ray
-// gradients stay in each pixel's registers and are written once per tile.
+// stream. Every
+// stream position belongs to one tile, so each row is written once, with
+// no float atomics, and every sum is taken in a fixed order: the result is
+// deterministic. The ray gradients stay in each pixel's registers and are
+// written once per tile.
 // The TPU kernel's cross-tile carry chunk, which zeroes up to 127 kept
 // entries of a truncated tile, is a Mosaic artefact and is not carried
 // over: those entries get their gradients here.
@@ -61,7 +70,34 @@ using namespace tdgseval3d;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kBatch = 32;
 
-template <int CMAX, bool CENTRAL>
+// One level of the reduce-scatter: lanes pair across lane bit O; each
+// keeps the half of its first 2H values that its bit selects (the upper
+// half when set) and adds its partner's copy of that half. Template
+// recursion keeps every index a constant, so v stays in registers.
+template <int O, int H, int NV>
+__device__ __forceinline__ void halve(float (&v)[NV], int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float send = upper ? v[j] : v[j + H];
+    const float keep = upper ? v[j + H] : v[j];
+    v[j] = keep + __shfl_xor_sync(kFullMask, send, O);
+  }
+  if constexpr (O > 1) halve<O / 2, H / 2>(v, lane);
+}
+
+// Sums v over the warp's 32 lanes, scattered: on return lane l holds the
+// sum of column l % NV in v[0] (NV <= 32), or of columns 2l and 2l + 1 in
+// v[0] and v[1] (NV = 64). The additions form a fixed tree, so the sums
+// are bitwise repeatable.
+template <int NV>
+__device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane) {
+  static_assert(NV == 16 || NV == 32 || NV == 64, "NV: 16, 32 or 64");
+  halve<(NV / 2 < 16 ? NV / 2 : 16), NV / 2>(v, lane);
+  if constexpr (NV == 16) v[0] += __shfl_xor_sync(kFullMask, v[0], 16);
+}
+
+template <int CMAX, int NV, bool CENTRAL>
 __global__ void rasterize_eval3d_bwd_kernel(
     const float* __restrict__ rows,        // [L, 13 + D] stream order
     const float* __restrict__ rays_d,      // [T, P, 3]
@@ -76,6 +112,7 @@ __global__ void rasterize_eval3d_bwd_kernel(
     float* __restrict__ v_o,               // [T, P, 3] (not CENTRAL)
     int width, int height, int tile_size, int tile_width, int tiles_per_image,
     int n_tiles, int D, int max_entries, int64_t n_slots) {
+  static_assert(kGeomCols + CMAX <= NV, "a row's values fit the reduction");
   extern __shared__ float smem[];
   const int F = kGeomCols + D;
   const int n_warps = blockDim.x >> 5;
@@ -206,25 +243,21 @@ __global__ void rasterize_eval3d_bwd_kernel(
       }
       float* part = s_part + (warp * kBatch + k) * F;
       if (__any_sync(kFullMask, live)) {
-        float gc[CMAX];
+        float v[NV];  // d M (9), d g0 (3), d op, w v_ch (D), zero padding
 #pragma unroll
-        for (int c = 0; c < CMAX; ++c) gc[c] = (c < D) ? w * vch[c] : 0.f;
+        for (int j = 0; j < kGeomCols; ++j) v[j] = g[j];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
+        for (int j = kGeomCols; j < NV; ++j) v[j] = 0.f;
 #pragma unroll
-          for (int j = 0; j < kGeomCols; ++j) g[j] += __shfl_xor_sync(kFullMask, g[j], off);
-#pragma unroll
-          for (int c = 0; c < CMAX; ++c) {
-            if (c < D) gc[c] += __shfl_xor_sync(kFullMask, gc[c], off);
-          }
+        for (int c = 0; c < CMAX; ++c) {
+          if (c < D) v[kGeomCols + c] = w * vch[c];
         }
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < kGeomCols; ++j) part[j] = g[j];
-#pragma unroll
-          for (int c = 0; c < CMAX; ++c) {
-            if (c < D) part[kGeomCols + c] = gc[c];
-          }
+        reduce_scatter<NV>(v, lane);
+        if (NV <= 32) {
+          if (lane < F) part[lane] = v[0];
+        } else {
+          if (2 * lane < F) part[2 * lane] = v[0];
+          if (2 * lane + 1 < F) part[2 * lane + 1] = v[1];
         }
       } else {
         if (lane < F) part[lane] = 0.f;
@@ -254,7 +287,7 @@ __global__ void rasterize_eval3d_bwd_kernel(
   }
 }
 
-template <int CMAX, bool CENTRAL>
+template <int CMAX, int NV, bool CENTRAL>
 cudaError_t launch(const float* rows, const float* rays_d, const float* rays_o,
                    const int32_t* offsets, const float* out_colors,
                    const float* out_T, const float* v_colors, const float* v_T,
@@ -267,14 +300,14 @@ cudaError_t launch(const float* rows, const float* rays_d, const float* rays_o,
       static_cast<size_t>(kBatch) * F * (1 + block / 32) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rasterize_eval3d_bwd_kernel<CMAX, CENTRAL>,
+        rasterize_eval3d_bwd_kernel<CMAX, NV, CENTRAL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   // blocks past the tiles zero the stream's padding rows
   const int64_t tail_blocks = (n_slots * F + 8 * block - 1) / (8 * block);
   const int n_tail = static_cast<int>(tail_blocks < 264 ? tail_blocks : 264);
-  rasterize_eval3d_bwd_kernel<CMAX, CENTRAL>
+  rasterize_eval3d_bwd_kernel<CMAX, NV, CENTRAL>
       <<<n_tiles + n_tail, block, smem, stream>>>(
           rows, rays_d, rays_o, offsets, out_colors, out_T, v_colors, v_T, v_rows,
           v_d, v_o, width, height, tile_size, tile_width, tiles_per_image, n_tiles,
@@ -289,15 +322,16 @@ cudaError_t dispatch(const float* rows, const float* rays_d, const float* rays_o
                      float* v_rows, float* v_d, float* v_o, int n_tiles, int width,
                      int height, int tile_size, int tile_width, int tiles_per_image,
                      int D, int max_entries, int64_t n_slots, cudaStream_t stream) {
-#define TDGS_LAUNCH(CM)                                                          \
-  launch<CM, CENTRAL>(rows, rays_d, rays_o, offsets, out_colors, out_T,          \
-                      v_colors, v_T, v_rows, v_d, v_o, n_tiles, width, height,   \
-                      tile_size, tile_width, tiles_per_image, D, max_entries,    \
-                      n_slots, stream)
-  if (D <= 4) return TDGS_LAUNCH(4);
-  if (D <= 8) return TDGS_LAUNCH(8);
-  if (D <= 16) return TDGS_LAUNCH(16);
-  return TDGS_LAUNCH(32);
+#define TDGS_LAUNCH(CM, NV)                                                     \
+  launch<CM, NV, CENTRAL>(rows, rays_d, rays_o, offsets, out_colors, out_T,       \
+                          v_colors, v_T, v_rows, v_d, v_o, n_tiles, width, height, \
+                          tile_size, tile_width, tiles_per_image, D, max_entries,  \
+                          n_slots, stream)
+  // NV: the 13 + CMAX values of a row padded to a power of two
+  if (D <= 3) return TDGS_LAUNCH(3, 16);
+  if (D <= 8) return TDGS_LAUNCH(8, 32);
+  if (D <= 16) return TDGS_LAUNCH(16, 32);
+  return TDGS_LAUNCH(32, 64);
 #undef TDGS_LAUNCH
 }
 

@@ -13,6 +13,7 @@ PyTorch version below for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -46,10 +47,11 @@ def segment_rows_sum_plain(
     return (run[bounds[1:]] - run[bounds[:-1]]).to(torch.float32)
 
 
+@functools.cache
 def _load_kernel():
     lib = _build.load(KERNEL)
     fn = lib.tdgs_segment_sum
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -89,14 +91,15 @@ def segment_rows_sum(
         raise ValueError(f"rows: 1..{MAX_COLUMNS} columns supported, got {F}")
     if E >= 2**31:
         raise ValueError(f"{E} entries: the kernel takes fewer than 2^31")
+    if rows.data_ptr() % 16:  # the kernel reads rows in aligned 16-byte chunks
+        rows = rows.clone()
     out = torch.empty((n_rows, F + (2 if abs_cols else 0)), dtype=torch.float32,
                       device=device)
-    bounds = torch.empty((2, n_rows), dtype=torch.int32, device=device)  # scratch
     fn = _load_kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(rows.data_ptr(), perm.data_ptr(), sids.data_ptr(), bounds.data_ptr(),
-                 out.data_ptr(), E, n_rows, F, int(abs_cols), stream)
+        err = fn(rows.data_ptr(), perm.data_ptr(), sids.data_ptr(), out.data_ptr(), E,
+                 n_rows, F, int(abs_cols), stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with cudaError_t {err}")
     _build.count_launch(KERNEL)

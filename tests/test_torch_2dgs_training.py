@@ -194,7 +194,8 @@ def _configs(scene, tmp, absgrad):
               dist_loss=True, normal_start_iter=0, dist_start_iter=0,
               normal_lambda=0.5, dist_lambda=0.5)
     sk = dict(refine_start_iter=0, refine_every=1000, reset_every=10_000, absgrad=absgrad)
-    return (JConfig(result_dir=str(tmp / "j"), strategy=JDefault(**sk), **kw),
+    return (JConfig(result_dir=str(tmp / "j"), strategy=JDefault(**sk), data_prefetch=False,
+                    **kw),
             TConfig(result_dir=str(tmp / "t"), strategy=TDefault(**sk), **kw))
 
 

@@ -199,7 +199,8 @@ def _configs(scene, tmp):
               test_every=4, tb_every=1, with_ut=True, with_eval3d=True, init_opa=0.5,
               init_scale=0.1, opacity_reg=0.01, scale_reg=0.01, seed=3)
     sk = dict(cap_max=512, refine_start_iter=0, refine_every=1)
-    return (JConfig(result_dir=str(tmp / "j"), strategy=JMCMC(**sk), **kw),
+    return (JConfig(result_dir=str(tmp / "j"), strategy=JMCMC(**sk), data_prefetch=False,
+                    **kw),
             TConfig(result_dir=str(tmp / "t"), strategy=MCMCStrategy(**sk), **kw))
 
 

@@ -179,6 +179,66 @@ def test_segment_sum_kernel_matches_plain_on_card(cuda_device, F, abs_cols):
         assert _rel_err(a[:, col], want[:, col]) <= 1e-5, col
 
 
+def _segment_layout(name, rng):
+    """(stream ids, n_valid or None, mask or None, n_out) of an adversarial
+    layout for the kernel's runs of consecutive sorted positions."""
+    n = 3_000
+    if name == "one_id_over_many_runs":  # 8 runs and more, off the run grid
+        ids = np.concatenate([rng.integers(0, 40, 13), np.full(77, 41),
+                              rng.integers(42, n, 500)])
+        return ids, None, None, n
+    if name == "all_distinct":
+        return rng.permutation(n)[:2_900], None, None, n
+    if name == "empty_rows_at_both_ends":  # ids only in [700, 2100), with holes
+        ids = rng.choice(np.arange(700, 2_100, 3), size=4_000)
+        return ids, None, None, n
+    if name == "no_entries":
+        return np.zeros(0, np.int64), None, None, n
+    if name == "entries_not_a_multiple_of_the_run":
+        return rng.integers(0, n, 8 * 1_111 + 5), None, None, n
+    if name == "all_padding":
+        return rng.integers(0, n, 3_001), 0, None, n
+    if name == "dense_masked":  # the dense path: only the valid slots sorted
+        ids = rng.integers(0, n, 12_000)
+        mask = rng.random(12_000) < 0.3
+        return ids, None, mask, n
+    raise ValueError(name)
+
+
+SEGMENT_LAYOUTS = ["one_id_over_many_runs", "all_distinct", "empty_rows_at_both_ends",
+                   "no_entries", "entries_not_a_multiple_of_the_run", "all_padding",
+                   "dense_masked"]
+
+
+@pytest.mark.cuda
+# 3DGS rows with the AbsGS columns, eval3d RGB rows, 2DGS RGB+ED rows with
+# the AbsGS columns, eval3d rows of 32 channels (two column chunks)
+@pytest.mark.parametrize("F,abs_cols", [(9, True), (16, False), (19, True), (45, False)])
+@pytest.mark.parametrize("layout", SEGMENT_LAYOUTS)
+def test_segment_sum_kernel_adversarial_layouts_on_card(cuda_device, layout, F, abs_cols):
+    """Layouts that the kernel's decomposition into runs of sorted positions
+    makes hard, each column within 1e-5 of the plain version's scale, and
+    two launches bit for bit equal."""
+    rng = np.random.default_rng(SEGMENT_LAYOUTS.index(layout) + 100 * F)
+    ids, n_valid, mask, n = _segment_layout(layout, rng)
+    dev = cuda_device
+    rows = torch.from_numpy(rng.normal(size=(max(len(ids), 1), F)).astype(np.float32)).to(dev)
+    sids, perm = S.sort_ids(
+        torch.from_numpy(ids.astype(np.int32)).to(dev),
+        None if n_valid is None else torch.tensor(n_valid, device=dev),
+        None if mask is None else torch.from_numpy(mask).to(dev))
+    a = S.segment_rows_sum(rows, perm, sids, n, abs_cols=abs_cols)
+    b = S.segment_rows_sum(rows, perm, sids, n, abs_cols=abs_cols)
+    want = S.segment_rows_sum_plain(rows, perm, sids, n, abs_cols=abs_cols)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)  # deterministic, bit for bit
+    assert a.shape == want.shape == (n, F + (2 if abs_cols else 0))
+    for col in range(a.shape[1]):
+        assert _rel_err(a[:, col], want[:, col]) <= 1e-5, col
+    empty = want.abs().sum(1) == 0  # rows no sorted position names are zero
+    assert float(a[empty].abs().sum()) == 0.0
+
+
 def _two_image_stream(seed, D=3, N=200):
     """Two images of one batch, tiled together by the port on the CPU."""
     rng = np.random.default_rng(seed)
@@ -437,6 +497,29 @@ def test_eval3d_kernels_match_plain_on_card(cuda_device, D, tile_capacity, rolli
         assert got[2] is None
     n = int(s["offsets"][-1])
     assert float(got[0][n:].abs().sum()) == 0.0  # the stream's padding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 3, 32])  # 14, 16 and 45 values in the reduction
+def test_eval3d_bwd_kernel_is_bitwise_repeatable_on_card(cuda_device, D):
+    """Two launches of kernel 8 on the same inputs agree bit for bit: the
+    per-entry reduce-scatter and the block's sums take a fixed order."""
+    from tdgs_torch.ops import rasterize_eval3d_packed as E
+
+    s = _eval3d_stream(200 + D, D)
+    dev = cuda_device
+    geo = (s["rows"].to(dev), s["d"].to(dev), None, s["offsets"].to(dev), 1, D, W, H, 16)
+    img, T = E.rasterize_eval3d_train_fwd(*geo, 1024)
+    rng = np.random.default_rng(D)
+    v_img, v_T = (torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+                  for x in (img, T))
+    before = _build.LAUNCHES.get(E.KERNEL_BWD, 0)
+    first = E.rasterize_eval3d_bwd(*geo, img, T, v_img, v_T, 1024)
+    second = E.rasterize_eval3d_bwd(*geo, img, T, v_img, v_T, 1024)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[E.KERNEL_BWD] == before + 2
+    assert float(first[0].abs().max()) > 0  # the entries get gradients
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda

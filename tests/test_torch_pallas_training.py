@@ -188,7 +188,8 @@ def test_one_runner_step_matches_jax(scene, tmp_path, rasterizer, absgrad):
               isect_capacity=1 << 14, test_every=4, tb_every=1, rasterizer=rasterizer,
               background_color=(0.1, 0.2, 0.3), seed=3)
     sk = dict(refine_start_iter=0, refine_every=1000, reset_every=10_000, absgrad=absgrad)
-    jr = JRunner(JConfig(result_dir=str(tmp_path / "j"), strategy=JDefault(**sk), **kw))
+    jr = JRunner(JConfig(result_dir=str(tmp_path / "j"), strategy=JDefault(**sk),
+                         data_prefetch=False, **kw))
     rng = np.random.default_rng(12)
     # a mid-training state: perturbed splats, nonzero moments and accumulators
     splats = {k: np.asarray(v) for k, v in jr.splats.items()}

@@ -32,6 +32,20 @@ def _cases():
     yield ("single_giant_segment", 8, 8 * ENT, 128, np.full(8 * ENT, 77), 1e-4)
     yield ("far_jump", 8, 2 * ENT, 2048,
            np.sort(rng.choice([3, 2000, 2047], size=2 * ENT)), 1e-5)
+    # layouts that the CUDA kernel's runs of 8 sorted positions make hard:
+    # segments that start exactly on a run's edge (every 8 and every 16
+    # positions), an id gap of thousands of rows, padding after the last id
+    yield ("segments_on_multiples_of_8", 8, 2 * ENT, 300,
+           np.repeat(np.sort(rng.choice(300, 2 * ENT // 8, replace=False)), 8), 1e-5)
+    yield ("segments_on_multiples_of_16", 16, 2 * ENT, 300,
+           np.repeat(np.sort(rng.choice(300, 2 * ENT // 16, replace=False)), 16), 1e-5)
+    yield ("gap_of_thousands", 8, 2 * ENT, 9000,
+           np.sort(rng.choice([0, 1, 5, 6500, 6501, 8999], size=2 * ENT)), 1e-5)
+    # the padding's id is n_rows: past every output row here, and in a
+    # column the JAX kernel computes and then cuts
+    yield ("last_valid_id_then_padding", 8, 2 * ENT, 300,
+           np.concatenate([np.sort(rng.integers(0, 300, 3 * ENT // 2)),
+                           np.full(ENT // 2, 300)]), 1e-5)
 
 
 @pytest.mark.parametrize("case", list(_cases()), ids=lambda c: c[0])

@@ -361,7 +361,8 @@ def _configs(scene, tmp, absgrad):
               isect_capacity=1 << 14, test_every=4, tb_every=1, rasterizer="packed",
               background_color=(0.1, 0.2, 0.3), seed=3)
     sk = dict(refine_start_iter=0, refine_every=1000, reset_every=10_000, absgrad=absgrad)
-    return (JConfig(result_dir=str(tmp / "j"), strategy=JDefault(**sk), **kw),
+    return (JConfig(result_dir=str(tmp / "j"), strategy=JDefault(**sk), data_prefetch=False,
+                    **kw),
             TConfig(result_dir=str(tmp / "t"), strategy=TDefault(**sk), **kw))
 
 
