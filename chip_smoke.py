@@ -1933,12 +1933,8 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = nvidia_smi()
-    clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    emit("device", nvidia_smi=smi, clocks_sm_and_max=clocks, torch=torch.__version__,
-         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count())
+    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     build_s = _build.build()
     ptxas = {n: [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]

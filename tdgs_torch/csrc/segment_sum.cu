@@ -215,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
     }
   }
   __syncthreads();
-  // one chunk covers the whole row: the window is a contiguous span of out
+  // the window's rows into out: with one chunk a contiguous span of it
   float* dst = out + c0 * F_out;
   for (int i = threadIdx.x; i < n_vals; i += kThreads) {
     const int r = i / W, j = i - r * W;
