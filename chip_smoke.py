@@ -11,13 +11,6 @@ bench scale, the bench render and training step, the Runner, the
 image-fitting example), and print one JSON line per phase.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare-csrc DIR
-
-The second form also times kernels 3 and 8 against an earlier design of
-theirs, in turns on the same inputs: DIR holds that design's
-``segment_sum.cu``, ``rasterize_eval3d_bwd.cu`` and
-``rasterize_eval3d_common.cuh`` (e.g. from ``git show
-<commit>:tdgs_torch/csrc/segment_sum.cu``) and gets their build.
 
 Needs a CUDA card and this repository's ``tdgs_torch`` package; it exits
 non-zero without either. The last line of standard output is
@@ -27,15 +20,12 @@ reports for the card's name and power limit.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -93,7 +83,6 @@ DENSE_KERNELS = (RP.KERNEL_FWD, RP.KERNEL_BWD, S.KERNEL)
 DIST_RTOL = 1e-3  # kernel 5 vs plain: distortion, max|Δ| / max|plain|
 MEDIAN_SHARE = 0.01  # kernel 5 vs plain: share of pixels whose median differs
 SIGMA_TOL = 1e-3  # eval3d σ* (float32, σ* < 4) vs float64, absolute
-EVAL3D_ROWS_SEGSUM = "segment_sum_on_eval3d_rows"  # kernel 3 timed at F = 13 + D
 
 # FP32 operations of one (pixel, entry) evaluation that both compositing
 # kernels make: sigma 11, exp 2, alpha 2, tests 2, transmittance 3
@@ -660,9 +649,11 @@ def measure_segment_sum(rows, ids, offsets, G, reps=20):
     """Kernel 3 on a backward's per-slot rows [L, F] and their stream ids
     (the slots past offsets[-1] are padding), summed into G rows: its device
     time, its plain version's time, its bound, and index_add_ over the valid
-    slots as its library yardstick. The device times come from a CUDA graph
-    (``graph_ms``); the times of back-to-back calls from Python, which the
-    host sets at these sizes, are given beside them."""
+    slots as its library yardstick. ``ms`` and ``library_ms`` are CUDA
+    events around back-to-back calls, as every kernel is timed; a call from
+    Python costs the host about as long as this kernel, so the same calls
+    replayed from a CUDA graph (``graph_ms``) are given beside them as the
+    device's own time."""
     n_isects = int(offsets[-1])
     F = rows.shape[1]
     sids, perm = S.sort_ids(ids, offsets[-1])
@@ -675,8 +666,8 @@ def measure_segment_sum(rows, ids, offsets, G, reps=20):
     def library():
         return torch.zeros((G, F), device=DEVICE).index_add_(0, valid_ids, valid_rows)
 
-    seg_ms, lib_ms = graph_ms(kernel, reps), graph_ms(library, reps)
-    calls_ms = dict(kernel=time_ms(kernel, reps), library=time_ms(library, reps))
+    seg_ms, lib_ms = time_ms(kernel, reps), time_ms(library, reps)
+    seg_graph, lib_graph = graph_ms(kernel, reps), graph_ms(library, reps)
     seg_plain = time_ms(lambda: S.segment_rows_sum_plain(rows, perm, sids, G), 3)
     # sorted id and permutation (4 bytes each) with each row, read once;
     # the per-gaussian sums written once
@@ -684,8 +675,8 @@ def measure_segment_sum(rows, ids, offsets, G, reps=20):
     seg_b, seg_o = seg_bytes / PEAK_BYTES * 1e3, n_isects * F / PEAK_FP32 * 1e3
     return dict(ms=seg_ms, plain_ms=seg_plain, bound_ms=max(seg_b, seg_o),
                 bound_by="bytes" if seg_b >= seg_o else "operations",
-                library_ms=lib_ms, back_to_back_calls_ms=calls_ms, entries=n_isects,
-                rows_out=G, columns=F, bytes=seg_bytes)
+                library_ms=lib_ms, device_graph_ms=seg_graph, library_graph_ms=lib_graph,
+                entries=n_isects, rows_out=G, columns=F, bytes=seg_bytes)
 
 
 def bench_capacity(bench):
@@ -1404,8 +1395,9 @@ def kernel_work_eval3d(geo, tile_capacity, evaluations):
 def measure_kernels_eval3d(a, reps=20):
     """Times of kernel 7 (the forward-only call, no background: the bench
     render; and the training call) and kernel 8 at the bench shapes, with
-    their plain versions' and their bounds. No PyTorch call composites a
-    sorted tile stream, so there is no library yardstick."""
+    their plain versions' and their bounds (no PyTorch call composites a
+    sorted tile stream, so there is no library yardstick); and kernel 3 on
+    kernel 8's rows. Returns ({kernel: times}, kernel 3's times)."""
     tc = 1024
     stream, img, T, v_img, v_T = a["inputs"]
     work = kernel_work_eval3d(stream, tc, a["evaluations"])
@@ -1426,8 +1418,7 @@ def measure_kernels_eval3d(a, reps=20):
     v_rows = E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tc)[0]
     seg = measure_segment_sum(v_rows, a["flatten_ids"], stream[3], a["n_gaussians"], reps)
     emit("kernels_eval3d", **out, segment_sum_on_eval3d_rows=seg)
-    out[EVAL3D_ROWS_SEGSUM] = seg
-    return out
+    return out, seg
 
 
 def phase_bench_render_eval3d(bench, cap, n_frames=20):
@@ -1771,164 +1762,7 @@ def phase_image_fitting(min_iterations=1000):
     return {k: launches.get(k, 0) for k in DENSE_KERNELS}
 
 
-# ---------------------------------------------------------------------------
-# A/B against an earlier design of kernels 3 and 8 (``--compare-csrc DIR``)
-# ---------------------------------------------------------------------------
-
-def build_compare_libraries(prev_dir):
-    """Build ``prev_dir``'s segment_sum.cu and rasterize_eval3d_bwd.cu (an
-    earlier design of kernels 3 and 8, with its header), both ``nvcc`` at
-    once, into ``prev_dir/build``; returns {variant: ctypes library}."""
-    prev = Path(prev_dir).resolve()
-    out_dir = prev / "build"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {"prev_segment_sum": prev / "segment_sum.cu",
-            "prev_eval3d_bwd": prev / "rasterize_eval3d_bwd.cu"}
-    procs = {}
-    for name, src in jobs.items():
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(prev),
-               "-o", str(out_dir / f"lib{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs, ptxas = {}, {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        ptxas[name] = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
-        libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-    emit("compare_build", variants=sorted(libs), ptxas=ptxas)
-    return libs
-
-
-def _call(fn, *args):
-    """A C entry on the current stream (tensors as pointers, None as null);
-    raises on its cudaError_t. Not counted as a launch of the port."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
-    if err != 0:
-        raise RuntimeError(f"compare: CUDA launch failed with cudaError_t {err}")
-
-
-def _segsum_variants(libs, rows, sids, perm, G):
-    """{variant: fn() -> [G, F] sums} for kernel 3 on these inputs: the
-    tree's kernel and the earlier design, which takes an int32 [2, G]
-    scratch."""
-    F = rows.shape[1]
-    fn = libs["prev_segment_sum"].tdgs_segment_sum
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-
-    def prev():
-        res = torch.empty((G, F), dtype=torch.float32, device=DEVICE)
-        bounds = torch.empty((2, G), dtype=torch.int32, device=DEVICE)
-        _call(fn, rows, perm, sids, bounds, res, sids.shape[0], G, F, 0)
-        return res
-
-    return {"new": lambda: S.segment_rows_sum(rows, perm, sids, G), "prev": prev}
-
-
-def sm_clock_under(fn, seconds=1.0):
-    """The SM clock (MHz) that nvidia-smi samples every 100 ms while fn()
-    runs back to back for ``seconds``."""
-    proc = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "100"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    try:
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
-            for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-    finally:
-        proc.terminate()
-        try:
-            text, _ = proc.communicate(timeout=10)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            text, _ = proc.communicate()
-    mhz = sorted(int(v) for v in text.split() if v.strip().isdigit())
-    return dict(samples=len(mhz), median=mhz[len(mhz) // 2] if mhz else None,
-                min=mhz[0] if mhz else None, max=mhz[-1] if mhz else None)
-
-
-def _in_turns(fns, order, reps, timer=time_ms):
-    """Time each variant of ``fns`` at every place it takes in ``order``;
-    {variant: [ms, ...]}."""
-    times = {k: [] for k in fns}
-    for k in order:
-        times[k].append(timer(fns[k], reps))
-    return times
-
-
-def phase_compare(prev_dir, train_inputs, par_e3, reps=20):
-    """Kernels 3 and 8 against the earlier design built from ``prev_dir``,
-    on the same inputs, timed in turns (prev, new, new, prev), with the SM
-    clock sampled while the new kernel runs: kernel 3 at the training
-    path's bench shapes (F = 9) and on kernel 8's rows (F = 16), with
-    index_add_, by CUDA graphs and by calls from Python; kernel 8 at the
-    bench shapes (D = 3, central)."""
-    libs = build_compare_libraries(prev_dir)
-    args, _, _, _, _, rows = train_inputs
-    stream, img, T, v_img, v_T = par_e3["inputs"]
-    tc = 1024
-    v_rows_e3 = E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tc)[0]
-    cases = {"train_F9": (rows, args[8], args[7], args[0].numel() // 2),
-             "eval3d_F16": (v_rows_e3, par_e3["flatten_ids"], stream[3],
-                            par_e3["n_gaussians"])}
-    result = {}
-    for case, (r, ids, offsets, G) in cases.items():
-        sids, perm = S.sort_ids(ids, offsets[-1])
-        fns = _segsum_variants(libs, r, sids, perm, G)
-        n = int(offsets[-1])
-        fns["index_add_"] = lambda r=r, ids=ids, n=n, G=G: torch.zeros(
-            (G, r.shape[1]), device=DEVICE).index_add_(0, ids[:n].long(), r[:n])
-        want = fns["new"]()
-        agree = {k: _rel(fns[k](), want) for k in fns if k != "new"}
-        order = ["prev", "new", "index_add_"]
-        result[case] = dict(
-            entries=n, rows_out=G, columns=r.shape[1], max_rel_diff_vs_new=agree,
-            # device times (CUDA graphs), then back-to-back calls from Python
-            ms=_in_turns(fns, order + order[::-1], reps, graph_ms),
-            back_to_back_calls_ms=_in_turns(fns, ["prev", "new", "new", "prev"], reps),
-            # the rows gathered through the permutation alone
-            perm_gather_ms=graph_ms(lambda r=r, perm=perm: r.index_select(0, perm), reps),
-            sm_clock_mhz=sm_clock_under(fns["new"]))
-
-    rows_e3, d, o, offsets, I, D, W, H, ts = stream
-    tw, th = E._check_inputs(rows_e3, d, o, offsets, I, D, W, H, ts)
-    fn = libs["prev_eval3d_bwd"].tdgs_rasterize_eval3d_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_int64]
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-
-    def prev_bwd():
-        v_rows, v_d = torch.empty_like(rows_e3), torch.empty_like(d)
-        _call(fn, rows_e3, d, o, offsets, img, T, v_img, v_T, v_rows, v_d, None, I, W, H,
-              ts, tw, th, D, max_entries_per_tile(tc), rows_e3.shape[0])
-        return v_rows, v_d
-
-    fns = {"prev": prev_bwd,
-           "new": lambda: E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tc)[:2]}
-    got, old = fns["new"](), fns["prev"]()
-    torch.cuda.synchronize()
-    agree = {k: _rel(got[0][:, c], old[0][:, c]) for k, c in EVAL3D_GROUPS.items()}
-    agree["v_d"] = _rel(got[1], old[1])
-    times = _in_turns(fns, ["prev", "new", "new", "prev"], reps)
-    result["eval3d_bwd_D3"] = dict(evaluations=par_e3["evaluations"], ms=times,
-                                   max_rel_diff_vs_prev=agree,
-                                   sm_clock_mhz=sm_clock_under(fns["new"]))
-    emit("compare_redesign", prev_dir=str(prev_dir), **result)
-    return result
-
-
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--compare-csrc", default=None, metavar="DIR",
-                        help="also time kernels 3 and 8 against the segment_sum.cu and "
-                             "rasterize_eval3d_bwd.cu (with its header) in DIR, in turns")
-    opts = parser.parse_args(argv)
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1983,10 +1817,9 @@ def main(argv=None):
         fitting_launches = phase_image_fitting()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed),
-                   **measure_kernels_eval3d(par_e3), **measure_kernels_dense(par_dense))
-    if opts.compare_csrc:
-        phase_compare(opts.compare_csrc, train_inputs, par_e3)
+    k_eval3d, seg_eval3d = measure_kernels_eval3d(par_e3)
+    timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed), **k_eval3d,
+                   **measure_kernels_dense(par_dense))
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
@@ -2020,8 +1853,11 @@ def main(argv=None):
                         render_train_pallas_launches=train_dense_launches[S.KERNEL],
                         trainer_pallas_launches=trainer_dense_launches[S.KERNEL],
                         image_fitting_launches=fitting_launches[S.KERNEL],
-                        **{f"eval3d_rows_{k}": timings[EVAL3D_ROWS_SEGSUM][k]
-                           for k in ("columns", "ms", "bound_ms", "library_ms")})),
+                        device_graph_ms=timings[S.KERNEL]["device_graph_ms"],
+                        library_graph_ms=timings[S.KERNEL]["library_graph_ms"],
+                        **{f"eval3d_rows_{k}": seg_eval3d[k]
+                           for k in ("columns", "ms", "device_graph_ms", "bound_ms",
+                                     "library_ms", "library_graph_ms")})),
         R2.KERNEL_FWD: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:84", render_2dgs_launches,
                         dict(max_abs_err=errs_2dgs["fwd"], abs_tol=TOL),
                         dict(trainer_2dgs_eval_launches=trainer_2dgs_eval)),

@@ -180,12 +180,29 @@ def test_segment_sum_kernel_matches_plain_on_card(cuda_device, F, abs_cols):
 
 
 def _segment_layout(name, rng):
-    """(stream ids, n_valid or None, mask or None, n_out) of an adversarial
-    layout for the kernel's runs of consecutive sorted positions."""
+    """(stream ids, n_valid or None, mask or None, n_out) of a layout that
+    the kernel's decomposition makes hard: each block owns a window of
+    output rows (256 at rows of up to 16 columns, 128 at up to 24), splits
+    the window's sorted positions into eight warps' spans, and each warp
+    walks its span 32 positions a step."""
     n = 3_000
-    if name == "one_id_over_many_runs":  # 8 runs and more, off the run grid
+    if name == "one_id_over_many_warp_spans":  # off the 32-position grid
         ids = np.concatenate([rng.integers(0, 40, 13), np.full(77, 41),
                               rng.integers(42, n, 500)])
+        return ids, None, None, n
+    if name == "one_segment_over_all_eight_warps":
+        # the first window holds ids 10, 11 and 12 only: id 11's 1,000
+        # entries begin in warp 0's span and end in warp 7's, so warps 1-7
+        # each hold a part of it in their carry rows
+        ids = np.concatenate([np.full(5, 10), np.full(1_000, 11), np.full(7, 12),
+                              rng.integers(256, n, 2_000)])
+        return ids, None, None, n
+    if name == "ids_straddling_window_edges":
+        # segments of 1-40 entries on the last and first rows of every
+        # window (each multiple of 128, so both window sizes), none between
+        edges = np.arange(128, n, 128)
+        edge_ids = np.concatenate([edges - 1, edges])
+        ids = np.repeat(edge_ids, rng.integers(1, 41, edge_ids.size))
         return ids, None, None, n
     if name == "all_distinct":
         return rng.permutation(n)[:2_900], None, None, n
@@ -194,7 +211,7 @@ def _segment_layout(name, rng):
         return ids, None, None, n
     if name == "no_entries":
         return np.zeros(0, np.int64), None, None, n
-    if name == "entries_not_a_multiple_of_the_run":
+    if name == "entries_not_a_multiple_of_32":
         return rng.integers(0, n, 8 * 1_111 + 5), None, None, n
     if name == "all_padding":
         return rng.integers(0, n, 3_001), 0, None, n
@@ -205,8 +222,9 @@ def _segment_layout(name, rng):
     raise ValueError(name)
 
 
-SEGMENT_LAYOUTS = ["one_id_over_many_runs", "all_distinct", "empty_rows_at_both_ends",
-                   "no_entries", "entries_not_a_multiple_of_the_run", "all_padding",
+SEGMENT_LAYOUTS = ["one_id_over_many_warp_spans", "one_segment_over_all_eight_warps",
+                   "ids_straddling_window_edges", "all_distinct", "empty_rows_at_both_ends",
+                   "no_entries", "entries_not_a_multiple_of_32", "all_padding",
                    "dense_masked"]
 
 
@@ -216,9 +234,9 @@ SEGMENT_LAYOUTS = ["one_id_over_many_runs", "all_distinct", "empty_rows_at_both_
 @pytest.mark.parametrize("F,abs_cols", [(9, True), (16, False), (19, True), (45, False)])
 @pytest.mark.parametrize("layout", SEGMENT_LAYOUTS)
 def test_segment_sum_kernel_adversarial_layouts_on_card(cuda_device, layout, F, abs_cols):
-    """Layouts that the kernel's decomposition into runs of sorted positions
-    makes hard, each column within 1e-5 of the plain version's scale, and
-    two launches bit for bit equal."""
+    """Layouts that the kernel's windows and warp spans make hard, each
+    column within 1e-5 of the plain version's scale, and two launches bit
+    for bit equal."""
     rng = np.random.default_rng(SEGMENT_LAYOUTS.index(layout) + 100 * F)
     ids, n_valid, mask, n = _segment_layout(layout, rng)
     dev = cuda_device
@@ -450,7 +468,9 @@ def _eval3d_stream(seed, D, n_images=1, rolling_shutter=False, N=300):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [1, 3, 8, 32])  # every templated channel bound
+# every templated channel bound: kernel 7's 4, 8, 16, 32; kernel 8's 3, 8,
+# 16, 32 (13 + D values padded to 16, 32, 32, 64)
+@pytest.mark.parametrize("D", [1, 3, 8, 16, 32])
 @pytest.mark.parametrize("tile_capacity", [128, 1024])
 @pytest.mark.parametrize("rolling_shutter", [False, True])
 def test_eval3d_kernels_match_plain_on_card(cuda_device, D, tile_capacity, rolling_shutter):
@@ -500,7 +520,7 @@ def test_eval3d_kernels_match_plain_on_card(cuda_device, D, tile_capacity, rolli
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [1, 3, 32])  # 14, 16 and 45 values in the reduction
+@pytest.mark.parametrize("D", [1, 3, 16, 32])  # 14, 16, 29 and 45 values in the reduction
 def test_eval3d_bwd_kernel_is_bitwise_repeatable_on_card(cuda_device, D):
     """Two launches of kernel 8 on the same inputs agree bit for bit: the
     per-entry reduce-scatter and the block's sums take a fixed order."""

@@ -32,9 +32,11 @@ def _cases():
     yield ("single_giant_segment", 8, 8 * ENT, 128, np.full(8 * ENT, 77), 1e-4)
     yield ("far_jump", 8, 2 * ENT, 2048,
            np.sort(rng.choice([3, 2000, 2047], size=2 * ENT)), 1e-5)
-    # layouts that the CUDA kernel's runs of 8 sorted positions make hard:
-    # segments that start exactly on a run's edge (every 8 and every 16
-    # positions), an id gap of thousands of rows, padding after the last id
+    # layouts that cutting the sorted positions into fixed runs makes hard
+    # (the CUDA kernel's warps walk 32 positions a step): segments that
+    # start exactly on every 8th and every 16th position, an id gap of
+    # thousands of rows (whole windows of output rows with no position),
+    # padding after the last id
     yield ("segments_on_multiples_of_8", 8, 2 * ENT, 300,
            np.repeat(np.sort(rng.choice(300, 2 * ENT // 8, replace=False)), 8), 1e-5)
     yield ("segments_on_multiples_of_16", 16, 2 * ENT, 300,
