@@ -1645,17 +1645,17 @@ def phase_parity_dense(bench, heavy, cap):
     return {k: max(x[k] for x in (a, b, c)) for k in ("fwd", "bwd", "bwd_rel")}, a
 
 
-def measure_kernels_dense(a, reps=20):
-    """Times of kernels 9 and 10 at the bench frame's dense shapes ("RGB",
-    tile_capacity 1024), with their plain versions' and their bounds. No
-    PyTorch call composites a tile's slots, so there is no library
-    yardstick."""
-    rows, counts, geo, img, trans, v_img, v_t = a["inputs"]
+def dense_kernel_times(inputs, reps=20):
+    """Times of kernels 9 and 10 on one frame's dense inputs (rows [T, cap,
+    6 + D], counts, geometry, the forward's outputs and their cotangents),
+    with their plain versions' and their bounds. No PyTorch call composites
+    a tile's slots, so there is no library yardstick."""
+    rows, counts, geo, img, trans, v_img, v_t = inputs
     T, cap, F = rows.shape
     D = F - RP.GEOM_COLS
     evals = RP.dense_evaluations(rows, counts, *geo)
     valid = int(counts.sum())
-    n_pix = WIDTH * HEIGHT
+    n_pix = geo[0] * geo[1] * geo[2]
     # each input read once: the valid rows and the counts, per pixel the
     # forward's colours and T with their cotangents (backward); outputs
     # written once: the image and T, or every [T, cap, F] gradient row
@@ -1682,8 +1682,46 @@ def measure_kernels_dense(a, reps=20):
                          bound_by="bytes" if t_b >= t_o else "operations", bytes=n_bytes,
                          fp32_ops=n_ops, evaluations=evals, valid_slots=valid,
                          slots=T * cap)
-    emit("kernels_dense", **out)
     return out
+
+
+def kernel_inputs_fitting(seed=9):
+    """Kernels 9 and 10's inputs at the image-fitting example's shape: its
+    first step (128x128, 2000 gaussians from ``init_params`` with the
+    example's seed 42, tile_capacity 512, 64 tiles per gaussian), the
+    forward's outputs and random cotangents."""
+    from tdgs_torch import image_fitting as IF
+
+    H = W = 128
+    tc = 512
+    p = IF.init_params(torch.Generator().manual_seed(42), 2000, device=DEVICE)
+    viewmats, Ks = IF.build_camera(H, W, DEVICE)
+    with torch.no_grad():
+        colors = torch.sigmoid(p["colors"])
+        _, _, meta = tdgs_torch.rasterization(
+            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]),
+            colors, viewmats, Ks, W, H, rasterizer="pallas", tile_capacity=tc,
+            max_tiles_per_gauss=64, device=DEVICE)
+        rows, counts = RP.dense_rows(meta["means2d"], meta["conics"], colors[None],
+                                     meta["opacities"], meta["isect_offsets"],
+                                     meta["flatten_ids"], meta["n_isects"], tc)
+    rows = rows.contiguous()
+    geo = (1, W, H, 16)
+    img, trans = RP.rasterize_dense_fwd(rows, counts, *geo)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    v_img = torch.randn(img.shape, generator=g, device=DEVICE)
+    v_t = torch.randn(trans.shape, generator=g, device=DEVICE)
+    return rows, counts, geo, img, trans, v_img, v_t
+
+
+def measure_kernels_dense(a, reps=20):
+    """Times of kernels 9 and 10 at the bench frame's dense shapes ("RGB",
+    tile_capacity 1024) and, as their second shape, at the image-fitting
+    example's (``image_fitting``)."""
+    out = dense_kernel_times(a["inputs"], reps)
+    fitting = dense_kernel_times(kernel_inputs_fitting(), reps)
+    emit("kernels_dense", **out, image_fitting=fitting)
+    return out, fitting
 
 
 def _psnr(a, b):
@@ -1818,8 +1856,10 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     k_eval3d, seg_eval3d = measure_kernels_eval3d(par_e3)
-    timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed), **k_eval3d,
-                   **measure_kernels_dense(par_dense))
+    k_dense, k_fitting = measure_kernels_dense(par_dense)
+    timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed), **k_eval3d, **k_dense)
+    fitting_shape = {name: {f"image_fitting_{k}": t[k] for k in ("ms", "plain_ms", "bound_ms")}
+                     for name, t in k_fitting.items()}
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
@@ -1891,13 +1931,15 @@ def main():
                         dict(max_abs_err=errs_dense["fwd"], abs_tol=TOL),
                         dict(bench_render_launches=render_dense_launches,
                              trainer_launches=trainer_dense_launches[RP.KERNEL_FWD],
-                             image_fitting_launches=fitting_launches[RP.KERNEL_FWD])),
+                             image_fitting_launches=fitting_launches[RP.KERNEL_FWD],
+                             **fitting_shape[RP.KERNEL_FWD])),
         RP.KERNEL_BWD: ("rasterize_dense_bwd.cu", "tdgs/ops/rasterize_pallas.py:168",
                         train_dense_launches[RP.KERNEL_BWD],
                         dict(max_abs_err=errs_dense["bwd"], max_rel_err=errs_dense["bwd_rel"],
                              rtol=BWD_RTOL),
                         dict(trainer_launches=trainer_dense_launches[RP.KERNEL_BWD],
-                             image_fitting_launches=fitting_launches[RP.KERNEL_BWD])),
+                             image_fitting_launches=fitting_launches[RP.KERNEL_BWD],
+                             **fitting_shape[RP.KERNEL_BWD])),
     }
     kernels = []
     for name, (src, replaces, launches, errs, others) in table.items():

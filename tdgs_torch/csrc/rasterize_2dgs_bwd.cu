@@ -33,37 +33,120 @@
 // terms and 12 + DA products, and every entry's 12 + DA sums over the
 // tile's 256 pixels. The bytes -- the entries' rows, the per-pixel inputs
 // and one row of 12 + DA floats written per stream slot -- are small
-// beside that.
+// beside that. Measured on the H100 by ablation at the bench shapes
+// (RGB+ED, D = 4; kernel_ab.py), the earlier design of this kernel, which
+// summed each entry's 12 + DA columns by a warp butterfly (95 shuffles
+// per warp-entry) and stored them from one lane, spent about 62% of its
+// time there, 38% in the walk, and next to nothing in the synchronous
+// staging of the rows.
 //
-// Design: kernel 2's (rasterize_packed_bwd.cu). One block per 16x16 tile,
-// one thread per pixel; entries in batches of 32, copied contiguously from
-// the stream-order rows into shared memory. Each pixel walks forward to the
-// forward's cutoff keeping T_prev, the prefix of q = w r and the
-// distortion's prefixes (the JAX formulation, so parity is one to one; the
-// suffix is tot_q minus the prefix, in float32 throughout). Per entry, a
-// warp whose pixels all contribute zero skips the reduction; otherwise it
-// sums its 32 pixels by a shuffle butterfly and lane 0 leaves the warp's
-// 12 + DA partial sums in shared memory. After the batch the block sums the
-// 8 warps' partials in a fixed order and writes the batch's rows, which are
-// contiguous in the stream. Every stream position belongs to one tile, so
-// each row is written once, with no float atomics: the result is
-// deterministic. The TPU kernel's cross-tile carry chunk, which zeroes up
-// to 127 kept entries of a truncated tile, is a Mosaic artefact and is not
-// carried over: those entries get their gradients here.
+// Design: one block per 16x16 tile, one thread per pixel; entries in
+// batches of 32, copied from the stream-order rows into shared memory with
+// each row padded to whole float4s, so that a pixel reads an entry's
+// geometry in three 16-byte broadcasts. The copies are asynchronous and
+// double-buffered: the block starts the next batch's (cp.async of 4-byte
+// values, async_copy.cuh, which land each row padded, where a bulk copy
+// could not) before it walks the current one. Each pixel walks
+// forward to the forward's cutoff keeping T_prev, the prefix of q = w r and
+// the distortion's prefixes (the JAX formulation, so parity is one to one;
+// the suffix is tot_q minus the prefix, in float32 throughout).
+// - Cull: before a batch, each warp tests its 32 entries, one a lane,
+//   against the box of its pixel centres (may_reach, a conservative bound)
+//   and walks only those that may reach alpha >= 1/255 there; a skipped
+//   entry would have been excluded at every pixel of the warp, so the rows
+//   are bitwise those of walking it. At the bench shapes this skips 47% of
+//   the warp-entries.
+// - Reduction: per entry, a warp whose pixels all contribute zero skips
+//   it; otherwise it sums its 32 pixels' values by the transposing
+//   reduce-scatter of warp_reduce.cuh and writes its partial row to shared
+//   memory in one store. With 16-pixel tile rows a warp's two half-warps
+//   are two pixel rows, each at one fy, so the three d tpy = sum v_tmp fy
+//   columns need no values of their own: the half-warps' sums of v_tmp,
+//   weighted by their fy, give them. At D <= 4 the 9 + DA values left fit
+//   16 lanes: 17 shuffles per warp-entry where a butterfly over the 12 + DA
+//   columns took 95.
+// After the batch the block sums the 8 warps' partials in a fixed order and
+// writes the batch's rows, which are contiguous in the stream. Every stream
+// position belongs to one tile, so each row is written once, with no float
+// atomics: the result is deterministic. The TPU kernel's cross-tile carry
+// chunk, which
+// zeroes up to 127 kept entries of a truncated tile, is a Mosaic artefact
+// and is not carried over: those entries get their gradients here.
+//
+// Arithmetic: sigma (rasterize_2dgs_common.cuh), op vis, alpha, 1 - alpha
+// and next_T round on their own (_rn intrinsics, never contracted), as in
+// the forward kernel 5, so inclusion and cutoff agree with it rounding for
+// rounding. The gradient arithmetic after an entry is live may contract to
+// FMAs, and 1 / (1 - alpha) is an approximate reciprocal (1 - alpha >=
+// 0.001, well conditioned; within the 1e-3 tolerance against the plain
+// version).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "rasterize_2dgs_common.cuh"
+#include "warp_reduce.cuh"
 
 namespace {
 
 using namespace tdgs2dgs;
+using tdgswarp::kFullMask;
 
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kBatch = 32;
 
-template <int CMAX>
+// a row's stride in shared memory: F floats padded to whole float4s
+__host__ __device__ constexpr int padded(int F) { return (F + 3) & ~3; }
+
+// Whether the entry (geometry g = mx, my, t0, tpx, tpy, op) may reach
+// alpha >= 1/255 at a pixel centre in the box [x0, x1] x [y0, y1]. Over the
+// box, sigma2d >= 2 d^2 (d: the distance from (mx, my) to the box) and,
+// tmp being affine in the pixel centre, sigma3d >= (lx^2 + ly^2) / hz^2
+// with lx, ly the least |tmpx|, |tmpy| and hz the largest |tmpz| over the
+// box's corners (0 where a component changes sign). alpha = op exp(-sigma)
+// < 1/255 wherever sigma > log(255 op). Each bound is widened by far more
+// than the kernel's rounding of tmp and sigma (1e-5 of the terms' sizes)
+// and the threshold raised by 1, so an entry that may be included anywhere
+// in the box is never dropped; NaN keeps the entry.
+__device__ __forceinline__ bool may_reach(const float (&g)[kGeomCols], float x0, float x1,
+                                          float y0, float y1) {
+  const float dx = fmaxf(0.f, fmaxf(x0 - g[0], g[0] - x1));
+  const float dy = fmaxf(0.f, fmaxf(y0 - g[1], g[1] - y1));
+  const float s2d = 2.f * (dx * dx + dy * dy);
+  const float ax = fmaxf(fabsf(x0), fabsf(x1)), ay = fmaxf(fabsf(y0), fabsf(y1));
+  float lo[2], hz = 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float t = g[2 + i], u = g[5 + i], v = g[8 + i];
+    const float c00 = t + u * x0 + v * y0, c10 = t + u * x1 + v * y0;
+    const float c01 = t + u * x0 + v * y1, c11 = t + u * x1 + v * y1;
+    const float lo_c = fminf(fminf(c00, c10), fminf(c01, c11));
+    const float hi_c = fmaxf(fmaxf(c00, c10), fmaxf(c01, c11));
+    const float slack = 1e-5f * (fabsf(t) + fabsf(u) * ax + fabsf(v) * ay);
+    if (i < 2) {
+      lo[i] = fmaxf(0.f, fmaxf(lo_c, -hi_c) - slack);
+    } else {
+      hz = fmaxf(fabsf(lo_c), fabsf(hi_c)) + slack;
+    }
+  }
+  // |tmpz| < 1e-9 gives sigma3d = 1e6 in the walk
+  const float s3d = fminf((lo[0] * lo[0] + lo[1] * lo[1]) / (hz * hz), kSigmaBad);
+  return !(0.5f * fminf(s3d, s2d) * (1.f - 1e-5f) > logf(255.f * g[11]) + 1.f);
+}
+
+// An entry's geometry from its padded row: three 16-byte reads.
+__device__ __forceinline__ void load_geometry(const float* row, float (&g)[kGeomCols]) {
+  const float4* row4 = reinterpret_cast<const float4*>(row);
+  const float4 q0 = row4[0], q1 = row4[1], q2 = row4[2];
+  g[0] = q0.x; g[1] = q0.y; g[2] = q0.z; g[3] = q0.w;
+  g[4] = q1.x; g[5] = q1.y; g[6] = q1.z; g[7] = q1.w;
+  g[8] = q2.x; g[9] = q2.y; g[10] = q2.z; g[11] = q2.w;
+}
+
+// CMAX: the channel bound (DA <= CMAX). HALF_ROWS: each half-warp is one
+// pixel row (tile rows of 16 or 32 pixels), so the d tpy columns come from
+// the half-warps' sums of v_tmp; only with NV = 16.
+template <int CMAX, bool HALF_ROWS>
 __global__ void rasterize_2dgs_bwd_kernel(
     const float* __restrict__ rows,         // [L, 12 + DA] stream order
     const int32_t* __restrict__ offsets,    // [T + 1]
@@ -79,12 +162,19 @@ __global__ void rasterize_2dgs_bwd_kernel(
     int width, int height, int tile_size, int tile_width,
     int tiles_per_image, int n_tiles, int D, int max_entries, int depth_row,
     int compute_distort, int64_t n_slots) {
-  extern __shared__ float smem[];
+  // the values a lane contributes per entry: d mx, d my, d t0 (3), d tpx
+  // (3), d tpy (3, not with HALF_ROWS), d op, the channels; padded to NV
+  constexpr int NR = kGeomCols + CMAX - (HALF_ROWS ? 3 : 0);
+  constexpr int NV = tdgswarp::reduce_width(NR);
+  static_assert(!HALF_ROWS || NV == 16, "HALF_ROWS reduces 16 values");
+  constexpr int NQ = (CMAX + 3) / 4;  // float4s of channels
+  extern __shared__ float4 smem4[];
   const int DA = D + 3;
   const int F = kGeomCols + DA;
+  const int FP = padded(F);
   const int n_warps = blockDim.x >> 5;
-  float* s_rows = smem;                 // [kBatch, F]
-  float* s_part = s_rows + kBatch * F;  // [n_warps, kBatch, F]
+  float* s_batches = reinterpret_cast<float*>(smem4);  // [2, kBatch, FP]
+  float* s_part = s_batches + 2 * kBatch * FP;          // [n_warps, kBatch, F]
 
   const int tid = threadIdx.x;
   if (static_cast<int>(blockIdx.x) >= n_tiles) {
@@ -111,6 +201,15 @@ __global__ void rasterize_2dgs_bwd_kernel(
   const bool inside = px < width && py < height;
   const float fx = static_cast<float>(px) + 0.5f;
   const float fy = static_cast<float>(py) + 0.5f;
+  // the box of the warp's pixel centres
+  float x0 = fx, x1 = fx, y0 = fy, y1 = fy;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    x0 = fminf(x0, __shfl_xor_sync(kFullMask, x0, o));
+    x1 = fmaxf(x1, __shfl_xor_sync(kFullMask, x1, o));
+    y0 = fminf(y0, __shfl_xor_sync(kFullMask, y0, o));
+    y1 = fmaxf(y1, __shfl_xor_sync(kFullMask, y1, o));
+  }
 
   const int start = offsets[t];
   const int end = offsets[t + 1];
@@ -147,29 +246,60 @@ __global__ void rasterize_2dgs_bwd_kernel(
   float pref_q = 0.f, A = 0.f, B = 0.f;
   bool done = !inside;
 
+  // starts copying the batch at `from` into `dst`, each row padded to FP
+  const auto stage = [&](int from, float* dst) {
+    const float* src = rows + static_cast<int64_t>(start + from) * F;
+    for (int i = tid; i < min(kBatch, count - from) * F; i += blockDim.x) {
+      tdgsasync::copy_4(dst + i + (i / F) * (FP - F), src + i);
+    }
+    tdgsasync::commit();
+  };
+  if (count > 0) stage(0, s_batches);
   int b0 = 0;
-  for (; b0 < count; b0 += kBatch) {
+  for (int buf = 0; b0 < count; b0 += kBatch, buf ^= 1) {
     // a barrier too: the previous batch's rows and partials have been read
     if (__syncthreads_count(done) == static_cast<int>(blockDim.x)) break;
     const int n = min(kBatch, count - b0);
-    const float* src = rows + static_cast<int64_t>(start + b0) * F;
-    for (int i = tid; i < n * F; i += blockDim.x) s_rows[i] = src[i];
+    // the next batch lands in the other buffer while this one is walked
+    if (b0 + kBatch < count) {
+      stage(b0 + kBatch, s_batches + (buf ^ 1) * kBatch * FP);
+    } else {
+      tdgsasync::commit();
+    }
+    tdgsasync::wait<1>();
     __syncthreads();
+    const float* s_rows = s_batches + buf * kBatch * FP;
+    // the batch's entries that may reach this warp's pixels, one lane each
+    bool may = false;
+    if (lane < n) {
+      float gl[kGeomCols];
+      load_geometry(s_rows + lane * FP, gl);
+      may = may_reach(gl, x0, x1, y0, y1);
+    }
+    const unsigned reach = __ballot_sync(kFullMask, may);
 
     for (int k = 0; k < n; ++k) {
-      const float* row = s_rows + k * F;
+      float* part = s_part + (warp * kBatch + k) * F;
+      if (!((reach >> k) & 1u)) {  // no pixel of the warp includes it
+        tdgswarp::store_zero_row(part, lane, F);
+        continue;
+      }
+      const float* row = s_rows + k * FP;
+      const float4* row4 = reinterpret_cast<const float4*>(row);
       float g[kGeomCols];  // d mx, d my, d t0 (3), d tpx (3), d tpy (3), d op
 #pragma unroll
       for (int j = 0; j < kGeomCols; ++j) g[j] = 0.f;
       float w = 0.f, g_depth = 0.f;
       bool live = false;
       if (!done) {
+        float geo[kGeomCols];  // mx, my, t0 (3), tpx (3), tpy (3), op
+        load_geometry(row, geo);
         // the forward's arithmetic, rounding for rounding, so inclusion and
         // cutoff agree with it
         Response r;
-        const float sigma = ray_splat_sigma(row, fx, fy, r);
+        const float sigma = ray_splat_sigma(geo, fx, fy, r);
         const float vis = expf(-sigma);
-        const float op_vis = __fmul_rn(row[11], vis);
+        const float op_vis = __fmul_rn(geo[11], vis);
         const float alpha = fminf(kAlphaClamp, op_vis);
         if (alpha >= kAlphaThreshold) {
           const float one_minus = __fsub_rn(1.f, alpha);
@@ -177,12 +307,24 @@ __global__ void rasterize_2dgs_bwd_kernel(
           if (next_T <= kTransmittanceEps) {
             done = true;
           } else {
+            // the gradients: contracted, approximate reciprocal
             live = true;
-            w = __fmul_rn(alpha, T);
+            w = alpha * T;
+            float ch[4 * NQ];
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+              if (4 * q < DA) {
+                const float4 c4 = row4[kGeomCols / 4 + q];
+                ch[4 * q] = c4.x;
+                ch[4 * q + 1] = c4.y;
+                ch[4 * q + 2] = c4.z;
+                ch[4 * q + 3] = c4.w;
+              }
+            }
             float rr = 0.f;
 #pragma unroll
             for (int c = 0; c < CMAX; ++c) {
-              if (c < DA) rr += vch[c] * row[kGeomCols + c];
+              if (c < DA) rr += vch[c] * ch[c];
             }
             if (with_dist) {
               const float d = row[kGeomCols + depth_row];
@@ -195,7 +337,7 @@ __global__ void rasterize_2dgs_bwd_kernel(
               B += wd;
             }
             pref_q += w * rr;
-            const float ra = 1.f / one_minus;
+            const float ra = __fdividef(1.f, one_minus);
             const float v_alpha = rr * T - (tot_q - pref_q) * ra + va_tfin * ra;
             if (op_vis <= kAlphaClamp) {
               const float v_sigma = -op_vis * v_alpha;
@@ -211,9 +353,11 @@ __global__ void rasterize_2dgs_bwd_kernel(
                 g[5] = vx * fx;
                 g[6] = vy * fx;
                 g[7] = vz * fx;
-                g[8] = vx * fy;
-                g[9] = vy * fy;
-                g[10] = vz * fy;
+                if (!HALF_ROWS) {
+                  g[8] = vx * fy;
+                  g[9] = vy * fy;
+                  g[10] = vz * fy;
+                }
               } else {
                 g[0] = 2.f * v_sigma * r.dx;
                 g[1] = 2.f * v_sigma * r.dy;
@@ -223,34 +367,44 @@ __global__ void rasterize_2dgs_bwd_kernel(
           }
         }
       }
-      float* part = s_part + (warp * kBatch + k) * F;
       if (__any_sync(kFullMask, live)) {
-        float gc[CMAX];
+        // the lane's values in reduction order: the geometry columns (d tpy
+        // left out with HALF_ROWS), then the channels, zero padding
+        constexpr int NG = HALF_ROWS ? kGeomCols - 3 : kGeomCols;
+        float v[NV];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) v[j] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = g[j];
+        if (HALF_ROWS) {
+          v[8] = g[11];
+        } else {
+#pragma unroll
+          for (int j = 8; j < kGeomCols; ++j) v[j] = g[j];
+        }
 #pragma unroll
         for (int c = 0; c < CMAX; ++c) {
-          gc[c] = (c < DA) ? w * vch[c] : 0.f;
-          if (c == depth_row) gc[c] += g_depth;
+          if (c < DA) v[NG + c] = w * vch[c] + (c == depth_row ? g_depth : 0.f);
         }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int j = 0; j < kGeomCols; ++j) g[j] += __shfl_xor_sync(kFullMask, g[j], off);
-#pragma unroll
-          for (int c = 0; c < CMAX; ++c) {
-            if (c < DA) gc[c] += __shfl_xor_sync(kFullMask, gc[c], off);
-          }
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < kGeomCols; ++j) part[j] = g[j];
-#pragma unroll
-          for (int c = 0; c < CMAX; ++c) {
-            if (c < DA) part[kGeomCols + c] = gc[c];
-          }
+        if constexpr (HALF_ROWS) {
+          // sums over each half-warp (one pixel row): lane l holds column
+          // l & 15 of its own row; d tpy = fy_0 S_0 + fy_1 S_1 of the d t0
+          // sums, then the two rows' sums added
+          tdgswarp::halve<8, 8>(v, lane);
+          const float m = fy * v[0];
+          const float tpy = m + __shfl_xor_sync(kFullMask, m, 16);
+          v[0] += __shfl_xor_sync(kFullMask, v[0], 16);
+          // one store: lanes 0..15 their column, lanes 18..20 d tpy
+          const int j = lane & 15;
+          const bool low = lane < 16;
+          const int col = low ? (j < 8 ? j : (j == 8 ? 11 : j + 3)) : j + 6;
+          if (low ? j < NG + DA : (j >= 2 && j <= 4)) part[col] = low ? v[0] : tpy;
+        } else {
+          tdgswarp::reduce_scatter<NV>(v, lane);
+          tdgswarp::store_scattered<NV>(part, v, lane, F);
         }
       } else {
-        if (lane < F) part[lane] = 0.f;
-        if (lane + 32 < F) part[lane + 32] = 0.f;
+        tdgswarp::store_zero_row(part, lane, F);
       }
     }
     __syncthreads();
@@ -263,6 +417,7 @@ __global__ void rasterize_2dgs_bwd_kernel(
       dst[i] = s;
     }
   }
+  tdgsasync::wait<0>();  // a batch still in flight after an early exit
   // zero rows: entries no pixel reached, and those past the tile's cut
   const int64_t zero_from = static_cast<int64_t>(start + min(b0, count)) * F;
   for (int64_t i = zero_from + tid; i < static_cast<int64_t>(end) * F; i += blockDim.x) {
@@ -270,7 +425,7 @@ __global__ void rasterize_2dgs_bwd_kernel(
   }
 }
 
-template <int CMAX>
+template <int CMAX, bool HALF_ROWS>
 cudaError_t launch(const float* rows, const int32_t* offsets,
                    const float* out_colors, const float* out_normals,
                    const float* out_T, const float* out_dist,
@@ -283,17 +438,17 @@ cudaError_t launch(const float* rows, const int32_t* offsets,
   const int block = tile_size * tile_size;
   const int F = kGeomCols + D + 3;
   const size_t smem =
-      static_cast<size_t>(kBatch) * F * (1 + block / 32) * sizeof(float);
+      static_cast<size_t>(kBatch) * (2 * padded(F) + (block / 32) * F) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rasterize_2dgs_bwd_kernel<CMAX>,
+        rasterize_2dgs_bwd_kernel<CMAX, HALF_ROWS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   // blocks past the tiles zero the stream's padding rows
   const int64_t tail_blocks = (n_slots * F + 8 * block - 1) / (8 * block);
   const int n_tail = static_cast<int>(tail_blocks < 264 ? tail_blocks : 264);
-  rasterize_2dgs_bwd_kernel<CMAX><<<n_tiles + n_tail, block, smem, stream>>>(
+  rasterize_2dgs_bwd_kernel<CMAX, HALF_ROWS><<<n_tiles + n_tail, block, smem, stream>>>(
       rows, offsets, out_colors, out_normals, out_T, out_dist, v_colors,
       v_normals, v_T, v_dist, v_rows, width, height, tile_size, tile_width,
       tiles_per_image, n_tiles, D, max_entries, depth_row, compute_distort,
@@ -323,18 +478,24 @@ extern "C" int tdgs_rasterize_2dgs_bwd(
   }
   if (n_tiles == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TDGS_LAUNCH(CM)                                                           \
-  launch<CM>(rows, offsets, out_colors, out_normals, out_T, out_dist, v_colors,   \
-             v_normals, v_T, v_dist, v_rows, n_tiles, width, height, tile_size,   \
-             tile_width, tiles_per_image, D, max_entries, depth_row,              \
-             compute_distort, n_slots, s)
+#define TDGS_LAUNCH(CM, HALF)                                                     \
+  launch<CM, HALF>(rows, offsets, out_colors, out_normals, out_T, out_dist,       \
+                   v_colors, v_normals, v_T, v_dist, v_rows, n_tiles, width,      \
+                   height, tile_size, tile_width, tiles_per_image, D, max_entries, \
+                   depth_row, compute_distort, n_slots, s)
+  // the values reduced per entry, padded to NV: 12 + DA <= 16 (D = 1);
+  // 9 + DA <= 16 when half-warps are pixel rows (D <= 4); 12 + DA <= 32
+  // (D <= 17); 12 + DA <= 64
+  const bool half_rows = tile_size % 16 == 0;
   cudaError_t err;
-  if (D + 3 <= 8) {
-    err = TDGS_LAUNCH(8);
-  } else if (D + 3 <= 16) {
-    err = TDGS_LAUNCH(16);
+  if (D + 3 <= 4) {
+    err = TDGS_LAUNCH(4, false);
+  } else if (D + 3 <= 7 && half_rows) {
+    err = TDGS_LAUNCH(7, true);
+  } else if (D + 3 <= 20) {
+    err = TDGS_LAUNCH(20, false);
   } else {
-    err = TDGS_LAUNCH(35);
+    err = TDGS_LAUNCH(35, false);
   }
 #undef TDGS_LAUNCH
   return static_cast<int>(err);

@@ -40,20 +40,16 @@
 // tot_q minus the prefix, in float32 throughout). Per entry, a warp whose
 // pixels all contribute zero skips the reduction; otherwise it sums its 32
 // pixels' 13 + D values, padded to NV (16 at D <= 3, 32 at D <= 16, 64
-// beyond), by a transposing reduce-scatter: at each of five levels a lane
-// keeps half of its values and sends the other half to its partner, so the
-// sums end one column to a lane (two at NV = 64) after 16, 31 or 62
-// shuffles at NV = 16, 32 or 64 (NV = 16: 8 + 4 + 2 + 1, then 1 across
-// the halves of the warp), and the warp's partial row goes to shared
-// memory in one coalesced store (a butterfly that left every sum in every
-// lane would take 80 shuffles at D = 3, and shuffles run at a quarter of
-// the FP32 rate). After the batch the block sums the 8 warps' partials in a
-// fixed order and writes the batch's rows, which are contiguous in the
-// stream. Every
-// stream position belongs to one tile, so each row is written once, with
-// no float atomics, and every sum is taken in a fixed order: the result is
-// deterministic. The ray gradients stay in each pixel's registers and are
-// written once per tile.
+// beyond), by the transposing reduce-scatter of warp_reduce.cuh (16, 31
+// or 62 shuffles at NV = 16, 32 or 64; a butterfly that left every sum in
+// every lane would take 80 at D = 3, and shuffles run at a quarter of the
+// FP32 rate), and the warp's partial row goes to shared memory in one
+// coalesced store. After the batch the block sums the 8 warps' partials in
+// a fixed order and writes the batch's rows, which are contiguous in the
+// stream. Every stream position belongs to one tile, so each row is
+// written once, with no float atomics, and every sum is taken in a fixed
+// order: the result is deterministic. The ray gradients stay in each
+// pixel's registers and are written once per tile.
 // The TPU kernel's cross-tile carry chunk, which zeroes up to 127 kept
 // entries of a truncated tile, is a Mosaic artefact and is not carried
 // over: those entries get their gradients here.
@@ -62,40 +58,14 @@
 #include <cstdint>
 
 #include "rasterize_eval3d_common.cuh"
+#include "warp_reduce.cuh"
 
 namespace {
 
 using namespace tdgseval3d;
 
-constexpr unsigned kFullMask = 0xffffffffu;
+using tdgswarp::kFullMask;
 constexpr int kBatch = 32;
-
-// One level of the reduce-scatter: lanes pair across lane bit O; each
-// keeps the half of its first 2H values that its bit selects (the upper
-// half when set) and adds its partner's copy of that half. Template
-// recursion keeps every index a constant, so v stays in registers.
-template <int O, int H, int NV>
-__device__ __forceinline__ void halve(float (&v)[NV], int lane) {
-  const bool upper = lane & O;
-#pragma unroll
-  for (int j = 0; j < H; ++j) {
-    const float send = upper ? v[j] : v[j + H];
-    const float keep = upper ? v[j + H] : v[j];
-    v[j] = keep + __shfl_xor_sync(kFullMask, send, O);
-  }
-  if constexpr (O > 1) halve<O / 2, H / 2>(v, lane);
-}
-
-// Sums v over the warp's 32 lanes, scattered: on return lane l holds the
-// sum of column l % NV in v[0] (NV <= 32), or of columns 2l and 2l + 1 in
-// v[0] and v[1] (NV = 64). The additions form a fixed tree, so the sums
-// are bitwise repeatable.
-template <int NV>
-__device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane) {
-  static_assert(NV == 16 || NV == 32 || NV == 64, "NV: 16, 32 or 64");
-  halve<(NV / 2 < 16 ? NV / 2 : 16), NV / 2>(v, lane);
-  if constexpr (NV == 16) v[0] += __shfl_xor_sync(kFullMask, v[0], 16);
-}
 
 template <int CMAX, int NV, bool CENTRAL>
 __global__ void rasterize_eval3d_bwd_kernel(
@@ -252,16 +222,10 @@ __global__ void rasterize_eval3d_bwd_kernel(
         for (int c = 0; c < CMAX; ++c) {
           if (c < D) v[kGeomCols + c] = w * vch[c];
         }
-        reduce_scatter<NV>(v, lane);
-        if (NV <= 32) {
-          if (lane < F) part[lane] = v[0];
-        } else {
-          if (2 * lane < F) part[2 * lane] = v[0];
-          if (2 * lane + 1 < F) part[2 * lane + 1] = v[1];
-        }
+        tdgswarp::reduce_scatter<NV>(v, lane);
+        tdgswarp::store_scattered<NV>(part, v, lane, F);
       } else {
-        if (lane < F) part[lane] = 0.f;
-        if (lane + 32 < F) part[lane + 32] = 0.f;
+        tdgswarp::store_zero_row(part, lane, F);
       }
     }
     __syncthreads();

@@ -55,7 +55,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _stream(seed, D, N=300, min_radius=10):
+def _stream(seed, D, N=300, min_radius=10, tile_size=16):
     """Random screen-space gaussians, tiled by the port on the CPU."""
     rng = np.random.default_rng(seed)
     means2d = rng.uniform(0, [W, H], size=(1, N, 2)).astype(np.float32)
@@ -67,8 +67,9 @@ def _stream(seed, D, N=300, min_radius=10):
         [cov[..., 0, 0], cov[..., 1, 1]], -1))), min_radius).astype(np.int32)
     depths = rng.uniform(0.1, 10, size=(1, N)).astype(np.float32)
     isect = isect_tiles_packed(torch.from_numpy(means2d), torch.from_numpy(radii),
-                               torch.from_numpy(depths), 16, 3, 3,
-                               max_tiles_per_gauss=16)
+                               torch.from_numpy(depths), tile_size, -(-W // tile_size),
+                               -(-H // tile_size),
+                               max_tiles_per_gauss=16 * (16 // tile_size) ** 2)
     return dict(
         means2d=torch.from_numpy(means2d),
         conics=torch.from_numpy(conics.astype(np.float32)),
@@ -78,9 +79,9 @@ def _stream(seed, D, N=300, min_radius=10):
     )
 
 
-def _args(s, device):
+def _args(s, device, tile_size=16):
     t = {k: v.to(device) for k, v in s.items()}
-    return (t["means2d"], t["conics"], t["colors"], t["opacities"], W, H, 16,
+    return (t["means2d"], t["conics"], t["colors"], t["opacities"], W, H, tile_size,
             t["offsets"], t["flatten_ids"])
 
 
@@ -306,7 +307,7 @@ def test_packed_autograd_on_card_matches_cpu(cuda_device, n_images):
 # ---------------------------------------------------------------------------
 
 
-def _surfel_stream(seed, D, n_images=1, N=300):
+def _surfel_stream(seed, D, n_images=1, N=300, tile_size=16):
     """Random surfels projected and tiled by the port on the CPU; every
     third one below a pixel (the σ2d branch). The last colour channel is
     the depth, as render_mode "RGB+ED" gives the rasterizer."""
@@ -324,7 +325,9 @@ def _surfel_stream(seed, D, n_images=1, N=300):
                  (n_images, 1, 1))
     radii, means2d, depths, M, normals = fully_fused_projection_2dgs(
         *map(torch.from_numpy, (means, quats, scales, viewmats, Ks)), W, H)
-    isect = isect_tiles_packed(means2d, radii, depths, 16, 3, 3, max_tiles_per_gauss=16)
+    isect = isect_tiles_packed(means2d, radii, depths, tile_size, -(-W // tile_size),
+                               -(-H // tile_size),
+                               max_tiles_per_gauss=16 * (16 // tile_size) ** 2)
     colors = torch.from_numpy(rng.uniform(0, 1, size=(n_images, N, D)).astype(np.float32))
     colors[..., -1] = depths
     opac = torch.from_numpy(rng.uniform(0.05, 0.95, size=(n_images, N)).astype(np.float32))
@@ -731,3 +734,224 @@ def test_jax_rasterizer_on_card_matches_cpu(cuda_device):
                           grads[str(cuda_device)], grads["cpu"]):
         assert float(w.abs().max()) > 0, name
         assert _rel_err(g, w) <= 1e-3, name
+
+
+# ---------------------------------------------------------------------------
+# Kernels 2 and 6: repeatability at every reduction width, and tile layouts
+# that the batches of 32 entries, the warps and the cut make hard
+# ---------------------------------------------------------------------------
+
+GROUPS_2DGS = {"means2d": slice(0, 2), "t0_tpx_tpy": slice(2, 11), "opacity": slice(11, 12),
+               "channels": slice(12, None)}
+
+
+def _bwd_2dgs(R, geo, tile_capacity, seed):
+    """Kernel 6 twice and its plain version on one stream (the training
+    forward's outputs, random cotangents)."""
+    D = geo[3]
+    train = R.rasterize_2dgs_train_fwd(*geo, tile_capacity, D - 1, True)
+    rng = np.random.default_rng(seed)
+    cot = [torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(x.device)
+           for x in train[:4]]
+    before = _build.LAUNCHES.get(R.KERNEL_BWD, 0)
+    first = R.rasterize_2dgs_bwd(*geo, *train[:4], *cot, tile_capacity, D - 1, True)
+    second = R.rasterize_2dgs_bwd(*geo, *train[:4], *cot, tile_capacity, D - 1, True)
+    assert _build.LAUNCHES[R.KERNEL_BWD] == before + 2
+    want = R.rasterize_2dgs_bwd_plain(*geo, *train[:4], *cot, tile_capacity, D - 1, True)
+    torch.cuda.synchronize()
+    return first, second, want
+
+
+def _bwd_packed(args, tile_capacity, seed):
+    """Kernel 2 twice and its plain version on one stream."""
+    img, trans = rasterize_packed_train_fwd(*args, tile_capacity=tile_capacity)
+    rng = np.random.default_rng(seed)
+    v_img, v_t = (torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32))
+                  .to(x.device) for x in (img, trans))
+    before = _build.LAUNCHES.get(KERNEL_BWD, 0)
+    first = rasterize_packed_bwd(*args, img, trans, v_img, v_t, tile_capacity=tile_capacity)
+    second = rasterize_packed_bwd(*args, img, trans, v_img, v_t, tile_capacity=tile_capacity)
+    assert _build.LAUNCHES[KERNEL_BWD] == before + 2
+    want = rasterize_packed_bwd_plain(*args, img, trans, v_img, v_t,
+                                      tile_capacity=tile_capacity)
+    torch.cuda.synchronize()
+    return first, second, want
+
+
+def _assert_rows(first, second, want, groups, n_valid):
+    """Bitwise repeatable, each gradient group within 1e-3 of the plain
+    version's scale, the stream's padding zero."""
+    assert torch.equal(first, second)
+    assert first.shape == want.shape
+    assert bool(torch.isfinite(first).all())
+    for name, cols in groups.items():
+        assert _rel_err(first[:, cols], want[:, cols]) <= 1e-3, name
+    assert first.shape[0] > n_valid  # the stream has padding slots
+    assert float(first[n_valid:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+# 12 + D + 3 values: 16 (16 lanes), 19 (16 with the d tpy columns from the
+# half-warps' rows), 32 and 47; D = 4 at 8-pixel tiles, whose half-warps
+# are not pixel rows, reduces all 19 over 32 lanes
+@pytest.mark.parametrize("D,tile_size", [(1, 16), (4, 16), (17, 16), (32, 16), (4, 8)])
+def test_2dgs_bwd_kernel_is_bitwise_repeatable_on_card(cuda_device, D, tile_size):
+    from tdgs_torch.ops import rasterize_2dgs_packed as R
+
+    s = _surfel_stream(210 + D, D, tile_size=tile_size)
+    geo = (s["rows"].to(cuda_device), s["offsets"].to(cuda_device), 1, D, W, H, tile_size)
+    first, second, want = _bwd_2dgs(R, geo, 1024, D)
+    assert float(first[:, GROUPS_2DGS["t0_tpx_tpy"]].abs().max()) > 0  # the σ3d branch
+    _assert_rows(first, second, want, GROUPS_2DGS, int(s["offsets"][-1]))
+
+
+@pytest.mark.cuda
+# 4 + D = 7 values (8 lanes, the half-warp rows' moments); 6 + D = 16 (16
+# lanes), 32, 38 (64); D = 3 at 8-pixel tiles, whose half-warps are not
+# pixel rows, reduces 9 over 16 lanes
+@pytest.mark.parametrize("D,tile_size", [(3, 16), (10, 16), (26, 16), (32, 16), (3, 8)])
+def test_bwd_kernel_is_bitwise_repeatable_on_card(cuda_device, D, tile_size):
+    s = _stream(220 + D, D, tile_size=tile_size)
+    first, second, want = _bwd_packed(_args(s, cuda_device, tile_size), 1024, D)
+    assert float(first.abs().max()) > 0
+    _assert_rows(first, second, want, GROUPS, int(s["offsets"][-1]))
+
+
+LW, LH = 48, 32  # 3 x 2 tiles of 16 pixels
+BWD_LAYOUTS = ["tiles_of_0_1_31_32_33_entries", "tile_truncated_at_128",
+               "dead_warps_beside_a_live_one", "every_pixel_cut_off_in_the_first_batch",
+               "batches_at_unaligned_row_offsets"]
+
+
+def _bwd_layout(name, rng):
+    """Entries tile by tile: (cx, cy, size, opacity) per entry, and the
+    tile capacity. Sizes are in pixels; below about 0.7 the 2DGS kernel
+    takes the σ2d branch."""
+    def entries(tile, n, size=(1.0, 6.0), op=(0.05, 0.95)):
+        ox, oy = 16 * (tile % 3), 16 * (tile // 3)
+        return np.stack([ox + rng.uniform(-4, 20, n), oy + rng.uniform(-4, 20, n),
+                         rng.uniform(*size, n), rng.uniform(*op, n)], -1)
+
+    tiles = [np.zeros((0, 4))] * 6
+    tile_capacity = 1024
+    if name == "tiles_of_0_1_31_32_33_entries":
+        tiles = [entries(t, n) for t, n in enumerate([0, 1, 31, 32, 33, 64])]
+    elif name == "tile_truncated_at_128":  # 300 faint entries, cut at 128
+        tiles[4] = entries(4, 300, op=(0.02, 0.1))
+        tiles[0] = entries(0, 20)
+        tile_capacity = 128
+    elif name == "dead_warps_beside_a_live_one":
+        # small faint entries on pixel row 0 of tile 1: only its warp 0
+        # (rows 0-1) sees them; warp 1 (rows 2-3) and the rest stay dead
+        e = entries(1, 40, size=(0.2, 0.3), op=(0.05, 0.15))
+        e[:, 1] = 0.5
+        tiles[1] = e
+        tiles[3] = entries(3, 5)
+    elif name == "every_pixel_cut_off_in_the_first_batch":
+        # wide, nearly opaque entries end every pixel's walk at the second
+        # entry; the other 78 get zero rows
+        e = entries(2, 80)
+        e[:3] = [40.0, 8.0, 60.0, 0.995]
+        tiles[2] = e
+    elif name == "batches_at_unaligned_row_offsets":
+        # tile 1 starts at stream slot 1: its batches' rows begin off the
+        # 16-byte grid for every odd row width
+        tiles[0] = entries(0, 1)
+        tiles[1] = entries(1, 70)
+        tiles[5] = entries(5, 45)
+    else:
+        raise ValueError(name)
+    return tiles, tile_capacity
+
+
+def _layout_stream(tiles, n_pad=37):
+    offsets = np.concatenate([[0], np.cumsum([len(t) for t in tiles])]).astype(np.int32)
+    ent = np.concatenate(tiles)
+    return ent, torch.from_numpy(offsets), len(ent) + n_pad
+
+
+def _layout_rows_2dgs(ent, L, D, rng):
+    """Surfel rows [L, 12 + D + 3] with tmp = M (px, py, 1): tmpx, tmpy a
+    random rotation and stretch of (p - c) / size, tmpz = 1 + a slight
+    tilt, so σ3d ≈ |p - c|² / size²; padding rows random."""
+    n = len(ent)
+    rows = rng.normal(size=(L, 12 + D + 3)).astype(np.float32)
+    for i, (cx, cy, size, op) in enumerate(ent):
+        th = rng.uniform(0, np.pi)
+        A = (np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+             @ np.diag(rng.uniform(0.7, 1.4, 2)) / size)
+        tilt = rng.uniform(-0.01, 0.01, 2)
+        M = np.zeros((3, 3))
+        M[:2, :2] = A
+        M[:2, 2] = -A @ [cx, cy]
+        M[2] = [tilt[0], tilt[1], 1.0 - tilt @ [cx, cy]]
+        rows[i, :12] = [cx, cy, *M[:, 2], *M[:, 0], *M[:, 1], op]
+        rows[i, 12:] = rng.uniform(0, 1, D + 3)
+    rows[:n, 12 + D - 1] = rng.uniform(1, 10, n)  # the depth channel
+    return torch.from_numpy(rows)
+
+
+def _layout_args_packed(ent, offsets, L, D, rng):
+    """Kernel 2's operands: one gaussian per entry at (cx, cy) with a
+    random covariance of the entry's size, flatten_ids in stream order and
+    zero ids in the padding."""
+    n = len(ent)
+    means2d = ent[:, :2][None].astype(np.float32)
+    conics = np.zeros((1, n, 3), np.float32)
+    for i, size in enumerate(ent[:, 2]):
+        B = rng.normal(size=(2, 2))
+        cov = size ** 2 * (B @ B.T / np.trace(B @ B.T) * 2 + 0.1 * np.eye(2))
+        inv = np.linalg.inv(cov)
+        conics[0, i] = [inv[0, 0], inv[0, 1], inv[1, 1]]
+    ids = np.zeros(L, np.int32)
+    ids[:n] = np.arange(n)
+    return (torch.from_numpy(means2d), torch.from_numpy(conics),
+            torch.from_numpy(rng.uniform(0, 1, (1, n, D)).astype(np.float32)),
+            torch.from_numpy(ent[:, 3][None].astype(np.float32)), LW, LH, 16, offsets,
+            torch.from_numpy(ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+def test_2dgs_bwd_kernel_adversarial_layouts_on_card(cuda_device, layout):
+    """Kernel 6 (RGB+ED, D = 4, the half-warp rows' reduction) on layouts
+    of few, many, cut and dead entries: within 1e-3 of the plain version,
+    two launches bit for bit equal, zero rows past the walks and in the
+    padding."""
+    from tdgs_torch.ops import rasterize_2dgs_packed as R
+
+    rng = np.random.default_rng(BWD_LAYOUTS.index(layout))
+    tiles, tc = _bwd_layout(layout, rng)
+    ent, offsets, L = _layout_stream(tiles)
+    D = 4
+    rows = _layout_rows_2dgs(ent, L, D, rng)
+    geo = (rows.to(cuda_device), offsets.to(cuda_device), 1, D, LW, LH, 16)
+    first, second, want = _bwd_2dgs(R, geo, tc, 7)
+    assert float(first.abs().max()) > 0
+    _assert_rows(first, second, want, GROUPS_2DGS, len(ent))
+    if layout == "every_pixel_cut_off_in_the_first_batch":
+        start = int(offsets[2])
+        assert float(first[start + 32:start + 80].abs().max()) == 0.0
+    if layout == "tile_truncated_at_128":
+        start = int(offsets[4])
+        assert float(first[start + 128:start + 300].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", BWD_LAYOUTS)
+def test_bwd_kernel_adversarial_layouts_on_card(cuda_device, layout):
+    """Kernel 2 (D = 3) on the same layouts as kernel 6."""
+    rng = np.random.default_rng(50 + BWD_LAYOUTS.index(layout))
+    tiles, tc = _bwd_layout(layout, rng)
+    ent, offsets, L = _layout_stream(tiles)
+    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                 for a in _layout_args_packed(ent, offsets, L, 3, rng))
+    first, second, want = _bwd_packed(args, tc, 8)
+    assert float(first.abs().max()) > 0
+    _assert_rows(first, second, want, GROUPS, len(ent))
+    if layout == "every_pixel_cut_off_in_the_first_batch":
+        start = int(offsets[2])
+        assert float(first[start + 32:start + 80].abs().max()) == 0.0
+    if layout == "tile_truncated_at_128":
+        start = int(offsets[4])
+        assert float(first[start + 128:start + 300].abs().max()) == 0.0

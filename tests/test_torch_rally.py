@@ -155,10 +155,11 @@ def test_port_imports_no_jax_and_no_tdgs():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_chip_smoke_imports_no_jax_and_no_tdgs():
+def _imported_roots(script):
+    """The top-level package names a script of the repository imports."""
     import ast
 
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+    with open(os.path.join(REPO, script)) as f:
         tree = ast.parse(f.read())
     names = set()
     for node in ast.walk(tree):
@@ -166,9 +167,19 @@ def test_chip_smoke_imports_no_jax_and_no_tdgs():
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
-    roots = {n.split(".")[0] for n in names}
-    assert "jax" not in roots and "tdgs" not in roots, sorted(names)
+    return {n.split(".")[0] for n in names}
+
+
+def test_chip_smoke_imports_no_jax_and_no_tdgs():
+    roots = _imported_roots("chip_smoke.py")
+    assert "jax" not in roots and "tdgs" not in roots, sorted(roots)
     assert "tdgs_torch" in roots
+
+
+def test_kernel_ab_imports_no_jax_and_no_tdgs():
+    roots = _imported_roots("kernel_ab.py")
+    assert "jax" not in roots and "tdgs" not in roots, sorted(roots)
+    assert {"tdgs_torch", "chip_smoke"} <= roots
 
 
 def test_main_cli_rally_on_cpu(tmp_path):
