@@ -85,22 +85,27 @@ MEDIAN_SHARE = 0.01  # kernel 5 vs plain: share of pixels whose median differs
 SIGMA_TOL = 1e-3  # eval3d σ* (float32, σ* < 4) vs float64, absolute
 
 # FP32 operations of one (pixel, entry) evaluation that both compositing
-# kernels make: sigma 11, exp 2, alpha 2, tests 2, transmittance 3
+# kernels make: sigma 11, exp 2, alpha 2, tests 2, transmittance 3. Every
+# walked evaluation costs the walk; only a live one (included, past the
+# sigma and 1/255 tests) goes on to the colours or the gradients. The op
+# counts below take evals = (walked, live), as the plain walks count them.
 WALK_OPS = 20
 
 
-def fwd_ops_per_eval(D):
-    """The forward's: the walk, the weight (1) and a multiply-add per
-    channel."""
-    return WALK_OPS + 1 + 2 * D
+def fwd_ops(D, evals):
+    """The forward's: the walk, then at each live evaluation the weight (1)
+    and a multiply-add per channel."""
+    walked, live = evals
+    return walked * WALK_OPS + live * (1 + 2 * D)
 
 
-def bwd_ops_per_eval(D):
-    """The backward's: the walk, then w (1), r (2·D), the prefix and suffix
-    (3), 1/(1 − α) (1), v_alpha (5), v_sigma (2), the five geometry terms
-    (16), the opacity term (1), the colours (D), and one add per value into
-    the entry's sums (6 + D)."""
-    return WALK_OPS + 35 + 4 * D
+def bwd_ops(D, evals):
+    """The backward's: the walk, then at each live evaluation w (1), r
+    (2·D), the prefix and suffix (3), 1/(1 − α) (1), v_alpha (5), v_sigma
+    (2), the five geometry terms (16), the opacity term (1), the colours
+    (D), and one add per value into the entry's sums (6 + D)."""
+    walked, live = evals
+    return walked * WALK_OPS + live * (35 + 4 * D)
 
 
 # FP32 operations of one (pixel, entry) evaluation of the 2DGS walk
@@ -111,19 +116,23 @@ def bwd_ops_per_eval(D):
 WALK_OPS_2DGS = 38
 
 
-def fwd_2dgs_ops_per_eval(DA, train):
-    """Kernels 4 and 5: the walk, the weight (1), a multiply-add per
-    channel; the training call adds the distortion (8) and the median (3)."""
-    return WALK_OPS_2DGS + 1 + 2 * DA + (11 if train else 0)
+def fwd_2dgs_ops(DA, train, evals):
+    """Kernels 4 and 5: the walk, then at each live evaluation the weight
+    (1), a multiply-add per channel; the training call adds the distortion
+    (8) and the median (3)."""
+    walked, live = evals
+    return walked * WALK_OPS_2DGS + live * (1 + 2 * DA + (11 if train else 0))
 
 
-def bwd_2dgs_ops_per_eval(DA):
-    """Kernel 6: the walk, w (1), r (2·DA), the distortion chain (22), the
-    prefix and suffix (3), v_alpha (6), the clamp test (1), v_sigma and the
-    opacity term (3), the branch test (2), the σ3d branch's nine geometry
-    terms (14), the depth term (1), the channels (DA), and one add per
-    value into the entry's sums (12 + DA)."""
-    return WALK_OPS_2DGS + 1 + 2 * DA + 22 + 3 + 6 + 1 + 3 + 2 + 14 + 1 + DA + 12 + DA
+def bwd_2dgs_ops(DA, evals):
+    """Kernel 6: the walk, then at each live evaluation w (1), r (2·DA), the
+    distortion chain (22), the prefix and suffix (3), v_alpha (6), the clamp
+    test (1), v_sigma and the opacity term (3), the branch test (2), the
+    σ3d branch's nine geometry terms (14), the depth term (1), the channels
+    (DA), and one add per value into the entry's sums (12 + DA)."""
+    walked, live = evals
+    return walked * WALK_OPS_2DGS + live * (1 + 2 * DA + 22 + 3 + 6 + 1 + 3 + 2 + 14 + 1
+                                            + DA + 12 + DA)
 
 
 # FP32 operations of one (pixel, entry) evaluation of the eval3d walk
@@ -134,20 +143,23 @@ def bwd_2dgs_ops_per_eval(DA):
 WALK_OPS_EVAL3D = 51
 
 
-def fwd_eval3d_ops_per_eval(D, central):
-    """Kernel 7: the walk, the weight (1), a multiply-add per channel."""
-    return WALK_OPS_EVAL3D + (0 if central else 18) + 1 + 2 * D
+def fwd_eval3d_ops(D, central, evals):
+    """Kernel 7: the walk, then at each live evaluation the weight (1), a
+    multiply-add per channel."""
+    walked, live = evals
+    return walked * (WALK_OPS_EVAL3D + (0 if central else 18)) + live * (1 + 2 * D)
 
 
-def bwd_eval3d_ops_per_eval(D, central):
-    """Kernel 8: the walk, w (1), r_ch (2·D), the prefix (2), 1/(1 − α)
-    and v_alpha (6), the clamp test (1), v_sigma and the opacity term (3),
-    k and coef (4), u = r × c (9), v_r and v_g (6), d M (9, or 27 with the
-    o' terms), v_d (18, and v_o' 18 more), the colours (D), and one add per
-    value into the entry's sums (13 + D)."""
-    walk = WALK_OPS_EVAL3D + (0 if central else 18)
+def bwd_eval3d_ops(D, central, evals):
+    """Kernel 8: the walk, then at each live evaluation w (1), r_ch (2·D),
+    the prefix (2), 1/(1 − α) and v_alpha (6), the clamp test (1), v_sigma
+    and the opacity term (3), k and coef (4), u = r × c (9), v_r and v_g
+    (6), d M (9, or 27 with the o' terms), v_d (18, and v_o' 18 more), the
+    colours (D), and one add per value into the entry's sums (13 + D)."""
+    walked, live = evals
     per_ray = 9 + 18 if central else 27 + 36
-    return walk + 1 + 2 * D + 2 + 6 + 1 + 3 + 4 + 9 + 6 + per_ray + D + 13 + D
+    return (walked * (WALK_OPS_EVAL3D + (0 if central else 18))
+            + live * (1 + 2 * D + 2 + 6 + 1 + 3 + 4 + 9 + 6 + per_ray + D + 13 + D))
 
 
 # H100 SXM published peaks: HBM bytes/s, FP32 (non-tensor) FLOP/s
@@ -261,8 +273,8 @@ def graph_ms(fn, reps):
 
 
 def kernel_work(args, tile_capacity):
-    """(pixel, entry) evaluations, bytes and the least time the card could
-    take for one launch on these inputs."""
+    """(pixel, entry) evaluations (walked, live), bytes and the least time
+    the card could take for one launch on these inputs."""
     means2d, conics, colors, opac, W, H, ts, offsets, ids = args
     D = colors.shape[-1]
     n_images = means2d.numel() // (means2d.shape[-2] * 2)
@@ -279,7 +291,7 @@ def kernel_work(args, tile_capacity):
     # the offsets; colors and alphas written once
     n_bytes = (rows * (6 + D) * 4 + entries * 4 + offsets.numel() * 4
                + n_images * W * H * (D + 1) * 4)
-    n_ops = evals * fwd_ops_per_eval(D)
+    n_ops = fwd_ops(D, evals)
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
     return dict(evaluations=evals, entries=entries, rows=rows, bytes=n_bytes, fp32_ops=n_ops,
                 bound_ms=max(t_bytes, t_ops),
@@ -628,8 +640,8 @@ def measure_train_kernels(inputs, reps=20):
     # [L, 6 + D] rows written once
     bwd_bytes = (fwd["rows"] * (6 + D) * 4 + fwd["entries"] * 4 + offsets.numel() * 4
                  + n_pix * (2 * D + 2) * 4 + L * (6 + D) * 4)
-    bwd_ops = fwd["evaluations"] * bwd_ops_per_eval(D)
-    t_b, t_o = bwd_bytes / PEAK_BYTES * 1e3, bwd_ops / PEAK_FP32 * 1e3
+    n_bwd_ops = bwd_ops(D, fwd["evaluations"])
+    t_b, t_o = bwd_bytes / PEAK_BYTES * 1e3, n_bwd_ops / PEAK_FP32 * 1e3
 
     out = {
         KERNEL: dict(ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd["bound_ms"],
@@ -638,7 +650,7 @@ def measure_train_kernels(inputs, reps=20):
         KERNEL_BWD: dict(ms=bwd_ms, plain_ms=bwd_plain, bound_ms=max(t_b, t_o),
                          bound_by="bytes" if t_b >= t_o else "operations",
                          library_ms=None, evaluations=fwd["evaluations"],
-                         bytes=bwd_bytes, fp32_ops=bwd_ops),
+                         bytes=bwd_bytes, fp32_ops=n_bwd_ops),
         S.KERNEL: measure_segment_sum(rows, ids, offsets, G, reps),
     }
     emit("train_kernels", n_isects=n_isects, stream_slots=L, n_gaussians=G, **out)
@@ -883,13 +895,13 @@ def kernel_work_2dgs(args, tile_capacity, evaluations):
     read = entries * F * 4 + offsets.numel() * 4  # the cut ranges' rows, offsets
     work = {
         R2.KERNEL_FWD: (read + n_pix * (DA + 1) * 4,
-                        evaluations * fwd_2dgs_ops_per_eval(DA, False)),
+                        fwd_2dgs_ops(DA, False, evaluations)),
         R2.KERNEL_TRAIN: (read + n_pix * (DA + 3) * 4,
-                          evaluations * fwd_2dgs_ops_per_eval(DA, True)),
+                          fwd_2dgs_ops(DA, True, evaluations)),
         # the forward's outputs (channels, T, distortion) and their
         # cotangents per pixel; one row per stream slot written
         R2.KERNEL_BWD: (read + n_pix * 2 * (DA + 2) * 4 + rows.shape[0] * F * 4,
-                        evaluations * bwd_2dgs_ops_per_eval(DA)),
+                        bwd_2dgs_ops(DA, evaluations)),
     }
     out = {}
     for name, (n_bytes, n_ops) in work.items():
@@ -937,14 +949,14 @@ def parity_2dgs_inference(name, args, backgrounds, tile_capacity=1024):
         finite = finite and ok
     worst = max(max(e.values()) for e in errs.values())
     emit("parity_2dgs", case=name, tile_capacity=tile_capacity, D=args[3],
-         **stream_stats(args[1], tile_capacity), pixel_entry_evaluations=int(plain[5]),
+         **stream_stats(args[1], tile_capacity), pixel_entry_evaluations=plain[5].tolist(),
          alpha_mean=float((1.0 - plain[2]).mean()), inference_max_abs_err=errs, tol=TOL,
          finite=finite)
     if not finite:
         raise RuntimeError(f"parity_2dgs {name}: non-finite kernel output")
     if not worst <= TOL:
         raise RuntimeError(f"parity_2dgs {name}: kernel 4 {errs} > {TOL}")
-    return dict(fwd=worst, evaluations=int(plain[5]), inputs=args)
+    return dict(fwd=worst, evaluations=plain[5].tolist(), inputs=args)
 
 
 def parity_2dgs(name, geo, tile_capacity, seed):
@@ -974,7 +986,7 @@ def parity_2dgs(name, geo, tile_capacity, seed):
     bwd_rel = {k: _rel(v_rows[:, c], want_rows[:, c]) for k, c in groups.items()}
     finite = fwd_finite and all(bool(torch.isfinite(x).all()) for x in (*train, v_rows))
     emit("parity_2dgs", case=name, tile_capacity=tile_capacity, D=D,
-         **stream_stats(geo[1], tile_capacity), pixel_entry_evaluations=int(evals),
+         **stream_stats(geo[1], tile_capacity), pixel_entry_evaluations=evals.tolist(),
          alpha_mean=float((1.0 - p_T).mean()), inference_max_abs_err=fwd_err,
          train_max_abs_err=train_err, tol=TOL, distortion_max_abs_err=_abs_err(train[3], p_dist),
          distortion_max_rel_err=dist_rel, dist_rtol=DIST_RTOL,
@@ -991,7 +1003,7 @@ def parity_2dgs(name, geo, tile_capacity, seed):
         raise RuntimeError(f"parity_2dgs {name}: backward {bwd_rel} > {BWD_RTOL}")
     return dict(fwd=max(fwd_err.values()), train=max(train_err.values()), dist_rel=dist_rel,
                 median_share=median_share, bwd=_abs_err(v_rows, want_rows),
-                bwd_rel=max(bwd_rel.values()), evaluations=int(evals),
+                bwd_rel=max(bwd_rel.values()), evaluations=evals.tolist(),
                 inputs=(geo, train, cot))
 
 
@@ -1321,7 +1333,7 @@ def parity_eval3d(name, geo, tile_capacity, seed, backgrounds):
     finite = finite and all(bool(torch.isfinite(x).all()) for x in got if x is not None)
     worst = max(max(e.values()) for e in fwd_err.values())
     emit("parity_eval3d", case=name, tile_capacity=tile_capacity, D=D, central=o is None,
-         **stream_stats(offsets, tile_capacity), pixel_entry_evaluations=int(evals),
+         **stream_stats(offsets, tile_capacity), pixel_entry_evaluations=evals.tolist(),
          alpha_mean=float((1.0 - p_T).mean()), fwd_max_abs_err=fwd_err, tol=TOL,
          bwd_max_rel_err=bwd_rel, bwd_rtol=BWD_RTOL,
          bwd_max_abs_err=_abs_err(got[0], want[0]), finite=finite)
@@ -1332,7 +1344,7 @@ def parity_eval3d(name, geo, tile_capacity, seed, backgrounds):
     if not max(bwd_rel.values()) <= BWD_RTOL:
         raise RuntimeError(f"parity_eval3d {name}: backward {bwd_rel} > {BWD_RTOL}")
     return dict(fwd=worst, bwd=_abs_err(got[0], want[0]), bwd_rel=max(bwd_rel.values()),
-                evaluations=int(evals), inputs=(stream, img, T, v_img, v_T))
+                evaluations=evals.tolist(), inputs=(stream, img, T, v_img, v_T))
 
 
 def phase_parity_eval3d(bench, heavy, cap):
@@ -1377,11 +1389,11 @@ def kernel_work_eval3d(geo, tile_capacity, evaluations):
     read = entries * F * 4 + offsets.numel() * 4 + ray_bytes
     work = {
         E.KERNEL_FWD: (read + n_pix * (D + 1) * 4,
-                       evaluations * fwd_eval3d_ops_per_eval(D, central)),
+                       fwd_eval3d_ops(D, central, evaluations)),
         # the forward's colours and T with their cotangents per pixel; one
         # row per stream slot and the ray gradients written
         E.KERNEL_BWD: (read + n_pix * 2 * (D + 1) * 4 + rows.shape[0] * F * 4 + ray_bytes,
-                       evaluations * bwd_eval3d_ops_per_eval(D, central)),
+                       bwd_eval3d_ops(D, central, evaluations)),
     }
     out = {}
     for name, (n_bytes, n_ops) in work.items():
@@ -1590,66 +1602,90 @@ def dense_stats(meta, counts, tile_capacity):
 
 def parity_dense(name, sc, tile_capacity, seed, backgrounds=None, must_cut=False, **kw):
     """Kernels 9 and 10 against their plain versions on one frame's dense
-    rows; the background (if any) blended as the wrapper blends it; random
-    cotangents. Fails above TOL (forward) or BWD_RTOL per gradient group,
-    or, with ``must_cut``, if no tile holds more than ``tile_capacity``
-    entries."""
+    rows (``check_dense``); random cotangents. Fails, with ``must_cut``, if
+    no tile holds more than ``tile_capacity`` entries."""
     render_mode = kw.pop("render_mode", "RGB")
     rows, counts, meta = kernel_inputs_dense(sc, tile_capacity, render_mode, **kw)
     stats = dense_stats(meta, counts, tile_capacity)
-    D = rows.shape[-1] - RP.GEOM_COLS
     geo = (1, WIDTH, HEIGHT, 16)
     img, trans = RP.rasterize_dense_fwd(rows, counts, *geo)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    v_img = torch.randn(img.shape, generator=g, device=DEVICE)
+    v_t = torch.randn(trans.shape, generator=g, device=DEVICE)
+    out = check_dense(name, (rows, counts, geo, img, trans, v_img, v_t), backgrounds,
+                      tile_capacity=tile_capacity, **stats)
+    if must_cut and not stats["tiles_cut"]:
+        raise RuntimeError(f"parity_dense {name}: no tile is cut at {tile_capacity}")
+    return out
+
+
+def check_dense(name, inputs, backgrounds=None, **fields):
+    """Kernel 9's outputs and kernel 10's gradient rows on ``inputs`` (rows,
+    counts, geometry, kernel 9's colours and T, their cotangents) against
+    the plain versions, with the background (if any) blended as the wrapper
+    blends it, and the blocks a tile the wrappers launched. Fails above TOL
+    (forward) or BWD_RTOL per gradient group, on a non-finite output, or if
+    a second launch of kernel 9 differs from the first in a bit."""
+    rows, counts, geo, img, trans, v_img, v_t = inputs
+    D = rows.shape[-1] - RP.GEOM_COLS
+    again = RP.rasterize_dense_fwd(rows, counts, *geo)
+    blocks = dict(fwd=RP.BLOCKS_A_TILE[RP.KERNEL_FWD])
+    repeat_bitwise = torch.equal(again[0], img) and torch.equal(again[1], trans)
     img_p, trans_p = RP.rasterize_dense_fwd_plain(rows, counts, *geo)
     fwd = dict(colors=_abs_err(img, img_p), transmittance=_abs_err(trans, trans_p))
     if backgrounds is not None:
         bg = backgrounds.reshape(1, 1, 1, D)
         fwd["with_background"] = _abs_err(img + trans[..., None] * bg,
                                           img_p + trans_p[..., None] * bg)
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    v_img = torch.randn(img.shape, generator=g, device=DEVICE)
-    v_t = torch.randn(trans.shape, generator=g, device=DEVICE)
     v_rows = RP.rasterize_dense_bwd(rows, counts, *geo, img, trans, v_img, v_t)
+    blocks["bwd"] = RP.BLOCKS_A_TILE[RP.KERNEL_BWD]
     want = RP.rasterize_dense_bwd_plain(rows, counts, *geo, img, trans, v_img, v_t)
     torch.cuda.synchronize()
     bwd_rel = {k: _rel(v_rows[..., c], want[..., c]) for k, c in GROUPS.items()}
     finite = all(bool(torch.isfinite(x).all()) for x in (img, trans, v_rows))
-    emit("parity_dense", case=name, tile_capacity=tile_capacity, D=D,
-         **stats, alpha_mean=float((1 - trans_p).mean()),
+    emit("parity_dense", case=name, D=D, **fields, alpha_mean=float((1 - trans_p).mean()),
+         blocks_a_tile=blocks, fwd_repeat_bitwise=repeat_bitwise,
          fwd_max_abs_err=fwd, tol=TOL, bwd_max_rel_err=bwd_rel, bwd_rtol=BWD_RTOL,
          bwd_max_abs_err=_abs_err(v_rows, want), finite=finite)
     if not finite:
         raise RuntimeError(f"parity_dense {name}: non-finite kernel output")
-    if must_cut and not stats["tiles_cut"]:
-        raise RuntimeError(f"parity_dense {name}: no tile is cut at {tile_capacity}")
+    if not repeat_bitwise:
+        raise RuntimeError(f"parity_dense {name}: two launches of kernel 9 differ")
     if not max(fwd.values()) <= TOL:
         raise RuntimeError(f"parity_dense {name}: forward {fwd} > {TOL}")
     if not max(bwd_rel.values()) <= BWD_RTOL:
         raise RuntimeError(f"parity_dense {name}: backward {bwd_rel} > {BWD_RTOL}")
     return dict(fwd=max(fwd.values()), bwd=_abs_err(v_rows, want),
-                bwd_rel=max(bwd_rel.values()),
-                inputs=(rows, counts, geo, img, trans, v_img, v_t))
+                bwd_rel=max(bwd_rel.values()), inputs=inputs)
 
 
 def phase_parity_dense(bench, heavy, cap):
     """Kernels 9 and 10 at the bench frame's dense shapes (200k gaussians,
     K = 16, ``cap`` from derive_isect_capacity, tile_capacity 1024): "RGB"
-    with a background and "RGB+ED" (D = 4); and on a truncating case (60k
-    large gaussians, tile_capacity = 128)."""
+    with a background and "RGB+ED" (D = 4); on a truncating case (60k
+    large gaussians, tile_capacity = 128); and at the image-fitting
+    example's first step (64 tiles, the one shape here at which the
+    wrappers cut each tile into several blocks)."""
     bg = torch.tensor([0.3, 0.5, 0.7], device=DEVICE)
     kw = dict(max_tiles_per_gauss=16, isect_capacity=cap)
     a = parity_dense("a_bench_rgb_background", bench, 1024, 5, backgrounds=bg, **kw)
     b = parity_dense("b_bench_rgb_ed", bench, 1024, 6, render_mode="RGB+ED", **kw)
     c = parity_dense("c_heavy_overlap_truncated", heavy, 128, 7, must_cut=True,
                      max_tiles_per_gauss=32, isect_capacity=dense_capacity(heavy, 32))
-    return {k: max(x[k] for x in (a, b, c)) for k in ("fwd", "bwd", "bwd_rel")}, a
+    fitting = kernel_inputs_fitting()
+    d = check_dense("d_image_fitting", fitting, tile_capacity=fitting[0].shape[1],
+                    valid_slots=int(fitting[1].sum()))
+    return {k: max(x[k] for x in (a, b, c, d)) for k in ("fwd", "bwd", "bwd_rel")}, a, d
 
 
 def dense_kernel_times(inputs, reps=20):
     """Times of kernels 9 and 10 on one frame's dense inputs (rows [T, cap,
     6 + D], counts, geometry, the forward's outputs and their cotangents),
-    with their plain versions' and their bounds. No PyTorch call composites
-    a tile's slots, so there is no library yardstick."""
+    by CUDA events (``ms``) and by CUDA graph replay (``device_graph_ms``:
+    without the host's time to make each call, which nears the kernels' at
+    image fitting's shape), with their plain versions' and their bounds. No
+    PyTorch call composites a tile's slots, so there is no library
+    yardstick."""
     rows, counts, geo, img, trans, v_img, v_t = inputs
     T, cap, F = rows.shape
     D = F - RP.GEOM_COLS
@@ -1660,10 +1696,9 @@ def dense_kernel_times(inputs, reps=20):
     # forward's colours and T with their cotangents (backward); outputs
     # written once: the image and T, or every [T, cap, F] gradient row
     work = {
-        RP.KERNEL_FWD: (valid * F * 4 + T * 4 + n_pix * (D + 1) * 4,
-                        evals * fwd_ops_per_eval(D)),
+        RP.KERNEL_FWD: (valid * F * 4 + T * 4 + n_pix * (D + 1) * 4, fwd_ops(D, evals)),
         RP.KERNEL_BWD: (valid * F * 4 + T * 4 + n_pix * (2 * D + 2) * 4 + T * cap * F * 4,
-                        evals * bwd_ops_per_eval(D)),
+                        bwd_ops(D, evals)),
     }
     calls = {
         RP.KERNEL_FWD: (lambda: RP.rasterize_dense_fwd(rows, counts, *geo),
@@ -1677,7 +1712,8 @@ def dense_kernel_times(inputs, reps=20):
     for name, (kernel, plain) in calls.items():
         n_bytes, n_ops = work[name]
         t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
-        out[name] = dict(ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 2),
+        out[name] = dict(ms=time_ms(kernel, reps), device_graph_ms=graph_ms(kernel, reps),
+                         blocks_a_tile=RP.BLOCKS_A_TILE[name], plain_ms=time_ms(plain, 2),
                          library_ms=None, bound_ms=max(t_b, t_o),
                          bound_by="bytes" if t_b >= t_o else "operations", bytes=n_bytes,
                          fp32_ops=n_ops, evaluations=evals, valid_slots=valid,
@@ -1714,12 +1750,12 @@ def kernel_inputs_fitting(seed=9):
     return rows, counts, geo, img, trans, v_img, v_t
 
 
-def measure_kernels_dense(a, reps=20):
+def measure_kernels_dense(a, d, reps=20):
     """Times of kernels 9 and 10 at the bench frame's dense shapes ("RGB",
-    tile_capacity 1024) and, as their second shape, at the image-fitting
-    example's (``image_fitting``)."""
+    tile_capacity 1024; parity_dense's case a) and, as their second shape,
+    at the image-fitting example's (``image_fitting``; case d)."""
     out = dense_kernel_times(a["inputs"], reps)
-    fitting = dense_kernel_times(kernel_inputs_fitting(), reps)
+    fitting = dense_kernel_times(d["inputs"], reps)
     emit("kernels_dense", **out, image_fitting=fitting)
     return out, fitting
 
@@ -1848,7 +1884,7 @@ def main():
         phase_cli_3dgut(root)
 
         cap_dense = dense_capacity(bench)
-        errs_dense, par_dense = phase_parity_dense(bench, heavy, cap_dense)
+        errs_dense, par_dense, par_fitting = phase_parity_dense(bench, heavy, cap_dense)
         render_dense_launches = phase_bench_render_pallas(bench, cap_dense)
         train_dense_launches = phase_render_train(bench, cap_dense, rasterizer="pallas")
         trainer_dense_launches, _ = phase_trainer(root, scene_s, rasterizer="pallas")
@@ -1856,9 +1892,11 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     k_eval3d, seg_eval3d = measure_kernels_eval3d(par_e3)
-    k_dense, k_fitting = measure_kernels_dense(par_dense)
+    k_dense, k_fitting = measure_kernels_dense(par_dense, par_fitting)
     timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed), **k_eval3d, **k_dense)
-    fitting_shape = {name: {f"image_fitting_{k}": t[k] for k in ("ms", "plain_ms", "bound_ms")}
+    fitting_shape = {name: {f"image_fitting_{k}": t[k]
+                            for k in ("ms", "device_graph_ms", "plain_ms", "bound_ms",
+                                      "blocks_a_tile")}
                      for name, t in k_fitting.items()}
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
@@ -1929,7 +1967,8 @@ def main():
         RP.KERNEL_FWD: ("rasterize_dense_fwd.cu", "tdgs/ops/rasterize_pallas.py:99",
                         train_dense_launches[RP.KERNEL_FWD],
                         dict(max_abs_err=errs_dense["fwd"], abs_tol=TOL),
-                        dict(bench_render_launches=render_dense_launches,
+                        dict(device_graph_ms=timings[RP.KERNEL_FWD]["device_graph_ms"],
+                             bench_render_launches=render_dense_launches,
                              trainer_launches=trainer_dense_launches[RP.KERNEL_FWD],
                              image_fitting_launches=fitting_launches[RP.KERNEL_FWD],
                              **fitting_shape[RP.KERNEL_FWD])),
@@ -1937,7 +1976,8 @@ def main():
                         train_dense_launches[RP.KERNEL_BWD],
                         dict(max_abs_err=errs_dense["bwd"], max_rel_err=errs_dense["bwd_rel"],
                              rtol=BWD_RTOL),
-                        dict(trainer_launches=trainer_dense_launches[RP.KERNEL_BWD],
+                        dict(device_graph_ms=timings[RP.KERNEL_BWD]["device_graph_ms"],
+                             trainer_launches=trainer_dense_launches[RP.KERNEL_BWD],
                              image_fitting_launches=fitting_launches[RP.KERNEL_BWD],
                              **fitting_shape[RP.KERNEL_BWD])),
     }

@@ -1,5 +1,5 @@
 // Asynchronous copies from device memory into shared memory (cp.async,
-// sm_80 and later), with which the backward kernels 2 and 6 load their
+// sm_80 and later), with which kernels 2, 6, 9 and 10 load their
 // next batch of entries while the block walks the current one. A copy
 // lands in shared memory once the thread that started it has waited for
 // its group and the block has passed a barrier.

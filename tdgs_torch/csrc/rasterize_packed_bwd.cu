@@ -39,7 +39,8 @@
 // Entries come in batches of 32, gathered through flatten_ids into shared
 // memory (no packed copy of the stream exists), an entry's geometry as two
 // float4s (mx, my, a, b; c, op) and its colours padded to whole float4s,
-// so that a pixel reads them in 16-byte broadcasts. The whole block
+// so that a pixel reads them in 16-byte broadcasts (row_stage.cuh, shared
+// with kernels 9 and 10). The whole block
 // gathers, asynchronously and double-buffered: while the current batch is
 // walked, each thread starts the copies (cp.async, async_copy.cuh) of one
 // lane's entry's fields of the next batch, the entry's gaussian id loaded a
@@ -79,6 +80,7 @@
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "row_stage.cuh"
 #include "warp_reduce.cuh"
 
 namespace {
@@ -88,10 +90,7 @@ using tdgswarp::kFullMask;
 constexpr float kAlphaClamp = 0.999f;
 constexpr float kAlphaThreshold = 1.0f / 255.0f;
 constexpr float kTransmittanceEps = 1e-4f;
-constexpr int kBatch = 32;
-
-// a colour row's stride in shared memory: D floats padded to whole float4s
-__host__ __device__ constexpr int padded(int D) { return (D + 3) & ~3; }
+using tdgsstage::kBatch;
 
 // CMAX: the colour bound (D <= CMAX). HALF_ROWS: each half-warp is one
 // pixel row (tile rows of 16 or 32 pixels), so dy is one value per half-warp
@@ -117,11 +116,10 @@ __global__ void rasterize_packed_bwd_kernel(
   constexpr int NQ = (CMAX + 3) / 4;  // float4s of colours
   extern __shared__ float4 smem4[];
   const int F = 6 + D;
-  const int DP = padded(D);
+  const int DP = tdgsstage::padded(D);
   const int n_warps = blockDim.x >> 5;
-  // two batches of [kBatch, 8] geometry (mx, my, a, b, c, op, 2 unused)
-  // and [kBatch, DP] colours, then the warps' partial rows
-  const int BS = kBatch * (8 + DP);
+  // two batches, then the warps' partial rows
+  const int BS = tdgsstage::batch_floats(D);
   float* s_batches = reinterpret_cast<float*>(smem4);  // [2, BS]
   float* s_part = s_batches + 2 * BS;                   // [n_warps, kBatch, F]
 
@@ -182,18 +180,13 @@ __global__ void rasterize_packed_bwd_kernel(
     return from + lane < count ? flatten_ids[start + from + lane] : -1;
   };
   const auto stage = [&](int g, float* dst) {
-    if (g >= 0) {
-      const int64_t g64 = g;
-      for (int f = warp; f < 6 + D; f += n_warps) {
-        const float* src = f < 2   ? means2d + 2 * g64 + f
-                           : f < 5 ? conics + 3 * g64 + (f - 2)
-                           : f < 6 ? opacities + g64
-                                   : colors + g64 * D + (f - 6);
-        tdgsasync::copy_4(f < 6 ? dst + 8 * lane + f : dst + 8 * kBatch + lane * DP + (f - 6),
-                          src);
-      }
-    }
-    tdgsasync::commit();
+    const int64_t g64 = g;
+    tdgsstage::stage(dst, g >= 0, lane, warp, n_warps, D, [&](int f) {
+      return f < 2   ? means2d + 2 * g64 + f
+             : f < 5 ? conics + 3 * g64 + (f - 2)
+             : f < 6 ? opacities + g64
+                     : colors + g64 * D + (f - 6);
+    });
   };
   if (count > 0) stage(gaussian(0), s_batches);
   int g_next = gaussian(kBatch);
@@ -211,8 +204,8 @@ __global__ void rasterize_packed_bwd_kernel(
     }
     tdgsasync::wait<1>();
     __syncthreads();
-    const float4* s_geo = reinterpret_cast<const float4*>(s_batches + buf * BS);
-    const float* s_col = s_batches + buf * BS + 8 * kBatch;
+    const float4* s_geo = tdgsstage::geometry(s_batches + buf * BS);
+    const float* s_col = tdgsstage::colours(s_batches + buf * BS);
 
     for (int k = 0; k < n; ++k) {
       float* part = s_part + (warp * kBatch + k) * F;
@@ -366,7 +359,8 @@ cudaError_t launch(const float* means2d, const float* conics,
   const int block = tile_size * tile_size;
   const int F = 6 + D;
   const size_t smem =
-      static_cast<size_t>(kBatch) * (2 * (8 + padded(D)) + (block / 32) * F) * sizeof(float);
+      (static_cast<size_t>(2) * tdgsstage::batch_floats(D) + kBatch * (block / 32) * F) *
+      sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         rasterize_packed_bwd_kernel<CMAX, HALF_ROWS>,

@@ -111,7 +111,7 @@ def rasterize_2dgs_fwd_plain(
     """The plain version of kernels 4 and 5 on stream-order ``rows``
     [L, 12 + D + 3]. Returns (colors [I, H, W, D] without background,
     normals [I, H, W, 3], T [I, H, W], distortion [I, H, W], median depth
-    [I, H, W], (pixel, entry) evaluations of a walk with early exit)."""
+    [I, H, W], ``walked_evaluations`` summed over the tiles)."""
     I = n_images
     tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
     device = rows.device
@@ -122,7 +122,7 @@ def rasterize_2dgs_fwd_plain(
     out_T = torch.ones((T_total, P, 1), dtype=torch.float32, device=device)
     dist = torch.zeros((T_total, P, 1), dtype=torch.float32, device=device)
     med = torch.zeros((T_total, P, 1), dtype=torch.float32, device=device)
-    n_evals = torch.zeros((), dtype=torch.int64, device=device)
+    n_evals = torch.zeros(2, dtype=torch.int64, device=device)
     for c in _plain_walk(I, image_width, image_height, tile_size, offsets, None,
                          tile_capacity, budget, _response_2dgs(rows)):
         alpha, included = c.alpha, c.included

@@ -178,15 +178,15 @@ def rasterize_eval3d_fwd_plain(rows, d, o, offsets, n_images, D, image_width,
                                image_height, tile_size, tile_capacity=1024,
                                budget=1 << 22):
     """The plain version of kernel 7 on stream-order ``rows`` [L, 13 + D].
-    Returns (colors [I, H, W, D] without background, T [I, H, W], (pixel,
-    entry) evaluations of a walk with per-pixel early exit)."""
+    Returns (colors [I, H, W, D] without background, T [I, H, W],
+    ``walked_evaluations`` summed over the tiles)."""
     I = n_images
     tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
     device = rows.device
     P = tile_size * tile_size
     acc = torch.zeros((I * tw * th, P, D), dtype=torch.float32, device=device)
     out_T = torch.ones((I * tw * th, P, 1), dtype=torch.float32, device=device)
-    n_evals = torch.zeros((), dtype=torch.int64, device=device)
+    n_evals = torch.zeros(2, dtype=torch.int64, device=device)
     for c in _plain_walk(I, image_width, image_height, tile_size, offsets, None,
                          tile_capacity, budget, _response_eval3d(rows, d, o)):
         w = torch.where(c.included, c.alpha * c.T_prev, torch.zeros_like(c.alpha))

@@ -141,13 +141,17 @@ def _response_3dgs(means2d, conics, opacities):
 
 
 def walked_evaluations(c: _Chunk, image_width: int, image_height: int) -> torch.Tensor:
-    """(pixel, entry) evaluations a front-to-back walk with per-pixel early
-    exit makes over chunk ``c``: every included entry plus the one that ends
-    it, for the pixels inside the image."""
+    """[2]: the (pixel, entry) evaluations a front-to-back walk with
+    per-pixel early exit makes over chunk ``c`` (every included entry plus
+    the one that ends it), and the live ones among them (included and past
+    the σ and 1/255 tests: the only ones that reach the colours or the
+    gradients), for the pixels inside the image."""
     n_incl = (c.included & c.valid[:, None, :]).sum(-1)  # [n, P]
     walked = torch.minimum(n_incl + 1, c.cnt[:, None])
+    n_live = (c.included & ~c.skip).sum(-1)
     inside = (c.px < image_width) & (c.py < image_height)
-    return torch.where(inside, walked, torch.zeros_like(walked)).sum()
+    return torch.stack([torch.where(inside, x, torch.zeros_like(x)).sum()
+                        for x in (walked, n_live)])
 
 
 def untile(x, I, tw, th, tile_size, image_height, image_width):
@@ -163,7 +167,7 @@ def _plain_composite(
     offsets, flatten_ids, tile_capacity, budget=1 << 24,
 ):
     """Composite every tile; returns (colors [I, H, W, D], T [I, H, W],
-    (pixel, entry) evaluations a front-to-back walk with early exit makes)."""
+    ``walked_evaluations`` summed over the tiles)."""
     _, I, N, D, _, _ = _dims(means2d, colors, image_width, image_height, tile_size)
     walk = _plain_walk(I, image_width, image_height, tile_size, offsets, flatten_ids,
                        tile_capacity, budget, _response_3dgs(means2d, conics, opacities))
@@ -173,15 +177,15 @@ def _plain_composite(
 
 def composite_walk(walk, col, n_images, image_width, image_height, tile_size):
     """The 3DGS plain forward over a plain walk whose entries' colours are
-    ``col[ids]``: (colors [I, H, W, D], T [I, H, W], (pixel, entry)
-    evaluations of a front-to-back walk with early exit)."""
+    ``col[ids]``: (colors [I, H, W, D], T [I, H, W], ``walked_evaluations``
+    summed over the tiles)."""
     tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
     device = col.device
     P = tile_size * tile_size
     T_total = n_images * tw * th
     out_c = torch.zeros((T_total, P, col.shape[1]), dtype=torch.float32, device=device)
     out_T = torch.ones((T_total, P, 1), dtype=torch.float32, device=device)
-    n_evals = torch.zeros((), dtype=torch.int64, device=device)
+    n_evals = torch.zeros(2, dtype=torch.int64, device=device)
     for c in walk:
         alpha, included = c.alpha, c.included
         w = torch.where(included, alpha * c.T_prev, torch.zeros_like(alpha))
@@ -231,13 +235,15 @@ def rasterize_to_pixels_packed_inference_plain(
 def pixel_entry_evaluations(
     means2d, conics, colors, opacities, image_width, image_height, tile_size,
     offsets, flatten_ids, tile_capacity: int = 1024,
-) -> int:
+) -> Tuple[int, int]:
     """(pixel, entry) evaluations a front-to-back walk with per-pixel early
-    exit needs on these inputs: the work count behind the kernel's bound."""
-    return int(_plain_composite(
+    exit needs on these inputs, and the live ones among them
+    (``walked_evaluations``): the work counts behind the kernels' bounds."""
+    walked, live = _plain_composite(
         means2d, conics, colors, opacities, image_width, image_height,
         tile_size, offsets, flatten_ids, tile_capacity,
-    )[2])
+    )[2].tolist()
+    return walked, live
 
 
 def _check(name, t, dtype, device, shape=None):

@@ -18,6 +18,11 @@ PyTorch versions below for CPU tensors, behind an autograd Function:
   ``_bwd_kernel`` :168): per (tile, slot) the gradient row, summed over
   the tile's pixels; zero for slots past the tile's count or cutoff.
 
+Where tiles are few (image fitting's 64), each tile goes to several blocks
+(``split_count``, from the card's SM count): kernel 9 splits its pixels'
+warps among them, kernel 10 its slots into ranges. The outputs are bitwise
+those of one block a tile.
+
 The background is blended outside the kernels, as the JAX function blends
 it, so its gradient reaches T through autograd. The layout inside differs
 from the TPU's [tiles, features, capacity] blocks: rows are slot-major and
@@ -49,6 +54,9 @@ KERNEL_BWD = "rasterize_dense_bwd"  # kernel 10
 CHUNK = 128
 MAX_CHANNELS = 32
 GEOM_COLS = 6  # mx, my, a, b, c, opacity
+MAX_RANGES = 8  # kernel 10: the most blocks a tile's slots are cut into
+# kernel name -> the blocks a tile of its last launch
+BLOCKS_A_TILE = {}
 
 
 def dense_rows(means2d, conics, colors, opacities, isect_offsets, flatten_ids, n_isects,
@@ -88,13 +96,16 @@ def rasterize_dense_fwd_plain(rows, counts, n_images, image_width, image_height,
     return img, trans
 
 
-def dense_evaluations(rows, counts, n_images, image_width, image_height, tile_size) -> int:
+def dense_evaluations(rows, counts, n_images, image_width, image_height,
+                      tile_size) -> Tuple[int, int]:
     """(pixel, slot) evaluations a front-to-back walk with per-pixel early
-    exit makes on these inputs: the work count behind the kernels' bounds."""
+    exit makes on these inputs, and the live ones among them
+    (``walked_evaluations``): the work counts behind the kernels' bounds."""
     flat, walk = _dense_walk(rows, counts, n_images, image_width, image_height,
                              tile_size, 1 << 24)
-    return int(composite_walk(walk, flat[:, GEOM_COLS:], n_images, image_width,
-                              image_height, tile_size)[2])
+    walked, live = composite_walk(walk, flat[:, GEOM_COLS:], n_images, image_width,
+                                  image_height, tile_size)[2].tolist()
+    return walked, live
 
 
 def rasterize_dense_bwd_plain(rows, counts, n_images, image_width, image_height,
@@ -132,6 +143,18 @@ def _check_rows(rows, counts, n_images, image_width, image_height, tile_size):
     return T, cap, D
 
 
+def split_count(n_tiles, device, most):
+    """The blocks that share each tile in kernels 9 and 10: the largest power
+    of two up to ``most`` that keeps the launch within two blocks per SM of
+    the card (1 wherever tiles are many: 8,160 at 1080p; 4 at image
+    fitting's 64 on a card of 132 SMs)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    s = 1
+    while 2 * s <= most and 2 * s * n_tiles <= 2 * sms:
+        s *= 2
+    return s
+
+
 def rasterize_dense_fwd(rows, counts, n_images, image_width, image_height, tile_size):
     """Forward → (colors [I, H, W, D] without background, T [I, H, W]).
     CUDA tensors launch kernel 9 (or raise); CPU tensors take the plain
@@ -139,13 +162,26 @@ def rasterize_dense_fwd(rows, counts, n_images, image_width, image_height, tile_
     if _device_kind(rows) == "cpu":
         return rasterize_dense_fwd_plain(rows, counts, n_images, image_width,
                                          image_height, tile_size)
-    _, cap, D = _check_rows(rows, counts, n_images, image_width, image_height, tile_size)
+    return _launch_dense_fwd(rows, counts, n_images, image_width, image_height, tile_size)
+
+
+def _launch_dense_fwd(rows, counts, n_images, image_width, image_height, tile_size,
+                      n_split=None):
+    """Kernel 9 on CUDA tensors, its tiles' warps in ``n_split`` blocks each
+    (default ``split_count``; the output does not depend on it)."""
+    T, cap, D = _check_rows(rows, counts, n_images, image_width, image_height, tile_size)
+    warps = tile_size * tile_size // 32
+    if n_split is None:
+        n_split = split_count(T, rows.device, warps)
+    if n_split < 1 or warps % n_split:
+        raise ValueError(f"n_split {n_split}: must divide the {warps} warps of a tile")
     out_c = torch.empty((n_images, image_height, image_width, D), dtype=torch.float32,
                         device=rows.device)
     out_t = torch.empty((n_images, image_height, image_width), dtype=torch.float32,
                         device=rows.device)
-    _launch(_build.entry(KERNEL_FWD, 4, 6), KERNEL_FWD, rows, counts, out_c, out_t, n_images,
-            image_width, image_height, tile_size, D, cap)
+    _launch(_build.entry(KERNEL_FWD, 4, 7), KERNEL_FWD, rows, counts, out_c, out_t, n_images,
+            image_width, image_height, tile_size, D, cap, n_split)
+    BLOCKS_A_TILE[KERNEL_FWD] = n_split
     return out_c, out_t
 
 
@@ -157,6 +193,14 @@ def rasterize_dense_bwd(rows, counts, n_images, image_width, image_height, tile_
         return rasterize_dense_bwd_plain(rows, counts, n_images, image_width,
                                          image_height, tile_size, out_colors, out_T,
                                          v_colors, v_T)
+    return _launch_dense_bwd(rows, counts, n_images, image_width, image_height, tile_size,
+                             out_colors, out_T, v_colors, v_T)
+
+
+def _launch_dense_bwd(rows, counts, n_images, image_width, image_height, tile_size,
+                      out_colors, out_T, v_colors, v_T, n_split=None):
+    """Kernel 10 on CUDA tensors, each tile's slots in ``n_split`` ranges of
+    one block each (default ``split_count``; the rows do not depend on it)."""
     T, cap, D = _check_rows(rows, counts, n_images, image_width, image_height, tile_size)
     H, W = image_height, image_width
     for name, t, shape in (("out_colors", out_colors, (n_images, H, W, D)),
@@ -164,9 +208,14 @@ def rasterize_dense_bwd(rows, counts, n_images, image_width, image_height, tile_
                            ("v_colors", v_colors, (n_images, H, W, D)),
                            ("v_T", v_T, (n_images, H, W))):
         _check(name, t, torch.float32, rows.device, shape)
+    if n_split is None:
+        n_split = split_count(T, rows.device, MAX_RANGES)
+    if n_split < 1:
+        raise ValueError(f"n_split {n_split}: at least one block a tile")
     v_rows = torch.empty_like(rows)
-    _launch(_build.entry(KERNEL_BWD, 7, 6), KERNEL_BWD, rows, counts, out_colors, out_T,
-            v_colors, v_T, v_rows, n_images, W, H, tile_size, D, cap)
+    _launch(_build.entry(KERNEL_BWD, 7, 7), KERNEL_BWD, rows, counts, out_colors, out_T,
+            v_colors, v_T, v_rows, n_images, W, H, tile_size, D, cap, n_split)
+    BLOCKS_A_TILE[KERNEL_BWD] = n_split
     return v_rows
 
 

@@ -22,7 +22,8 @@ scale and median depth, a selected entry, allowed to differ in 1% of the
 pixels (the plain version's cumprod on the card rounds its running
 product differently at the 1e-4 cutoff). The eval3d kernels are held as
 kernels 1 and 2 are, the ray gradients per group like the rows; the
-tile-dense kernels as kernels 1 and 2 are.
+tile-dense kernels as kernels 1 and 2 are, and their launches cut into
+several blocks a tile bit for bit as one block a tile.
 """
 
 import numpy as np
@@ -590,7 +591,7 @@ def test_eval3d_autograd_on_card_matches_cpu(cuda_device, rolling_shutter):
         assert _rel_err(g, w) <= 1e-3, name
 
 
-def _dense_stream(seed, D, n_images=1, N=300, tile_capacity=128):
+def _dense_stream(seed, D, n_images=1, N=300, tile_capacity=128, tile_size=16):
     """Random screen-space gaussians through the dense tiling and the
     per-tile gather, on the CPU: (rows [T, cap, 6 + D], counts, inputs)."""
     from tdgs_torch.ops.rasterize_pallas import dense_rows
@@ -598,6 +599,7 @@ def _dense_stream(seed, D, n_images=1, N=300, tile_capacity=128):
 
     rng = np.random.default_rng(seed)
     I = n_images
+    tw, th = -(-W // tile_size), -(-H // tile_size)
     means2d = rng.uniform(0, [W, H], size=(I, N, 2)).astype(np.float32)
     A = rng.normal(size=(I, N, 2, 2)).astype(np.float32)
     cov = A @ np.swapaxes(A, -1, -2) + 2.0 * np.eye(2, dtype=np.float32)
@@ -607,9 +609,9 @@ def _dense_stream(seed, D, n_images=1, N=300, tile_capacity=128):
         [cov[..., 0, 0], cov[..., 1, 1]], -1))), 10).astype(np.int32)
     depths = rng.uniform(0.1, 10, size=(I, N)).astype(np.float32)
     isect = isect_tiles(torch.from_numpy(means2d), torch.from_numpy(radii),
-                        torch.from_numpy(depths), 16, 3, 3, capacity=I * N * 9,
-                        max_tiles_per_gauss=16)
-    offsets = isect_offset_encode(isect.isect_keys, I, 3, 3)
+                        torch.from_numpy(depths), tile_size, tw, th, capacity=I * N * tw * th,
+                        max_tiles_per_gauss=tw * th)
+    offsets = isect_offset_encode(isect.isect_keys, I, tw, th)
     inputs = [torch.from_numpy(x) for x in (
         means2d, conics, rng.uniform(0, 1, size=(I, N, D)).astype(np.float32),
         rng.uniform(0.05, 0.95, size=(I, N)).astype(np.float32))]
@@ -734,6 +736,151 @@ def test_jax_rasterizer_on_card_matches_cpu(cuda_device):
                           grads[str(cuda_device)], grads["cpu"]):
         assert float(w.abs().max()) > 0, name
         assert _rel_err(g, w) <= 1e-3, name
+
+
+def _dense_both(RP, rows, counts, geo, seed):
+    """Kernels 9 and 10 twice each and their plain versions on one set of
+    rows: the forward (colours, T), the gradient rows for random
+    cotangents."""
+    fwd = [RP.rasterize_dense_fwd(rows, counts, *geo) for _ in range(2)]
+    fwd_p = RP.rasterize_dense_fwd_plain(rows, counts, *geo)
+    img, trans = fwd[0]
+    rng = np.random.default_rng(seed)
+    v_img, v_t = (torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32))
+                  .to(x.device) for x in (img, trans))
+    bwd = [RP.rasterize_dense_bwd(rows, counts, *geo, img, trans, v_img, v_t)
+           for _ in range(2)]
+    bwd_p = RP.rasterize_dense_bwd_plain(rows, counts, *geo, img, trans, v_img, v_t)
+    torch.cuda.synchronize()
+    return fwd, fwd_p, bwd, bwd_p, (img, trans, v_img, v_t)
+
+
+def _assert_dense(fwd, fwd_p, bwd, bwd_p, counts):
+    """Both launches bit for bit equal; the forward within ATOL of the plain
+    version, each gradient group within 1e-3 of its scale; the gradient rows
+    past each tile's count exactly zero."""
+    for a, b in zip(*fwd):
+        assert torch.equal(a, b)
+    for g, w in zip(fwd[0], fwd_p):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    first, second = bwd
+    assert torch.equal(first, second)
+    assert first.shape == bwd_p.shape and bool(torch.isfinite(first).all())
+    for name, cols in GROUPS.items():
+        assert _rel_err(first[..., cols], bwd_p[..., cols]) <= 1e-3, name
+    slot = torch.arange(first.shape[1], device=first.device)
+    past = slot[None, :] >= counts[:, None].long()
+    if bool(past.any()):
+        assert float(first[past].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+# kernel 10 reduces 6 + D = 7, 9, 10 values over 16 lanes, 22 over 32 and
+# 38 over 64; 8-pixel tiles make 64-thread blocks
+@pytest.mark.parametrize("D,tile_size", [(1, 16), (3, 16), (4, 16), (16, 16), (32, 16), (3, 8)])
+def test_dense_kernels_are_bitwise_repeatable_on_card(cuda_device, D, tile_size):
+    from tdgs_torch.ops import rasterize_pallas as RP
+
+    rows, counts, _, _, _ = _dense_stream(240 + D, D, tile_size=tile_size)
+    rows, counts = rows.to(cuda_device), counts.to(cuda_device)
+    fwd, fwd_p, bwd, bwd_p, _ = _dense_both(RP, rows, counts, (1, W, H, tile_size), D)
+    assert float(bwd[0].abs().max()) > 0
+    _assert_dense(fwd, fwd_p, bwd, bwd_p, counts)
+
+
+DENSE_LAYOUTS = ["tiles_of_0_1_31_32_33_entries", "tile_cut_at_capacity_128",
+                 "tile_count_equals_capacity_256", "every_pixel_cut_off_in_the_first_batch",
+                 "dead_warps_beside_a_live_one"]
+
+
+def _dense_layout_rows(name, rng, D=3):
+    """Rows [6, cap, 6 + D] and counts for the 3 x 2 tiles of LW x LH from
+    ``_bwd_layout``'s entries: each a gaussian of the entry's size with a
+    random covariance; slots past a tile's count hold random rows, which
+    the kernels must never read."""
+    layout = {"tile_cut_at_capacity_128": "tile_truncated_at_128",
+              "tile_count_equals_capacity_256": "tiles_of_0_1_31_32_33_entries"}.get(name, name)
+    tiles, _ = _bwd_layout(layout, rng)
+    cap = 128
+    if name == "tile_count_equals_capacity_256":
+        cap = 256
+        tiles[2] = np.stack([32 + rng.uniform(-4, 20, cap), rng.uniform(-4, 20, cap),
+                             rng.uniform(1.0, 6.0, cap), rng.uniform(0.02, 0.2, cap)], -1)
+    rows = rng.normal(size=(len(tiles), cap, 6 + D)).astype(np.float32)
+    counts = np.zeros(len(tiles), np.int32)
+    for t, ent in enumerate(tiles):
+        ent = ent[:cap]  # the gather keeps a tile's first cap entries
+        counts[t] = len(ent)
+        for k, (cx, cy, size, op) in enumerate(ent):
+            B = rng.normal(size=(2, 2))
+            cov = size ** 2 * (B @ B.T / np.trace(B @ B.T) * 2 + 0.1 * np.eye(2))
+            inv = np.linalg.inv(cov)
+            rows[t, k, :6] = [cx, cy, inv[0, 0], inv[0, 1], inv[1, 1], op]
+            rows[t, k, 6:] = rng.uniform(0, 1, D)
+    return torch.from_numpy(rows), torch.from_numpy(counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", DENSE_LAYOUTS)
+def test_dense_kernels_adversarial_layouts_on_card(cuda_device, layout):
+    """Kernels 9 and 10 (D = 3) on tiles of few, many, cut and dead slots:
+    within tolerance of the plain versions, two launches bit for bit equal,
+    zero gradient rows past each count and past the walks; the split
+    launches bitwise equal to one block a tile."""
+    from tdgs_torch.ops import rasterize_pallas as RP
+
+    rng = np.random.default_rng(60 + DENSE_LAYOUTS.index(layout))
+    rows, counts = (x.to(cuda_device) for x in _dense_layout_rows(layout, rng))
+    geo = (1, LW, LH, 16)
+    fwd, fwd_p, bwd, bwd_p, cot = _dense_both(RP, rows, counts, geo, 9)
+    assert float(bwd[0].abs().max()) > 0
+    _assert_dense(fwd, fwd_p, bwd, bwd_p, counts)
+    if layout == "tile_cut_at_capacity_128":
+        assert int(counts[4]) == rows.shape[1] == 128
+    if layout == "tile_count_equals_capacity_256":
+        assert int(counts[2]) == rows.shape[1] == 256
+    if layout == "every_pixel_cut_off_in_the_first_batch":
+        assert float(bwd[0][2, 32:].abs().max()) == 0.0
+    for s in (2, 8):
+        assert all(torch.equal(a, b) for a, b in
+                   zip(RP._launch_dense_fwd(rows, counts, *geo, n_split=s), fwd[0]))
+        assert torch.equal(RP._launch_dense_bwd(rows, counts, *geo, *cot, n_split=s), bwd[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,tile_size", [(3, 16), (16, 16), (3, 8)])
+def test_dense_kernels_split_equals_unsplit_on_card(cuda_device, D, tile_size):
+    """At a few tiles the wrappers cut each tile into several blocks (kernel
+    9: its warps; kernel 10: ranges of its slots, each block replaying the
+    walk before its range): the output is bitwise that of one block a
+    tile, at every split count."""
+    from tdgs_torch.ops import rasterize_pallas as RP
+
+    rows, counts, _, _, _ = _dense_stream(250 + D, D, tile_size=tile_size, tile_capacity=256)
+    rows, counts = rows.to(cuda_device), counts.to(cuda_device)
+    geo = (1, W, H, tile_size)
+    T = rows.shape[0]
+    warps = tile_size * tile_size // 32
+    assert RP.split_count(T, cuda_device, warps) > 1  # the wrappers take the split
+    assert RP.split_count(T, cuda_device, RP.MAX_RANGES) > 1
+    assert int(counts.max()) > 3 * 32  # several ranges of 32 slots hold slots
+    one = RP._launch_dense_fwd(rows, counts, *geo, n_split=1)
+    for s in [d for d in (2, 4, 8) if warps % d == 0]:
+        got = RP._launch_dense_fwd(rows, counts, *geo, n_split=s)
+        assert all(torch.equal(a, b) for a, b in zip(got, one)), s
+    assert all(torch.equal(a, b) for a, b in zip(RP.rasterize_dense_fwd(rows, counts, *geo), one))
+    img, trans = one
+    rng = np.random.default_rng(D)
+    cot = [torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(cuda_device)
+           for x in (img, trans)]
+    ref = RP._launch_dense_bwd(rows, counts, *geo, img, trans, *cot, n_split=1)
+    for s in (2, 3, 4, 8):
+        assert torch.equal(RP._launch_dense_bwd(rows, counts, *geo, img, trans, *cot, n_split=s),
+                           ref), s
+    assert torch.equal(RP.rasterize_dense_bwd(rows, counts, *geo, img, trans, *cot), ref)
+    want = RP.rasterize_dense_bwd_plain(rows, counts, *geo, img, trans, *cot)
+    for name, cols in GROUPS.items():
+        assert _rel_err(ref[..., cols], want[..., cols]) <= 1e-3, name
 
 
 # ---------------------------------------------------------------------------

@@ -341,6 +341,24 @@ def test_cpu_path_launches_no_kernel():
     assert _build.LAUNCHES == before
 
 
+@pytest.mark.parametrize("n_tiles,most,want", [
+    (8160, 8, 1),  # 1080p: one block a tile
+    (64, 8, 4),  # image fitting: 256 blocks on 132 SMs
+    (9, 8, 8),  # capped at the tile's 8 warps or ranges
+    (25, 2, 2),  # 8-pixel tiles: 2 warps a tile
+    (200, 8, 1),
+])
+def test_split_count_from_tiles_and_sms(monkeypatch, n_tiles, most, want):
+    """Kernels 9 and 10 cut each tile into the most blocks (a power of two,
+    at most ``most``) that keep the launch within two blocks per SM; the
+    card's SM count is read from its properties (132 on an H100)."""
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props)
+    assert TP.split_count(n_tiles, "cuda", most) == want
+
+
 # ---------------------------------------------------------------------------
 # the masked gather and its segment-sum VJP
 # ---------------------------------------------------------------------------

@@ -151,8 +151,8 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_pixel_entry_evaluations_counts_the_walk():
     """Three opaque entries over a one-tile image: α = 0.999 leaves T = 1e-3
     after the first and 1e-6 after the second, so the second ends every
-    pixel's walk and the third is never reached; faint entries are all
-    walked."""
+    pixel's walk, is walked but not live, and the third is never reached;
+    faint entries are all walked and all live."""
     means2d = torch.full((1, 3, 2), 8.0)
     conics = torch.tensor([[[1e-4, 0.0, 1e-4]] * 3])
     colors = torch.ones((1, 3, 3))
@@ -165,6 +165,6 @@ def test_pixel_entry_evaluations_counts_the_walk():
             16, offsets, ids,
         )
 
-    assert evals(1.0) == 256 * 2
-    assert evals(0.01) == 256 * 3
-    assert evals(0.01, 10, 12) == 10 * 12 * 3  # pixels outside are not walked
+    assert evals(1.0) == (256 * 2, 256)
+    assert evals(0.01) == (256 * 3, 256 * 3)
+    assert evals(0.01, 10, 12) == (10 * 12 * 3,) * 2  # pixels outside are not walked
