@@ -36,6 +36,7 @@ from tdgs_torch.models.gaussians import rgb_to_sh
 from tdgs_torch.ops import _build
 from tdgs_torch.ops import segment_sum as S
 from tdgs_torch.ops.rasterize_packed import (
+    BLOCKS_A_TILE as P_BLOCKS_A_TILE,
     KERNEL,
     KERNEL_BWD,
     max_entries_per_tile,
@@ -299,9 +300,13 @@ def kernel_work(args, tile_capacity):
 
 
 def parity(name, args, backgrounds=None, tile_capacity=1024):
-    """Kernel vs plain version on the same inputs; fails above TOL."""
+    """Kernel vs plain version on the same inputs; fails above TOL, or if a
+    second launch differs from the first in a bit."""
     got = rasterize_to_pixels_packed_inference(*args, backgrounds=backgrounds,
                                                tile_capacity=tile_capacity)
+    again = rasterize_to_pixels_packed_inference(*args, backgrounds=backgrounds,
+                                                 tile_capacity=tile_capacity)
+    repeat_bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     want = rasterize_to_pixels_packed_inference_plain(
         *args, backgrounds=backgrounds, tile_capacity=tile_capacity)
     torch.cuda.synchronize()
@@ -316,7 +321,10 @@ def parity(name, args, backgrounds=None, tile_capacity=1024):
     emit("parity", case=name, tol=TOL, D=args[2].shape[-1], tile_capacity=tile_capacity,
          n_isects=int(counts.sum()), max_tile_range=int(counts.max()),
          tiles_cut=int((counts > max_entries_per_tile(tile_capacity)).sum()),
-         alpha_mean=float(want[1].mean()), **errs)
+         alpha_mean=float(want[1].mean()), repeat_bitwise=repeat_bitwise,
+         blocks_a_tile=P_BLOCKS_A_TILE.get(KERNEL), **errs)
+    if not repeat_bitwise:
+        raise RuntimeError(f"parity {name}: two launches of kernel 1 differ")
     worst = max(errs["colors_max_abs_err"], errs["alphas_max_abs_err"])
     if not worst <= TOL:
         raise RuntimeError(f"parity {name}: max abs err {worst} > {TOL}")
@@ -498,11 +506,18 @@ def phase_trace(rally, bodies, body_ids, state, substeps=8):
 
 
 def measure_kernel(args, backgrounds=None, tile_capacity=1024, reps=20):
-    ms = time_ms(lambda: rasterize_to_pixels_packed_inference(
-        *args, backgrounds=backgrounds, tile_capacity=tile_capacity), reps)
+    """Kernel 1's inference call: by CUDA events and by graph replay, its
+    plain version's time and its bound."""
+    def kernel():
+        rasterize_to_pixels_packed_inference(*args, backgrounds=backgrounds,
+                                             tile_capacity=tile_capacity)
+
+    ms = time_ms(kernel, reps)
+    device_graph_ms = graph_ms(kernel, reps)
     plain_ms = time_ms(lambda: rasterize_to_pixels_packed_inference_plain(
         *args, backgrounds=backgrounds, tile_capacity=tile_capacity), 3)
-    return dict(ms=ms, plain_ms=plain_ms, **kernel_work(args, tile_capacity))
+    return dict(ms=ms, device_graph_ms=device_graph_ms, plain_ms=plain_ms,
+                blocks_a_tile=P_BLOCKS_A_TILE.get(KERNEL), **kernel_work(args, tile_capacity))
 
 
 def phase_bench(bench, n_frames=20):
@@ -519,6 +534,7 @@ def phase_bench(bench, n_frames=20):
 
     _, meta = frame(0)
     torch.cuda.synchronize()
+    _build.reset_launches()
     t0 = time.perf_counter()
     acc = torch.zeros((), device=DEVICE)
     for i in range(n_frames):
@@ -526,17 +542,21 @@ def phase_bench(bench, n_frames=20):
         acc += img.mean()
     torch.cuda.synchronize()
     fps = n_frames / (time.perf_counter() - t0)
+    launches = _build.LAUNCHES.get(KERNEL, 0)
     args, _, _ = kernel_inputs(bench, max_tiles_per_gauss=16)
     k = measure_kernel(args)
     emit("bench_render", frames=n_frames, fps=fps, n_gaussians=int(bench["means"].shape[0]),
-         n_isects=meta["n_isects"], n_dropped=meta["n_dropped"],
-         kernel_ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+         n_isects=meta["n_isects"], n_dropped=meta["n_dropped"], launches=launches,
+         kernel_ms=k["ms"], device_graph_ms=k["device_graph_ms"], plain_ms=k["plain_ms"],
+         bound_ms=k["bound_ms"],
          bound_by=k["bound_by"], pixel_entry_evaluations=k["evaluations"],
          entries=k["entries"], bytes=k["bytes"], fp32_ops=k["fp32_ops"],
          finite=bool(torch.isfinite(acc)))
     if not bool(torch.isfinite(acc)):
         raise RuntimeError("bench render: non-finite frame")
-    return k
+    if launches < n_frames:
+        raise RuntimeError(f"bench render launched kernel 1 {launches} < {n_frames} times")
+    return k, launches
 
 
 
@@ -628,6 +648,7 @@ def measure_train_kernels(inputs, reps=20):
     fwd = kernel_work(args, tc)
 
     fwd_ms = time_ms(lambda: rasterize_packed_train_fwd(*args, tile_capacity=tc), reps)
+    fwd_graph_ms = graph_ms(lambda: rasterize_packed_train_fwd(*args, tile_capacity=tc), reps)
     fwd_plain = time_ms(lambda: rasterize_packed_train_fwd_plain(*args, tile_capacity=tc), 2)
 
     bwd_ms = time_ms(lambda: rasterize_packed_bwd(*args, img, trans, v_img, v_t,
@@ -644,7 +665,8 @@ def measure_train_kernels(inputs, reps=20):
     t_b, t_o = bwd_bytes / PEAK_BYTES * 1e3, n_bwd_ops / PEAK_FP32 * 1e3
 
     out = {
-        KERNEL: dict(ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd["bound_ms"],
+        KERNEL: dict(ms=fwd_ms, device_graph_ms=fwd_graph_ms, plain_ms=fwd_plain,
+                     bound_ms=fwd["bound_ms"],
                      bound_by=fwd["bound_by"], library_ms=None,
                      evaluations=fwd["evaluations"], bytes=fwd["bytes"]),
         KERNEL_BWD: dict(ms=bwd_ms, plain_ms=bwd_plain, bound_ms=max(t_b, t_o),
@@ -1308,7 +1330,8 @@ EVAL3D_GROUPS = {"M": slice(0, 9), "g0": slice(9, 12), "opacity": slice(12, 13),
 
 def parity_eval3d(name, geo, tile_capacity, seed, backgrounds):
     """Kernels 7 (both calls) and 8 against their plain versions on the
-    same inputs, random cotangents; fails above the tolerances."""
+    same inputs, random cotangents; fails above the tolerances, or if a
+    second launch of kernel 7 differs from the first in a bit."""
     rows, d, o, offsets, I, D = geo[:6]
     stream = geo[:9]
     p_img, p_T, evals = E.rasterize_eval3d_fwd_plain(*stream, tile_capacity)
@@ -1320,6 +1343,11 @@ def parity_eval3d(name, geo, tile_capacity, seed, backgrounds):
         finite = finite and bool(torch.isfinite(img).all()) and bool(torch.isfinite(alp).all())
     img, T = E.rasterize_eval3d_train_fwd(*stream, tile_capacity)
     fwd_err["train"] = dict(colors=_abs_err(img, p_img), transmittance=_abs_err(T, p_T))
+    img2, T2 = E.rasterize_eval3d_train_fwd(*stream, tile_capacity)
+    inf1 = E.rasterize_eval3d_inference(*stream, backgrounds, tile_capacity)
+    inf2 = E.rasterize_eval3d_inference(*stream, backgrounds, tile_capacity)
+    repeat_bitwise = (torch.equal(img, img2) and torch.equal(T, T2)
+                      and all(torch.equal(a, b) for a, b in zip(inf1, inf2)))
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     v_img = torch.randn(img.shape, generator=g, device=DEVICE)
     v_T = torch.randn(T.shape, generator=g, device=DEVICE)
@@ -1336,9 +1364,12 @@ def parity_eval3d(name, geo, tile_capacity, seed, backgrounds):
          **stream_stats(offsets, tile_capacity), pixel_entry_evaluations=evals.tolist(),
          alpha_mean=float((1.0 - p_T).mean()), fwd_max_abs_err=fwd_err, tol=TOL,
          bwd_max_rel_err=bwd_rel, bwd_rtol=BWD_RTOL,
-         bwd_max_abs_err=_abs_err(got[0], want[0]), finite=finite)
+         bwd_max_abs_err=_abs_err(got[0], want[0]), finite=finite,
+         fwd_repeat_bitwise=repeat_bitwise)
     if not finite:
         raise RuntimeError(f"parity_eval3d {name}: non-finite kernel output")
+    if not repeat_bitwise:
+        raise RuntimeError(f"parity_eval3d {name}: two launches of kernel 7 differ")
     if not worst <= TOL:
         raise RuntimeError(f"parity_eval3d {name}: forward {fwd_err} > {TOL}")
     if not max(bwd_rel.values()) <= BWD_RTOL:
@@ -1423,6 +1454,7 @@ def measure_kernels_eval3d(a, reps=20):
     for name, (kernel, plain) in calls.items():
         out[name] = dict(ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 1),
                          library_ms=None, **work[name])
+    out[E.KERNEL_FWD]["device_graph_ms"] = graph_ms(calls[E.KERNEL_FWD][0], reps)
     out[E.KERNEL_FWD]["train_call_ms"] = time_ms(
         lambda: E.rasterize_eval3d_train_fwd(*stream, tc), reps)
     # kernel 3 on kernel 8's own rows (13 + D columns), as the eval3d VJP
@@ -1857,7 +1889,7 @@ def main():
     rally_launches, rally_args, rally_bg = phase_rally(rally)
     k_rally = measure_kernel(rally_args, backgrounds=rally_bg)
     emit("kernel_rally_shape", **k_rally)
-    k_bench = phase_bench(bench)
+    k_bench, bench_launches = phase_bench(bench)
 
     cap = bench_capacity(bench)
     train_errs, train_inputs = phase_train_parity(bench, heavy, cap)
@@ -1910,10 +1942,14 @@ def main():
         KERNEL: ("rasterize_packed_fwd.cu", "tdgs/ops/rasterize_pallas_packed.py:322",
                  train_launches[KERNEL],
                  dict(max_abs_err=max(max_err, train_errs["fwd"]), abs_tol=TOL),
-                 dict(trainer_launches=trainer_launches[KERNEL],
+                 dict(device_graph_ms=timings[KERNEL]["device_graph_ms"],
+                      bench_render_launches=bench_launches,
+                      trainer_launches=trainer_launches[KERNEL],
                       trainer_eval_launches=trainer_eval, rally_launches=rally_launches,
-                      rally_ms=k_rally["ms"], rally_plain_ms=k_rally["plain_ms"],
-                      rally_bound_ms=k_rally["bound_ms"], bench_render_ms=k_bench["ms"])),
+                      rally_ms=k_rally["ms"], rally_device_graph_ms=k_rally["device_graph_ms"],
+                      rally_plain_ms=k_rally["plain_ms"], rally_bound_ms=k_rally["bound_ms"],
+                      bench_render_ms=k_bench["ms"],
+                      bench_render_device_graph_ms=k_bench["device_graph_ms"])),
         KERNEL_BWD: ("rasterize_packed_bwd.cu", "tdgs/ops/rasterize_pallas_packed.py:645",
                      train_launches[KERNEL_BWD],
                      dict(max_abs_err=train_errs["bwd"], max_rel_err=train_errs["bwd_rel"],
@@ -1955,7 +1991,8 @@ def main():
         E.KERNEL_FWD: ("rasterize_eval3d_fwd.cu", f"{pallas_e3}:98", render_e3_launches,
                        dict(max_abs_err=errs_e3["fwd"], abs_tol=TOL,
                             sigma_max_abs_err_vs_f64=errs_e3["sigma"], sigma_tol=SIGMA_TOL),
-                       dict(render_train_launches=train_e3_launches[E.KERNEL_FWD],
+                       dict(device_graph_ms=timings[E.KERNEL_FWD]["device_graph_ms"],
+                            render_train_launches=train_e3_launches[E.KERNEL_FWD],
                             trainer_launches=trainer_e3_launches[E.KERNEL_FWD],
                             trainer_eval_launches=trainer_e3_eval,
                             train_call_ms=timings[E.KERNEL_FWD]["train_call_ms"])),

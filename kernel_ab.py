@@ -1,30 +1,28 @@
-"""Ablation and A/B of the tile-dense kernels 10 (backward) and 9
-(composite) on the card, against the sources of an earlier commit, at the
-bench frame's dense shape and at image fitting's first step.
+"""Ablation and A/B of the compositing kernels 7 (eval3d) and 1 (packed
+3DGS) on the card, against the sources of an earlier commit, at the bench
+frame's shapes and, for kernel 1, at the rally frame's.
 
-    git archive 2d1267b tdgs_torch/csrc | tar -x -C tdgs_torch/build/prev
+    git archive 6965681 tdgs_torch/csrc | tar -x -C tdgs_torch/build/prev
     python3 kernel_ab.py tdgs_torch/build/prev/tdgs_torch/csrc
 
-The ablation's patches anchor on the kernels' designs at commit 2d1267b,
+The ablation's patches anchor on the kernels' designs at commit 6965681,
 before their redesign. Builds with nvcc, one process per variant, all
 started together:
-- from the earlier kernel 10, the ablation variants (a) as it was, (b) the
-  walk alone (no per-slot reduction or partial store; a sink keeps the
-  walk), (c) (b) with the transposing reduce-scatter of
-  csrc/warp_reduce.cuh and one store, (d) (a) without the zero rows past
-  each tile's count (timing only), and a counting build of (a); from the
-  earlier kernel 9, (a) as it was, (b) batch 0 staged once and walked for
-  every batch, (c) each warp staging its own rows and stopping on its own;
-- from this tree's kernels 10 and 9, a build as they are (called as every
+- from the earlier kernel 7, the ablation variants (a) as it was, (b) batch
+  0 staged once and walked for every batch, (c) sigma* with __fdividef in
+  place of the IEEE division (timing only), and a counting build of (a);
+  from the earlier kernel 1, (a), (b) and a counting build. A counting
+  build reads, per warp and entry offered, whether a lane of the warp
+  reaches alpha >= 1/255 there (with and without its own cutoff): the
+  ceiling of any per-warp cull. Kernel 1's timeline build records each
+  block's start and end on the card's global timer.
+- from this tree's kernels 7 and 1, a build as they are (called as every
   variant is, into one output made beforehand: the yardstick of the
-  variants; "tree" goes through the wrapper, which makes its output at
-  each call), each design without one of its parts (asynchronous staging,
-  the cull), kernel 10 with its zeros past count after the walk (single
-  floats or 16-byte stores) in place of 16-byte stores before it, kernel 9
-  with kernel 6's looser cull in place of its own or with a done warp
-  leaving each batch by a vote, and a counting build of kernel 9's cull;
-  the split of tiles across blocks is an argument, timed at 1, 2, 4 and 8
-  blocks a tile at image fitting's shape.
+  variants; "tree" goes through the wrapper), each design without its
+  cull, with synchronous staging, and a counting build of its cull's kept
+  share.
+- the earlier and this tree's kernels 2, 8, 9 and 10, which share headers
+  with the redesigns: their bits and their times.
 Each kernel's variants run on the same inputs and are timed twice by
 chip_smoke.time_ms and twice by chip_smoke.graph_ms, in turns from the
 first to the last and back. Their outputs are held against the plain
@@ -36,7 +34,6 @@ port does not use this script.
 from __future__ import annotations
 
 import ctypes
-import functools
 import json
 import subprocess
 import sys
@@ -47,50 +44,81 @@ import torch
 
 import chip_smoke as C
 from tdgs_torch.ops import _build
+from tdgs_torch.ops import rasterize_eval3d_packed as E
+from tdgs_torch.ops import rasterize_packed as P
 from tdgs_torch.ops import rasterize_pallas as RP
 
 OUT = _build.BUILD_DIR / "kernel_ab"
-# kernel 10's: (a) as committed, (b) the walk alone, (c) (b) with the
-# reduce-scatter, (d) without the zeros past count
-ABLATION_K10 = {0: "a_committed", 1: "b_walk_alone", 2: "c_walk_reduce_scatter",
-                3: "d_no_zeros_past_count"}
-ABLATION_K9 = {0: "a_committed", 1: "b_batch0_staged_once", 2: "c_per_warp_termination"}
+ABLATION_K7 = {0: "a_committed", 1: "b_batch0_staged_once", 2: "c_fast_division"}
+ABLATION_K1 = {0: "a_committed", 1: "b_batch0_staged_once"}
+N_COUNTS = 8
+SPLITS = (1, 2, 4, 8)  # kernel 1's blocks a tile, forced through the wrapper
+PTXAS = {}  # variant -> {kernel entry: registers} of its build
+MAX_BLOCKS = 1 << 15
 
-# counters a counting build adds: four sums over the launch
-COUNTERS = '''
-__device__ unsigned long long g_counts[4];
-extern "C" int abl_counts(unsigned long long* out) {
+# counters a counting build adds: N_COUNTS sums over the launch
+COUNTERS = f'''
+__device__ unsigned long long g_counts[{N_COUNTS}];
+extern "C" int abl_counts(unsigned long long* out) {{
   return (int)cudaMemcpyFromSymbol(out, g_counts, sizeof(g_counts));
-}
-extern "C" int abl_reset() {
-  unsigned long long z[4] = {0, 0, 0, 0};
+}}
+extern "C" int abl_reset() {{
+  unsigned long long z[{N_COUNTS}] = {{0}};
   return (int)cudaMemcpyToSymbol(g_counts, z, sizeof(z));
-}
+}}
 '''
 
-# the ablation's switch (ABL = 0..3, see ABLATION_K10) and the reduce-scatter
-ABLATION_HEAD = '''
-#ifndef ABL
-#define ABL 0
+# a timeline build's record: each block's start and end, in ns
+TIMELINE = f'''
+__device__ unsigned long long g_span[2 * {MAX_BLOCKS}];
+__device__ __forceinline__ unsigned long long abl_now() {{
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}}
+extern "C" int abl_spans(unsigned long long* out, int n) {{
+  return (int)cudaMemcpyFromSymbol(out, g_span, 2 * sizeof(unsigned long long) * n);
+}}
+'''
+
+ABL_HEAD = "#ifndef ABL\n#define ABL 0\n#endif\n#if ABL_COUNT\n" + COUNTERS + "#endif\n"
+
+# the walk of a counting build: every lane evaluates every entry offered,
+# the warp votes, lane 0 counts (offered, with a lane reaching alpha >=
+# 1/255, with such a lane not yet past its cutoff, with a lane walking)
+# and each walking pixel counts its evaluations and live ones
+COUNT_VOTE = '''
+      const unsigned v_any = __ballot_sync(0xffffffffu, inside && pass);
+      const unsigned v_live = __ballot_sync(0xffffffffu, !done && pass);
+      const unsigned v_walk = __ballot_sync(0xffffffffu, !done);
+      if ((threadIdx.x & 31) == 0) {
+        ++c_offered;
+        c_any += v_any != 0u;
+        c_live_warp += v_live != 0u;
+        c_walk_warp += v_walk != 0u;
+      }
+      if (done) continue;
+      ++c_eval;
+      if (!pass) continue;
+      ++c_live;
+'''
+
+COUNT_DECL = ("  unsigned long long c_offered = 0, c_any = 0, c_live_warp = 0, c_walk_warp = 0, "
+              "c_eval = 0, c_live = 0;\n")
+COUNT_FLUSH = '''#if ABL_COUNT
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&g_counts[0], c_offered);
+    atomicAdd(&g_counts[1], c_any);
+    atomicAdd(&g_counts[2], c_live_warp);
+    atomicAdd(&g_counts[3], c_walk_warp);
+  }
+  atomicAdd(&g_counts[4], c_eval);
+  atomicAdd(&g_counts[5], c_live);
 #endif
-#include "warp_reduce.cuh"
-#if ABL_COUNT
-''' + COUNTERS + '''#endif
 '''
-
-# kernel 6's per-warp cull (the least eigenvalue of a 3DGS conic over the
-# distance to the warp's box)
-CULL_3DGS = '''
-__device__ __forceinline__ bool may_reach(float4 q0, float4 q1, float x0, float x1,
-                                          float y0, float y1) {
-  const float a = q0.z, b = q0.w, c = q1.x;
-  const float dx = fmaxf(0.f, fmaxf(x0 - q0.x, q0.x - x1));
-  const float dy = fmaxf(0.f, fmaxf(y0 - q0.y, q0.y - y1));
-  const float h = 0.5f * (a - c);
-  const float lam = 0.5f * (a + c) - sqrtf(h * h + b * b) - 2e-5f * (fabsf(a) + fabsf(c));
-  return !(0.5f * fmaxf(lam, 0.f) * (dx * dx + dy * dy) > logf(255.f * q1.y) + 1.f);
-}
-'''
+COUNT_NAMES = ("warp_entries_offered", "with_a_lane_reaching_1_255",
+               "with_such_a_lane_before_its_cutoff", "with_a_lane_walking",
+               "pixel_entry_evaluations", "live_evaluations")
 
 
 def _sub(text, old, new):
@@ -99,182 +127,344 @@ def _sub(text, old, new):
     return text.replace(old, new)
 
 
-def ablation_source(text):
-    """The earlier kernel 10 with the ABL switch and, with ABL_COUNT,
-    counters of (pixel, slot) evaluations, live ones, warp-slots with a live
-    lane and batches."""
-    s = _sub(text, "namespace {\n", ABLATION_HEAD + "namespace {\n")
-    s = _sub(s, "  int b0 = 0;\n", "  unsigned long long c_eval = 0, c_live = 0, c_wred = 0, "
-             "c_batch = 0;\n  float sink = 0.f;\n  int b0 = 0;\n")
-    tail = "  // zero rows: slots no pixel reached, and those past the tile's count\n"
-    cap_bound = "       i < static_cast<int64_t>(cap) * F; i += blockDim.x) {\n"
-    s = _sub(s, cap_bound, "#if ABL == 3\n" + cap_bound.replace("(cap)", "(count)")
-             + "#else\n" + cap_bound + "#endif\n")
-    s = _sub(s, "    for (int i = tid; i < n * F; i += blockDim.x) s_rows[i] = src[i];\n"
-             "    __syncthreads();\n",
-             "    for (int i = tid; i < n * F; i += blockDim.x) s_rows[i] = src[i];\n"
-             "    if (tid == 0) ++c_batch;\n    __syncthreads();\n")
-    s = _sub(s, "      if (!done) {\n", "      if (!done) {\n        ++c_eval;\n")
-    s = _sub(s, "            live = true;\n", "            live = true;\n            ++c_live;\n")
-    start = ("      float* part = s_part + (warp * kBatch + k) * F;\n"
-             "      if (__any_sync(kFullMask, live)) {\n")
-    end = ("        if (lane + 32 < F) part[lane + 32] = 0.f;\n      }\n    }\n"
-           "    __syncthreads();\n")
-    i0 = s.index(start)
-    i1 = s.index(end, i0) + len(end)
-    committed = s[i0:i1].replace(
-        "      if (__any_sync(kFullMask, live)) {\n",
-        "      if (__any_sync(kFullMask, live)) {\n        if (lane == 0) ++c_wred;\n", 1)
-    walk_only = ("      if (live) {\n"
-                 "          sink += g_mx + g_my + g_a + g_b + g_c + g_op;\n#pragma unroll\n"
-                 "          for (int c = 0; c < CMAX; ++c) if (c < D) sink += w * vcol[c];\n"
-                 "      }\n    }\n    __syncthreads();\n")
-    scatter = ("      constexpr int NV = tdgswarp::reduce_width(6 + CMAX);\n"
-               "      float* part = s_part + (warp * kBatch + k) * F;\n"
-               "      if (__any_sync(kFullMask, live)) {\n"
-               "        if (lane == 0) ++c_wred;\n        float v[NV];\n"
-               "#pragma unroll\n        for (int j = 6; j < NV; ++j) v[j] = 0.f;\n"
-               "        v[0] = g_mx; v[1] = g_my; v[2] = g_a; v[3] = g_b; v[4] = g_c; "
-               "v[5] = g_op;\n#pragma unroll\n        for (int c = 0; c < CMAX; ++c) {\n"
-               "          if (c < D) v[6 + c] = w * vcol[c];\n        }\n"
-               "        tdgswarp::reduce_scatter<NV>(v, lane);\n"
-               "        tdgswarp::store_scattered<NV>(part, v, lane, F);\n"
-               "      } else {\n        tdgswarp::store_zero_row(part, lane, F);\n      }\n"
-               "    }\n    __syncthreads();\n")
-    s = (s[:i0] + "#if ABL == 1\n" + walk_only + "#elif ABL == 2\n" + scatter + "#else\n"
-         + committed + "#endif\n" + s[i1:])
-    return _sub(s, tail, "#if ABL == 1\n  if (sink == 1.2345678e-37f) v_rows[0] = sink;\n#endif\n"
-                "#if ABL_COUNT\n  atomicAdd(&g_counts[0], c_eval);\n"
-                "  atomicAdd(&g_counts[1], c_live);\n  atomicAdd(&g_counts[2], c_wred);\n"
-                "  atomicAdd(&g_counts[3], c_batch);\n#endif\n" + tail)
+def _between(text, first, last):
+    """(start, end) of the span from ``first`` to the end of ``last``."""
+    i0 = text.index(first)
+    return i0, text.index(last, i0) + len(last)
 
 
-def ablation_fwd_source(text):
-    """The earlier kernel 9 with the ABL switch: (b) batch 0 staged once and
-    walked for every batch, (c) each warp staging its own batches of 32 rows
-    into its slice of shared memory and stopping once its pixels are done,
-    in place of the block's shared batches and block-wide stop."""
-    s = _sub(text, "namespace {\n", "#ifndef ABL\n#define ABL 0\n#endif\nnamespace {\n")
+def ablation_k7_source(text, common):
+    """The earlier kernel 7 with the ABL switch: (b) batch 0 staged once,
+    (c) sigma* divided by __fdividef (its header inlined and patched), and
+    with ABL_COUNT the counting walk."""
+    s = _sub(text, "namespace {\n", ABL_HEAD + "namespace {\n")
+    common = _sub(common, "#pragma once\n", "")
+    common = _sub(common, "__fdiv_rn(cc, s.rr)",
+                  "\n#if ABL == 2\n__fdividef(cc, s.rr)\n#else\n__fdiv_rn(cc, s.rr)\n#endif\n")
+    s = _sub(s, '#include "rasterize_eval3d_common.cuh"\n', common)
     copy = "    for (int i = tid; i < n * F; i += block) s_rows[i] = src[i];\n"
     s = _sub(s, copy, "#if ABL == 1\n    if (b0 == 0)\n#endif\n" + copy)
-    first = "  for (int b0 = 0; b0 < count; b0 += block) {\n"
-    last = "      const float* r = s_rows + k * F;\n"
-    i0 = s.index(first)
-    i1 = s.index(last, i0) + len(last)
-    per_warp = ("  float* s_own = s_rows + (tid & ~31) * F;  // this warp's [32, F]\n"
-                "  for (int b0 = 0; b0 < count; b0 += 32) {\n"
-                "    if (__all_sync(0xffffffffu, done)) break;\n"
-                "    const int n = min(32, count - b0);\n"
-                "    const float* src = tile_rows + static_cast<int64_t>(b0) * F;\n"
-                "    __syncwarp();\n"
-                "    for (int i = tid & 31; i < n * F; i += 32) s_own[i] = src[i];\n"
-                "    __syncwarp();\n"
-                "    for (int k = 0; k < n && !done; ++k) {\n"
-                "      const float* r = s_own + k * F;\n")
-    return s[:i0] + "#if ABL == 2\n" + per_warp + "#else\n" + s[i0:i1] + "#endif\n" + s[i1:]
+    first = "    for (int k = 0; k < n && !done; ++k) {\n"
+    last = "      T = next_T;\n    }\n"
+    i0, i1 = _between(s, first, last)
+    counting = ('''    for (int k = 0; k < n; ++k) {
+      const float* row = s_rows + k * F;
+      Response s;
+      const float sigma = ray_sigma<CENTRAL>(row, d, o, s);
+      const float alpha = fminf(kAlphaClamp, __fmul_rn(row[12], expf(-sigma)));
+      const bool pass = s.gr < 0.f && !(alpha < kAlphaThreshold);
+''' + COUNT_VOTE + '''      const float next_T = __fmul_rn(T, __fsub_rn(1.f, alpha));
+      if (next_T <= kTransmittanceEps) {
+        done = true;
+        continue;
+      }
+      const float w = __fmul_rn(alpha, T);
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) {
+        if (c < D) acc[c] += w * row[kGeomCols + c];
+      }
+      T = next_T;
+    }
+''')
+    s = s[:i0] + "#if ABL_COUNT\n" + counting + "#else\n" + s[i0:i1] + "#endif\n" + s[i1:]
+    s = _sub(s, "  for (int b0 = 0; b0 < count; b0 += block) {\n",
+             "#if ABL_COUNT\n" + COUNT_DECL + "#endif\n"
+             "  for (int b0 = 0; b0 < count; b0 += block) {\n")
+    return _sub(s, "  if (!inside) return;\n", COUNT_FLUSH + "  if (!inside) return;\n")
+
+
+def ablation_k1_source(text):
+    """The earlier kernel 1 with the ABL switch: (b) batch 0 staged once,
+    with ABL_COUNT the counting walk, with ABL_TIMELINE each block's span."""
+    s = _sub(text, "namespace {\n", ABL_HEAD + "#if ABL_TIMELINE\n" + TIMELINE + "#endif\n"
+             "namespace {\n")
+    s = _sub(s, "    if (e < count) {\n",
+             "#if ABL == 1\n    if (b0 == 0 && e < count) {\n#else\n    if (e < count) {\n"
+             "#endif\n")
+    first = "    for (int k = 0; k < n && !done; ++k) {\n"
+    last = "      T = next_T;\n    }\n"
+    i0, i1 = _between(s, first, last)
+    counting = ('''    for (int k = 0; k < n; ++k) {
+      const float2 xy = s_xy[k];
+      const float dx = __fsub_rn(xy.x, fx);
+      const float dy = __fsub_rn(xy.y, fy);
+      const float quad = __fadd_rn(
+          __fmul_rn(__fmul_rn(s_conic[3 * k], dx), dx),
+          __fmul_rn(__fmul_rn(s_conic[3 * k + 2], dy), dy));
+      const float sigma = __fadd_rn(
+          __fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(s_conic[3 * k + 1], dx), dy));
+      const float alpha = fminf(kAlphaClamp, __fmul_rn(s_op[k], expf(-sigma)));
+      const bool pass = !(sigma < 0.f) && !(alpha < kAlphaThreshold);
+''' + COUNT_VOTE + '''      const float next_T = __fmul_rn(T, __fsub_rn(1.f, alpha));
+      if (next_T <= kTransmittanceEps) {
+        done = true;
+        continue;
+      }
+      const float w = alpha * T;
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) {
+        if (c < D) acc[c] += w * s_col[k * D + c];
+      }
+      T = next_T;
+    }
+''')
+    s = s[:i0] + "#if ABL_COUNT\n" + counting + "#else\n" + s[i0:i1] + "#endif\n" + s[i1:]
+    s = _sub(s, "  for (int b0 = 0; b0 < count; b0 += block) {\n",
+             "#if ABL_COUNT\n" + COUNT_DECL + "#endif\n#if ABL_TIMELINE\n"
+             "  const unsigned long long t_start = abl_now();\n#endif\n"
+             "  for (int b0 = 0; b0 < count; b0 += block) {\n")
+    return _sub(s, "  if (!inside) return;\n",
+                COUNT_FLUSH + "#if ABL_TIMELINE\n  __syncthreads();\n  if (tid == 0 && t < "
+                f"{MAX_BLOCKS}) {{\n    g_span[2 * t] = t_start;\n    g_span[2 * t + 1] = "
+                "abl_now();\n  }\n#endif\n  if (!inside) return;\n")
+
+
+def _inline(text, include, header):
+    """``text`` with ``#include "<include>"`` replaced by ``header``'s text."""
+    return _sub(text, f'#include "{include}"\n', _sub(header, "#pragma once\n", ""))
+
+
+def _sync_row_stage():
+    """row_stage.cuh with synchronous copies in place of cp.async."""
+    stage = (_build.CSRC_DIR / "row_stage.cuh").read_text()
+    dst = "f < G ? batch + GP * lane + f : batch + GP * kBatch + lane * DP + (f - G)"
+    stage = _sub(stage, f"      tdgsasync::copy_4({dst},\n                        src(f));",
+                 f"      *({dst}) = *src(f);")
+    stage = _sub(stage, "        tdgsasync::copy_16(batch + GP * lane + 4 * u, row + 4 * u);",
+                 "        *reinterpret_cast<float4*>(batch + GP * lane + 4 * u) = "
+                 "*reinterpret_cast<const float4*>(row + 4 * u);")
+    return _sub(stage, f"        tdgsasync::copy_4({dst},\n                          row + f);",
+                f"        *({dst}) = row[f];")
+
+
+# kernel 7's counting build: per warp and batch, the entries offered, kept
+# by ray_cull.cuh, and kept by the three bounds it was chosen against -- the
+# box sphere (below), (i) a cone about a of chord radius delta = max
+# |u_i - a| against the same sphere, (ii) the cone against the silhouette
+# quadric, first order in delta -- then the (pixel, entry) evaluations
+CONE_BOUNDS = """// the box sphere: the entry's bounding sphere, radius sqrt(2 (tau_0 +
+// 0.25)) max(s) about mu, mu - o_ref = -M^T diag(1 / |M_i|^2) g0 (rows of M
+// orthogonal to 1e-5, checked), against the pyramid of the warp's slope box
+__device__ __forceinline__ bool abl_box_sphere(const float4* q, const tdgsraycull::WarpRays& w) {
+  using namespace tdgsraycull;
+  const float4 q0 = q[0], q1 = q[1], q2 = q[2];
+  const float op = q[3].x;
+  // alpha <= op at every ray: below 1/255 everywhere
+  if (op < (1.0f / 255.0f)) return false;
+  if (!w.ok) return true;
+  const float m0[3] = {q0.x, q0.y, q0.z}, m1[3] = {q0.w, q1.x, q1.y},
+              m2[3] = {q1.z, q1.w, q2.x};
+  const float g0[3] = {q2.y, q2.z, q2.w};
+  const float n0 = dot3(m0, m0), n1 = dot3(m1, m1), n2 = dot3(m2, m2);
+  const float mn = fminf(fminf(n0, n1), n2), mx = fmaxf(fmaxf(n0, n1), n2);
+  const float d01 = dot3(m0, m1), d02 = dot3(m0, m2), d12 = dot3(m1, m2);
+  // rows nonzero, below 1e12, orthogonal to 1e-5 (NaN fails)
+  if (!(mn > 0.f && mx < 1e24f && d01 * d01 <= 1e-10f * n0 * n1 &&
+        d02 * d02 <= 1e-10f * n0 * n2 && d12 * d12 <= 1e-10f * n1 * n2)) {
+    return true;
+  }
+  // mu - o_ref = -M^T diag(1 / |M_i|^2) g0; c from the warp's apex
+  const float w0 = g0[0] / n0, w1 = g0[1] / n1, w2 = g0[2] / n2;
+  float c[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c[k] = -(w0 * m0[k] + w1 * m1[k] + w2 * m2[k]) - w.oc[k];
+  const float smax = rsqrtf(mn) * (1.f + 1e-6f);
+  const float cond = smax * sqrtf(mx);
+  const float g0n = sqrtf(dot3(g0, g0));
+  // |g| along any ray of the warp: g0 + M o'
+  const float gmag = g0n + sqrtf(3.f * mx) * (sqrtf(dot3(w.oc, w.oc)) + w.odev);
+  // past 1e25 the walk's products g r could overflow into a NaN sigma*
+  if (!(gmag < 1e25f)) return true;
+  // each ray's r = M d turns its direction by up to 9 eps cond: its slopes
+  // by up to 32 eps cond (slopes <= 1)
+  const float eta = 32.f * kEps * cond;
+  const float S = w.S + eta, G = w.G + eta;
+  const float kS = rsqrtf(1.f + S * S), kG = rsqrtf(1.f + G * G);
+  const float ca = fabsf(dot3(c, w.a)), cb = fabsf(dot3(c, w.b)), cn = fabsf(dot3(c, w.n));
+  const float lb = fmaxf((cb - S * ca) * kS, (cn - G * ca) * kG);
+  const float rho = sqrtf(2.f * (__logf(255.f * op) + 0.25f));
+  const float cm = sqrtf(dot3(c, c));
+  // the sphere's radius with the walk's rounding, M's orthogonality (the
+  // centre within 4e-5 max(s) |g0|), the apexes' spread and the cull's own
+  // rounding
+  const float R = smax * (rho + 8.f * kEps * gmag) * (1.f + 1e-4f) + 4e-5f * smax * g0n + w.odev +
+                  1e-5f * (cm + smax * g0n);
+  return !(lb > R);
+}
+
+
+
+__device__ __forceinline__ float abl_delta(const float* d, bool inside, const float* a) {
+  const float inv = rsqrtf(tdgsraycull::dot3(d, d));
+  const float e[3] = {d[0] * inv - a[0], d[1] * inv - a[1], d[2] * inv - a[2]};
+  return tdgsraycull::warp_max(inside ? sqrtf(tdgsraycull::dot3(e, e)) : 0.f) * (1.f + 1e-5f)
+         + 1e-6f;
+}
+// 0: kept by neither bound, 1: (i) keeps, 2: (ii) keeps, 3: both keep
+__device__ __forceinline__ int abl_cone_keeps(const float4* q, const tdgsraycull::WarpRays& w,
+                                              float delta) {
+  using namespace tdgsraycull;
+  const float4 q0 = q[0], q1 = q[1], q2 = q[2];
+  const float op = q[3].x;
+  if (op < (1.0f / 255.0f)) return 0;
+  const float m0[3] = {q0.x, q0.y, q0.z}, m1[3] = {q0.w, q1.x, q1.y}, m2[3] = {q1.z, q1.w, q2.x};
+  const float g0[3] = {q2.y, q2.z, q2.w};
+  const float n0 = dot3(m0, m0), n1 = dot3(m1, m1), n2 = dot3(m2, m2);
+  const float mn = fminf(fminf(n0, n1), n2), mx = fmaxf(fmaxf(n0, n1), n2);
+  if (!(w.ok && mn > 0.f && mx < 1e24f && delta < 1.f)) return 3;
+  const float rho = sqrtf(2.f * (__logf(255.f * op) + 0.25f));
+  const float g0n = sqrtf(dot3(g0, g0));
+  const float gmag = g0n + sqrtf(3.f * mx) * (sqrtf(dot3(w.oc, w.oc)) + w.odev);
+  const float smax = rsqrtf(mn) * (1.f + 1e-6f);
+  // (i): |c x u| >= |c x a| - |c| (delta + the walk's turn of r)
+  const float w0 = g0[0] / n0, w1 = g0[1] / n1, w2 = g0[2] / n2;
+  float c[3];
+  for (int k = 0; k < 3; ++k) c[k] = -(w0 * m0[k] + w1 * m1[k] + w2 * m2[k]) - w.oc[k];
+  const float cx[3] = {c[1] * w.a[2] - c[2] * w.a[1], c[2] * w.a[0] - c[0] * w.a[2],
+                       c[0] * w.a[1] - c[1] * w.a[0]};
+  const float cm = sqrtf(dot3(c, c));
+  const float lb = sqrtf(dot3(cx, cx)) - cm * (delta + 16.f * kEps * smax * sqrtf(mx));
+  const float R = smax * (rho + 8.f * kEps * gmag) * (1.f + 1e-4f) + 4e-5f * smax * g0n + w.odev
+                  + 1e-5f * (cm + smax * g0n);
+  const bool keep_i = !(lb > R);
+  // (ii): in the canonical frame, g_c = g0 + M o_c, r_a = M a, |M| <= |M|_F
+  float gc[3], ra[3];
+  const float* m[3] = {m0, m1, m2};
+  for (int i = 0; i < 3; ++i) {
+    gc[i] = g0[i] + dot3(m[i], w.oc);
+    ra[i] = dot3(m[i], w.a);
+  }
+  const float mf = sqrtf(n0 + n1 + n2);
+  const float x[3] = {gc[1] * ra[2] - gc[2] * ra[1], gc[2] * ra[0] - gc[0] * ra[2],
+                      gc[0] * ra[1] - gc[1] * ra[0]};
+  const float de = delta + 9.f * kEps;
+  const float gcn = sqrtf(dot3(gc, gc));
+  const float L = (sqrtf(dot3(x, x)) * (1.f - 1e-5f) - gcn * mf * de)
+                  / (sqrtf(dot3(ra, ra)) * (1.f + 1e-5f) + mf * de)
+                  - mf * w.odev - 8.f * kEps * gmag;
+  const bool keep_ii = !(L > rho * (1.f + 1e-5f));
+  return (keep_i ? 1 : 0) + (keep_ii ? 2 : 0);
+}
+"""
 
 
 def tree_variants():
-    """{name: source text}: this tree's kernels 10 and 9 as they are, each
+    """{name: source text}: this tree's kernels 7 and 1 as they are, each
     without one part of its design, or with one changed; counting builds
     end in _counters."""
-    k10 = (_build.CSRC_DIR / "rasterize_dense_bwd.cu").read_text()
-    k9 = (_build.CSRC_DIR / "rasterize_dense_fwd.cu").read_text()
-    # row_stage.cuh with synchronous copies in place of cp.async, inlined
-    include = '#include "row_stage.cuh"\n'
-    stage = _sub((_build.CSRC_DIR / "row_stage.cuh").read_text(), "#pragma once\n", "")
-    stage = _sub(stage, "      tdgsasync::copy_4(f < 6 ? batch + 8 * lane + f : batch + 8 * kBatch + "
-                 "lane * DP + (f - 6),\n                        src(f));",
-                 "      *(f < 6 ? batch + 8 * lane + f : batch + 8 * kBatch + lane * DP + (f - 6)) "
-                 "= *src(f);")
-    # kernel 10 with the zeros past count in single floats after the walk
-    k10_tail = _sub(k10, """  // zero rows past the count, this block's share, before the walk
-  zero_floats(tile_out + static_cast<int64_t>(count) * F,
-              tile_out + static_cast<int64_t>(cap) * F, part * blockDim.x + tid,
-              n_split * blockDim.x);
-  if (lo >= hi) return;  // a range past the count: nothing to walk
-""", """  const auto zeros_past_count = [&] {
-    for (int64_t i = static_cast<int64_t>(count) * F + part * blockDim.x + tid;
-         i < static_cast<int64_t>(cap) * F; i += n_split * blockDim.x) {
-      tile_out[i] = 0.f;
-    }
-  };
-  if (lo >= hi) {
-    zeros_past_count();
-    return;
-  }
-""")
-    k10_tail = _sub(k10_tail, "  // zero rows: the slots of this range that no pixel reached\n",
-                    "  zeros_past_count();\n  // zero rows: the slots of this range that no pixel "
-                    "reached\n")
-    # kernel 10 with the zeros past count in 16-byte stores after the walk
-    past_count = """  zero_floats(tile_out + static_cast<int64_t>(count) * F,
-              tile_out + static_cast<int64_t>(cap) * F, part * blockDim.x + tid,
-              n_split * blockDim.x);
-"""
-    k10_wide_after = _sub(k10, "  // zero rows past the count, this block's share, before the walk\n"
-                          + past_count + "  if (lo >= hi) return;  // a range past the count: "
-                          "nothing to walk\n", "  if (lo >= hi) {\n" + past_count
-                          + "    return;\n  }\n")
-    k10_wide_after = _sub(k10_wide_after, "  // zero rows: the slots of this range that no pixel "
-                          "reached\n", past_count + "  // zero rows: the slots of this range that "
-                          "no pixel reached\n")
-    # kernel 9 with the cull of kernel 6 (the conic's least eigenvalue over
-    # the distance to the box) in place of the box's least value
-    cull_call = "tdgscull::may_reach(s_geo[2 * lane], s_geo[2 * lane + 1], x0, x1, y0, y1)"
-    kernel_head = "template <int CMAX>\n__global__"
-    k9_round = _sub(k9, kernel_head, CULL_3DGS + "\n" + kernel_head)
-    k9_round = _sub(k9_round, cull_call, cull_call.replace("tdgscull::", ""))
-    # kernel 9 counting the cull's slots offered and kept (lane 0 of each
-    # warp) and the (pixel, slot) evaluations
-    k9_count = _sub(k9, "namespace {\n", COUNTERS + "namespace {\n")
-    k9_count = _sub(k9_count, "  if (count > 0) stage(0, s_batches);\n",
+    k7 = (_build.CSRC_DIR / "rasterize_eval3d_fwd.cu").read_text()
+    k1 = (_build.CSRC_DIR / "rasterize_packed_fwd.cu").read_text()
+    walk = (_build.CSRC_DIR / "composite_walk.cuh").read_text()
+    sync_stage = _sync_row_stage()
+    k7_cull = "lane < n && tdgsraycull::may_reach(s_geo + 4 * lane, s_rays[warp])"
+    i0, i1 = _between(k7, "  __shared__ tdgsraycull::WarpRays s_rays[32];\n",
+                      "    if (lane == 0) s_rays[warp] = w;\n  }\n")
+    frame = k7[i0:i1]
+    k7_count = _sub(k7, "namespace {\n", COUNTERS + "namespace {\n")
+    k7_count = _sub(k7_count, "template <int CMAX, bool CENTRAL>\n__global__",
+                    CONE_BOUNDS + "template <int CMAX, bool CENTRAL>\n__global__")
+    k7_count = _sub(k7_count, "  if (count > 0) stage(0, s_batches);\n",
+                    "  unsigned long long c_offered = 0, c_kept = 0, c_i = 0, c_ii = 0, c_eval = 0, "
+                    "c_s = 0;\n"
+                    "  __syncwarp();\n"
+                    "  const float delta = abl_delta(d, inside, s_rays[warp].a);\n"
+                    "  if (count > 0) stage(0, s_batches);\n")
+    k7_count = _sub(k7_count, "    while (todo != 0u) {\n",
+                    "    {\n      const int alt = lane < n ? abl_cone_keeps(s_geo + 4 * lane, "
+                    "s_rays[warp], delta) : 0;\n      const unsigned k_i = __ballot_sync(kFullMask, "
+                    "alt & 1), k_ii = __ballot_sync(kFullMask, alt & 2), k_s = __ballot_sync("
+                    "kFullMask, lane < n && abl_box_sphere(s_geo + 4 * lane, s_rays[warp]));\n"
+                    "      if (lane == 0) {\n"
+                    "        c_offered += n;\n        c_kept += __popc(todo);\n"
+                    "        c_i += __popc(k_i);\n        c_ii += __popc(k_ii);\n"
+                    "        c_s += __popc(k_s);\n      }\n    }\n"
+                    "    while (todo != 0u) {\n")
+    k7_count = _sub(k7_count, "      if (done) continue;\n      float row[16];\n",
+                    "      if (done) continue;\n      ++c_eval;\n      float row[16];\n")
+    k7_count = _sub(k7_count, "  tdgsasync::wait<0>();  // a batch still in flight after an early "
+                    "exit\n", "  tdgsasync::wait<0>();\n  if (lane == 0) {\n"
+                    "    atomicAdd(&g_counts[0], c_offered);\n    atomicAdd(&g_counts[1], c_kept);\n"
+                    "    atomicAdd(&g_counts[2], c_i);\n    atomicAdd(&g_counts[3], c_ii);\n"
+                    "    atomicAdd(&g_counts[5], c_s);\n  }\n"
+                    "  atomicAdd(&g_counts[4], c_eval);\n")
+    k1_cull = ("lane < n && tdgscull::may_reach(s_geo[2 * lane], s_geo[2 * lane + 1], pix.x0, "
+               "pix.x1,\n                                        pix.y0, pix.y1)")
+    k1_count = _sub(walk, "namespace tdgswalk {\n", COUNTERS + "namespace tdgswalk {\n")
+    k1_count = _sub(k1_count, "  if (count > 0) stage(0, s_batches);\n",
                     "  unsigned long long c_offered = 0, c_kept = 0, c_eval = 0;\n"
                     "  if (count > 0) stage(0, s_batches);\n")
-    k9_count = _sub(k9_count, "    while (todo != 0u) {\n",
+    k1_count = _sub(k1_count, "    while (todo != 0u) {\n",
                     "    if (lane == 0) {\n      c_offered += n;\n      c_kept += __popc(todo);\n"
                     "    }\n    while (todo != 0u) {\n")
-    k9_count = _sub(k9_count, "      if (!done) {\n", "      if (!done) {\n        ++c_eval;\n")
-    k9_count = _sub(k9_count, "  tdgsasync::wait<0>();  // a batch still in flight after an early "
+    k1_count = _sub(k1_count, "      if (!done) {\n", "      if (!done) {\n        ++c_eval;\n")
+    k1_count = _sub(k1_count, "  tdgsasync::wait<0>();  // a batch still in flight after an early "
                     "exit\n", "  tdgsasync::wait<0>();\n  if (lane == 0) {\n"
-                    "    atomicAdd(&g_counts[0], c_offered);\n"
-                    "    atomicAdd(&g_counts[1], c_kept);\n  }\n"
-                    "  atomicAdd(&g_counts[2], c_eval);\n")
+                    "    atomicAdd(&g_counts[0], c_offered);\n    atomicAdd(&g_counts[1], c_kept);\n"
+                    "  }\n  atomicAdd(&g_counts[4], c_eval);\n")
     return {
         # built and called as every variant is: the fair yardstick for them
-        "k10_as_is": k10,
-        "k9_as_is": k9,
-        "k10_sync_staging": _sub(k10, include, stage),
-        "k10_scalar_zeros_after_walk": k10_tail,
-        "k10_wide_zeros_after_walk": k10_wide_after,
-        "k10_no_cull": _sub(k10, f"lane < n && {cull_call}", "lane < n"),
-        "k9_sync_staging": _sub(k9, include, stage),
-        "k9_no_cull": _sub(k9, f"lane < n && {cull_call}", "lane < n"),
-        "k9_eigenvalue_cull": k9_round,
-        # a warp whose pixels are all done leaving each batch early, by a vote
-        "k9_warp_skip": _sub(k9, "    __syncthreads();\n    const float4* s_geo",
-                             "    __syncthreads();\n    if (__all_sync(kFullMask, done)) "
-                             "continue;\n    const float4* s_geo"),
-        "k9_cull_counters": k9_count,
+        "k7_as_is": k7,
+        "k1_as_is": k1,
+        "k7_no_cull": _sub(k7, k7_cull, "lane < n"),
+        "k7_sphere_cull": _sub(_sub(k7, "template <int CMAX, bool CENTRAL>\n__global__",
+                                    CONE_BOUNDS + "template <int CMAX, bool CENTRAL>\n__global__"),
+                               k7_cull, k7_cull.replace("tdgsraycull::may_reach",
+                                                        "abl_box_sphere")),
+        "k7_frame_in_registers": _sub(_sub(k7, frame, "  const tdgsraycull::WarpRays s_rays_w = "
+                                           "tdgsraycull::warp_rays<CENTRAL>(d, o, inside, "
+                                           "min(tile_size, 32));\n"),
+                                      k7_cull, k7_cull.replace("s_rays[warp]", "s_rays_w")),
+        "k7_sync_staging": _inline(k7, "row_stage.cuh", sync_stage),
+        "k7_4_byte_copies": _sub(k7, "  const int wide = (kGeomCols", "  const int wide = 0 && ("
+                                 "kGeomCols"),
+        "k7_cull_counters": k7_count,
+        "k1_no_cull": _inline(k1, "composite_walk.cuh", _sub(walk, k1_cull, "lane < n")),
+        "k1_sync_staging": _inline(k1, "composite_walk.cuh",
+                                   _inline(walk, "row_stage.cuh", sync_stage)),
+        "k1_cull_counters": _inline(k1, "composite_walk.cuh", k1_count),
+        "k7_uncapped_registers": _sub(k7, "__maxnreg__(max_registers(CMAX)) ", ""),
+        "k1_timeline": _sub(_sub(_sub(k1, "namespace {\n", TIMELINE + "namespace {\n"),
+                                 "  const bool inside = px < width && py < height;\n",
+                                 "  const bool inside = px < width && py < height;\n"
+                                 "  const unsigned long long t_start = abl_now();\n"),
+                            "  if (!inside) return;\n",
+                            "  __syncthreads();\n  if (tid == 0 && blockIdx.x < "
+                            f"{MAX_BLOCKS}) {{\n    g_span[2 * blockIdx.x] = t_start;\n"
+                            "    g_span[2 * blockIdx.x + 1] = abl_now();\n  }\n"
+                            "  if (!inside) return;\n"),
     }
+
+
+# kernels whose sources did not change in design but share headers with the
+# redesigns: (source, this tree's entry) timed against the earlier build
+KEPT = ("rasterize_packed_bwd", "rasterize_eval3d_bwd", "rasterize_dense_fwd",
+        "rasterize_dense_bwd")
 
 
 def build_all(prev: Path):
     """Every variant, one nvcc each, all started together; {name: CDLL}."""
     OUT.mkdir(parents=True, exist_ok=True)
-    # the earlier sources take their own headers first, then this tree's
-    # (warp_reduce.cuh); this tree's variants only this tree's
-    earlier = ["-I", str(prev), "-I", str(_build.CSRC_DIR)]
+    earlier = ["-I", str(prev)]
     jobs = {}
-    src = OUT / "ablation_k10.cu"
-    src.write_text(ablation_source((prev / "rasterize_dense_bwd.cu").read_text()))
-    for m, variant in ABLATION_K10.items():
-        jobs[f"k10_{variant}"] = (src, [f"-DABL={m}", *earlier])
-    jobs["k10_count_a_committed"] = (src, ["-DABL=0", "-DABL_COUNT=1", *earlier])
-    src = OUT / "ablation_k9.cu"
-    src.write_text(ablation_fwd_source((prev / "rasterize_dense_fwd.cu").read_text()))
-    for m, variant in ABLATION_K9.items():
-        jobs[f"k9_{variant}"] = (src, [f"-DABL={m}", *earlier])
+    src = OUT / "ablation_k7.cu"
+    src.write_text(ablation_k7_source((prev / "rasterize_eval3d_fwd.cu").read_text(),
+                                      (prev / "rasterize_eval3d_common.cuh").read_text()))
+    for m, variant in ABLATION_K7.items():
+        jobs[f"k7_{variant}"] = (src, [f"-DABL={m}", *earlier])
+    jobs["k7_count_a_committed"] = (src, ["-DABL=0", "-DABL_COUNT=1", *earlier])
+    src = OUT / "ablation_k1.cu"
+    src.write_text(ablation_k1_source((prev / "rasterize_packed_fwd.cu").read_text()))
+    for m, variant in ABLATION_K1.items():
+        jobs[f"k1_{variant}"] = (src, [f"-DABL={m}", *earlier])
+    jobs["k1_count_a_committed"] = (src, ["-DABL=0", "-DABL_COUNT=1", *earlier])
+    jobs["k1_timeline_a_committed"] = (src, ["-DABL=0", "-DABL_TIMELINE=1", *earlier])
+    for name in KEPT:
+        jobs[f"earlier_{name}"] = (prev / f"{name}.cu", earlier)
+    # the earlier kernel 9 on this tree's headers: its own walk beside the
+    # shared one
+    src = OUT / "k9_own_walk.cu"
+    src.write_text((prev / "rasterize_dense_fwd.cu").read_text())
+    jobs["k9_own_walk"] = (src, ["-I", str(_build.CSRC_DIR)])
     for name, text in tree_variants().items():
         src = OUT / f"{name}.cu"
         src.write_text(text)
@@ -289,9 +479,22 @@ def build_all(prev: Path):
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            print(json.dumps({"nvcc_failed": name, "log": log[-2000:]}), flush=True)
+            continue
         libs[name] = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+        PTXAS[name] = _registers(log)
     return libs
+
+
+def _registers(log):
+    """{kernel entry: registers} from ptxas's -v output."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and "registers" in line and entry is not None:
+            out[entry] = int(line.split("Used")[1].split("registers")[0])
+    return out
 
 
 def _call(fn, *args):
@@ -301,51 +504,62 @@ def _call(fn, *args):
         raise RuntimeError(f"launch failed with cudaError_t {err}")
 
 
-def _entry(lib, name, n_ptrs, n_ints):
+def _entry(lib, name, n_ptrs, n_ints, slots=False):
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + ([ctypes.c_int64] if slots else []) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _counts(lib, run):
+def _counts(lib, run, names=COUNT_NAMES):
+    """A counting build's sums over one launch, by slot: {name: sum} for
+    each named slot (None skips one)."""
     lib.abl_counts.argtypes = [ctypes.c_void_p]
     lib.abl_reset()
     run()
     torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * 4)()
+    buf = (ctypes.c_ulonglong * N_COUNTS)()
     lib.abl_counts(buf)
-    return list(buf)
+    return {name: v for name, v in zip(names, list(buf)) if name is not None}
+
+
+def _timeline(lib, run, n_blocks, counts, blocks_a_tile=1):
+    """Each block's span from a timeline build: the launch's span, the
+    longest block's and the entries of the longest blocks' tiles."""
+    run()
+    torch.cuda.synchronize()
+    n = min(n_blocks, MAX_BLOCKS)
+    buf = (ctypes.c_ulonglong * (2 * n))()
+    lib.abl_spans.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.abl_spans(buf, n)
+    span = torch.tensor(list(buf), dtype=torch.float64).reshape(n, 2)
+    dur = (span[:, 1] - span[:, 0]) * 1e-6
+    longest = torch.argsort(dur, descending=True)[:10]
+    return dict(launch_ms=float((span[:, 1].max() - span[:, 0].min()) * 1e-6),
+                longest_block_ms=float(dur.max()), mean_block_ms=float(dur.mean()),
+                p99_block_ms=float(dur.quantile(0.99)),
+                longest_blocks_entries=[int(counts[i // blocks_a_tile]) for i in longest])
 
 
 def _flat(out):
     return torch.cat([o.reshape(-1) for o in out]) if isinstance(out, tuple) else out
 
 
-def compare(kernel, fns, plain, groups=None, pad=None, reps=20):
-    """Each variant against the plain version (max|Δ| / max|plain| per
-    column group of gradient rows, or max|Δ| of the whole output without
-    ``groups``), a second launch and the tree's kernel (``fns["tree"]``);
-    ``pad`` marks the rows that must be zero. Times in turns, there and
-    back, by CUDA events around back-to-back calls and by the replay of the
-    same calls from a CUDA graph (``graph_ms``: without the host's time to
-    make each call, which matters where a launch takes tens of
-    microseconds)."""
+def compare(kernel, fns, plain=None, reps=20):
+    """Each variant against the plain version (max|Δ|), a second launch and
+    the tree's kernel (``fns["tree"]``) bit for bit. Times in turns, there
+    and back, by CUDA events around back-to-back calls and by the replay
+    of the same calls from a CUDA graph."""
     ref = _flat(fns["tree"]()).clone()
-    plain = _flat(plain)
     agree = {}
     for name, fn in fns.items():
         first, second = _flat(fn()).clone(), _flat(fn()).clone()
         torch.cuda.synchronize()
         agree[name] = dict(repeat_bitwise=bool(torch.equal(first, second)),
                            bitwise_vs_tree=bool(torch.equal(first, ref)))
-        if groups is None:
-            agree[name]["max_abs_err_vs_plain"] = C._abs_err(first, plain)
-        else:
-            agree[name]["max_rel_err_vs_plain"] = {g: C._rel(first[:, c], plain[:, c])
-                                                   for g, c in groups.items()}
-        if pad is not None:
-            agree[name]["padding_zero"] = float(first[pad].abs().max()) == 0.0
+        if plain is not None:
+            agree[name]["max_abs_err_vs_plain"] = C._abs_err(first, _flat(plain))
     warm_up(fns["tree"])
     order = list(fns)
     times = {name: [] for name in fns}
@@ -366,72 +580,166 @@ def warm_up(fn, seconds=0.5):
         torch.cuda.synchronize()
 
 
-def run_dense(libs, bench):
-    """Kernels 10 and 9 at the bench frame's dense shape ("RGB", K = 16,
-    tile_capacity 1024, chip_smoke's parity_dense case a) and at image
-    fitting's first step (chip_smoke.kernel_inputs_fitting)."""
-    rows, counts, _ = C.kernel_inputs_dense(bench, 1024, max_tiles_per_gauss=16,
-                                            isect_capacity=C.dense_capacity(bench))
-    geo = (1, C.WIDTH, C.HEIGHT, 16)
-    img, trans = RP.rasterize_dense_fwd(rows, counts, *geo)
+def tile_stats(offsets, max_entries):
+    """The distribution of entries per tile."""
+    n = torch.clamp(torch.diff(offsets.long()), 0, max_entries).double()
+    return dict(tiles=int(n.numel()), entries=int(n.sum()), mean=float(n.mean()),
+                p50=float(n.quantile(0.5)), p99=float(n.quantile(0.99)), max=float(n.max()),
+                empty=int((n == 0).sum()),
+                top_1pct_share=float(torch.sort(n, descending=True)[0][:max(1, n.numel() // 100)]
+                                     .sum() / max(float(n.sum()), 1.0)))
+
+
+# the slots of this tree's counting builds: kernel 7's, then kernel 1's
+K7_CULL_NAMES = ("warp_entries_offered", "kept", "kept_by_cone_sphere", "kept_by_cone_quadric",
+                 "pixel_entry_evaluations", "kept_by_box_sphere")
+K1_CULL_NAMES = ("warp_entries_offered", "kept", None, None, "pixel_entry_evaluations")
+
+
+def run_k7(libs, bench, cap, shape="bench"):
+    """Kernel 7's inference call (no background, as the bench render) at
+    the bench shape, or with ``shape="bench_rolling_shutter"`` at
+    chip_smoke's rolling-shutter case; returns its inputs."""
+    rs = C.rolling_shutter_kw(bench) if shape == "bench_rolling_shutter" else {}
+    geo, _ = C.kernel_inputs_eval3d(bench, tile_capacity=1024, max_tiles_per_gauss=16,
+                                    isect_capacity=cap, **rs)
+    rows, d, o, offsets, I, D, W, H, ts = geo
+    tw, th = -(-W // ts), -(-H // ts)
+    max_e = P.max_entries_per_tile(1024)
+    p_img, p_T, _ = E.rasterize_eval3d_fwd_plain(*geo, 1024)
+    plain = (p_img, 1.0 - p_T)
+
+    def k7(lib):
+        fn = _entry(lib, "tdgs_rasterize_eval3d_fwd", 7, 9)
+        out_c, out_a = torch.empty_like(p_img), torch.empty_like(p_T)
+        return lambda: _call(fn, rows, d, o, offsets, None, out_c, out_a, I, W, H, ts, tw, th,
+                             D, max_e, 0) or (out_c, out_a)
+
+    fns = {name: k7(lib) for name, lib in libs.items()
+           if name.startswith("k7_") and "count" not in name}
+    fns["tree"] = lambda: tuple(x.reshape(-1) for x in E.rasterize_eval3d_inference(
+        *geo, None, 1024))
+    result = compare("k7", fns, tuple(x.reshape(-1) for x in plain))
+    counts = {"a_committed": _counts(libs["k7_count_a_committed"],
+                                     k7(libs["k7_count_a_committed"]))}
+    if "k7_cull_counters" in libs:
+        counts["tree_cull"] = _counts(libs["k7_cull_counters"], k7(libs["k7_cull_counters"]),
+                                      K7_CULL_NAMES)
+    result.update(shape=shape, stream=tile_stats(offsets, max_e), counts=counts)
+    print(json.dumps(result), flush=True)
+    return geo
+
+
+def run_k1(libs, shape, args, bg, splits=()):
+    """Kernel 1's inference call at one shape (``args`` from
+    chip_smoke.kernel_inputs), and through the wrapper at each of
+    ``splits`` blocks a tile."""
+    means2d, conics, colors, opac, W, H, ts, offsets, ids = args
+    D = colors.shape[-1]
+    tw, th = -(-W // ts), -(-H // ts)
+    max_e = P.max_entries_per_tile(1024)
+    plain = P.rasterize_to_pixels_packed_inference_plain(*args, backgrounds=bg)
+    # this tree's builds cut tiles into the blocks the wrapper does
+    P.rasterize_to_pixels_packed_inference(*args, backgrounds=bg)
+    n_split = P.BLOCKS_A_TILE[P.KERNEL]
+
+    def k1(lib, earlier=False):
+        fn = _entry(lib, "tdgs_rasterize_packed_fwd", 9, 9 if earlier else 10)
+        out_c, out_a = torch.empty_like(plain[0]), torch.empty_like(plain[1])
+        extra = () if earlier else (n_split,)
+        return lambda: _call(fn, means2d, conics, opac, colors, offsets, ids, bg, out_c, out_a,
+                             1, W, H, ts, tw, th, D, max_e, 0, *extra) or (out_c, out_a)
+
+    fns = {f"k1_{v}": k1(libs[f"k1_{v}"], True) for v in ABLATION_K1.values()}
+    fns.update({name: k1(lib) for name, lib in libs.items()
+                if name.startswith("k1_") and name not in fns and "count" not in name
+                and "timeline" not in name})
+    for s in splits:
+        fns[f"tree_split_{s}"] = (lambda n: lambda: P._launch_fwd(
+            means2d, conics, colors, opac, W, H, ts, offsets, ids, bg, 1024, False,
+            n_split=n))(s)
+    fns["tree"] = lambda: P.rasterize_to_pixels_packed_inference(*args, backgrounds=bg)
+    result = compare("k1", fns, plain)
+    counts = torch.clamp(torch.diff(offsets.long()), 0, max_e).tolist()
+    cnt = {"a_committed": _counts(libs["k1_count_a_committed"],
+                                  k1(libs["k1_count_a_committed"], True))}
+    timeline = {"a_committed": _timeline(libs["k1_timeline_a_committed"],
+                                         k1(libs["k1_timeline_a_committed"], True), tw * th,
+                                         counts)}
+    if "k1_cull_counters" in libs:
+        cnt["tree_cull"] = _counts(libs["k1_cull_counters"], k1(libs["k1_cull_counters"]),
+                                   K1_CULL_NAMES)
+        timeline["as_is"] = _timeline(libs["k1_timeline"], k1(libs["k1_timeline"]),
+                                      tw * th * n_split, counts, n_split)
+    result.update(shape=shape, n_split=n_split, stream=tile_stats(offsets, max_e), counts=cnt,
+                  timeline=timeline)
+    print(json.dumps(result), flush=True)
+
+
+def run_kept(libs, bench, cap, geo7):
+    """Kernels 2, 8, 9 and 10 built from the earlier sources and from this
+    tree's, on the same inputs at the bench shapes: their bits and times."""
     g = torch.Generator(device=C.DEVICE).manual_seed(5)
-    v_img = torch.randn(img.shape, generator=g, device=C.DEVICE)
-    v_t = torch.randn(trans.shape, generator=g, device=C.DEVICE)
-    shapes = {"bench": (rows, counts, geo, img, trans, v_img, v_t),
-              "image_fitting": C.kernel_inputs_fitting()}
-    designs = [name for name in tree_variants() if not name.endswith("_counters")]
-    for shape, (rows, counts, geo, img, trans, v_img, v_t) in shapes.items():
-        T, cap, F = rows.shape
-        D = F - RP.GEOM_COLS
-        # the blocks a tile is cut into, forced, where tiles are few
-        splits = (1, 2, 4, 8) if shape == "image_fitting" else ()
-        pad = (torch.arange(cap, device=rows.device)[None] >= counts[:, None]).reshape(-1)
-        ranges = RP.split_count(T, rows.device, RP.MAX_RANGES)
+    tc = 1024
+    max_e = P.max_entries_per_tile(tc)
+    # kernel 2 on the training path's stream
+    args, _, _ = C.kernel_inputs(bench, max_tiles_per_gauss=16, isect_capacity=cap)
+    means2d, conics, colors, opac, W, H, ts, offsets, ids = args
+    D = colors.shape[-1]
+    tw, th = -(-W // ts), -(-H // ts)
+    img, trans = P.rasterize_packed_train_fwd(*args, tile_capacity=tc)
+    v_img, v_t = torch.randn(img.shape, generator=g, device=C.DEVICE), torch.randn(
+        trans.shape, generator=g, device=C.DEVICE)
+    L = ids.shape[0]
 
-        def k10(lib, earlier=False):
-            fn = _entry(lib, "tdgs_rasterize_dense_bwd", 7, 6 if earlier else 7)
-            out = torch.empty_like(rows)
-            extra = () if earlier else (ranges,)
-            return lambda: _call(fn, rows, counts, img, trans, v_img, v_t, out, *geo, D, cap,
-                                 *extra) or out.view(-1, F)
+    def k2(lib):
+        fn = _entry(lib, "tdgs_rasterize_packed_bwd", 11, 8, slots=True)
+        out = torch.empty((L, 6 + D), device=C.DEVICE)
+        return lambda: _call(fn, means2d, conics, opac, colors, offsets, ids, img, trans, v_img,
+                             v_t, out, 1, W, H, ts, tw, th, D, max_e, L) or out
 
-        fns = {f"k10_{v}": k10(libs[f"k10_{v}"], True) for v in ABLATION_K10.values()}
-        fns.update({name: k10(libs[name]) for name in designs if name.startswith("k10_")})
-        fns.update({f"tree_split_{s}": functools.partial(
-            lambda s: RP._launch_dense_bwd(rows, counts, *geo, img, trans, v_img, v_t,
-                                           n_split=s).view(-1, F), s) for s in splits})
-        fns["tree"] = lambda: RP.rasterize_dense_bwd(rows, counts, *geo, img, trans, v_img,
-                                                     v_t).view(-1, F)
-        plain = RP.rasterize_dense_bwd_plain(rows, counts, *geo, img, trans, v_img, v_t)
-        result = compare("k10", fns, plain.view(-1, F), C.GROUPS, pad)
-        # (pixel, slot) evaluations, live ones, warp-slots with a live
-        # lane, batches
-        lib = libs["k10_count_a_committed"]
-        result.update(shape=shape, n_split=ranges,
-                      counts={"a_committed": _counts(lib, k10(lib, True))})
-        print(json.dumps(result), flush=True)
+    # kernel 8 on kernel 7's bench inputs
+    rows7, d7, o7, off7, I7, D7, W7, H7, ts7 = geo7
+    img7, t7 = E.rasterize_eval3d_train_fwd(*geo7, tc)
+    v_img7, v_t7 = torch.randn(img7.shape, generator=g, device=C.DEVICE), torch.randn(
+        t7.shape, generator=g, device=C.DEVICE)
 
-        parts = RP.split_count(T, rows.device, geo[3] * geo[3] // 32)
+    def k8(lib):
+        fn = _entry(lib, "tdgs_rasterize_eval3d_bwd", 11, 8, slots=True)
+        out, vd = torch.empty_like(rows7), torch.empty_like(d7)
+        return lambda: _call(fn, rows7, d7, o7, off7, img7, t7, v_img7, v_t7, out, vd, None, I7,
+                             W7, H7, ts7, tw, th, D7, max_e, rows7.shape[0]) or (out, vd)
 
-        def k9(lib, earlier=False):
-            fn = _entry(lib, "tdgs_rasterize_dense_fwd", 4, 6 if earlier else 7)
-            out_c, out_t = torch.empty_like(img), torch.empty_like(trans)
-            extra = () if earlier else (parts,)
-            return lambda: _call(fn, rows, counts, out_c, out_t, *geo, D, cap,
-                                 *extra) or (out_c, out_t)
+    # kernels 9 and 10 at the bench frame's dense shape
+    rows, counts, _ = C.kernel_inputs_dense(bench, tc, max_tiles_per_gauss=16,
+                                            isect_capacity=C.dense_capacity(bench))
+    geo = (1, W, H, 16)
+    cap9 = rows.shape[1]
+    img9, trans9 = RP.rasterize_dense_fwd(rows, counts, *geo)
+    v_img9, v_t9 = torch.randn(img9.shape, generator=g, device=C.DEVICE), torch.randn(
+        trans9.shape, generator=g, device=C.DEVICE)
 
-        fns = {f"k9_{v}": k9(libs[f"k9_{v}"], True) for v in ABLATION_K9.values()}
-        fns.update({name: k9(libs[name]) for name in designs if name.startswith("k9_")})
-        fns.update({f"tree_split_{s}": functools.partial(
-            lambda s: RP._launch_dense_fwd(rows, counts, *geo, n_split=s), s)
-            for s in splits})
-        fns["tree"] = lambda: RP.rasterize_dense_fwd(rows, counts, *geo)
-        result = compare("k9", fns, RP.rasterize_dense_fwd_plain(rows, counts, *geo))
-        # per warp-batch: slots offered to the cull, kept; (pixel, slot)
-        # evaluations
-        lib = libs["k9_cull_counters"]
-        result.update(shape=shape, n_split=parts,
-                      counts={"tree_cull": _counts(lib, k9(lib))[:3]})
+    def k9(lib):
+        fn = _entry(lib, "tdgs_rasterize_dense_fwd", 4, 7)
+        out_c, out_t = torch.empty_like(img9), torch.empty_like(trans9)
+        return lambda: _call(fn, rows, counts, out_c, out_t, *geo, rows.shape[2] - 6, cap9,
+                             1) or (out_c, out_t)
+
+    def k10(lib):
+        fn = _entry(lib, "tdgs_rasterize_dense_bwd", 7, 7)
+        out = torch.empty_like(rows)
+        return lambda: _call(fn, rows, counts, img9, trans9, v_img9, v_t9, out, *geo,
+                             rows.shape[2] - 6, cap9, 1) or out
+
+    for kernel, make in (("k2", k2), ("k8", k8), ("k9", k9), ("k10", k10)):
+        source = {"k2": "rasterize_packed_bwd", "k8": "rasterize_eval3d_bwd",
+                  "k9": "rasterize_dense_fwd", "k10": "rasterize_dense_bwd"}[kernel]
+        fns = {"earlier": make(libs[f"earlier_{source}"]), "tree": make(_build.load(source))}
+        if kernel == "k9":
+            fns = {"earlier": fns["earlier"], "own_walk": make(libs["k9_own_walk"]),
+                   "tree": fns["tree"]}
+        result = compare(kernel, fns)
+        result.update(shape="bench")
         print(json.dumps(result), flush=True)
 
 
@@ -445,9 +753,20 @@ def main(argv) -> int:
     prev = Path(argv[0]).resolve()
     _build.build()
     libs = build_all(prev)
-    print(json.dumps({"device": C.nvidia_smi(), "build_s": time.perf_counter() - t0}),
-          flush=True)
-    run_dense(libs, C.to_card(C.bench_scene()))
+    tree = {name: _registers(log) for name, log in _build.BUILD_LOGS.items()}
+    print(json.dumps({"device": C.nvidia_smi(), "build_s": time.perf_counter() - t0,
+                      "ptxas": PTXAS, "ptxas_tree": tree}), flush=True)
+    bench = C.to_card(C.bench_scene())
+    cap = C.bench_capacity(bench)
+    geo7 = run_k7(libs, bench, cap)
+    run_k7(libs, bench, cap, "bench_rolling_shutter")
+    args, _, _ = C.kernel_inputs(bench, max_tiles_per_gauss=16)
+    run_k1(libs, "bench", args, None, SPLITS)
+    rally = C.to_card(C.rally_scene())
+    bg = torch.full((1, 3), C.DOMINO_BACKGROUND, device=C.DEVICE)
+    args, bg, _ = C.kernel_inputs(rally, backgrounds=bg, isect_exact=True)
+    run_k1(libs, "rally", args, bg, SPLITS)
+    run_kept(libs, bench, cap, geo7)
     print(json.dumps({"seconds": time.perf_counter() - t0, "device": C.nvidia_smi()}),
           flush=True)
     return 0

@@ -1,6 +1,6 @@
-// A conservative cull of 3DGS slots against a warp's pixels, for the
-// tile-dense kernels 9 and 10: a warp skips a slot that no pixel of its
-// box can include, so its output is bitwise that of walking the slot.
+// A conservative cull of 3DGS entries (slots) against a warp's pixels, for
+// the compositing kernels 1, 9 and 10: a warp skips a slot that no pixel of
+// its box can include, so its output is bitwise that of walking the slot.
 #pragma once
 
 #include <cuda_runtime.h>

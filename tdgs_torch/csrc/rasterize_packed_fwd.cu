@@ -19,26 +19,34 @@
 // FMAs, one expf and D colour FMAs each -- against the FP32 and SFU rates;
 // and the bytes of the gathered feature rows (flatten id + 6 + D floats per
 // entry) plus the image writes. Early termination makes both depend on the
-// data.
+// data. Measured on the H100 (kernel_ab.py, the earlier design: a block
+// gathering batches of 256 entries synchronously, every pixel evaluating
+// every entry), the staging cost nothing at the bench shape, and at the
+// rally's (773 of 8,160 tiles hold entries, many cut at 1,024) the longest
+// block lasted 96% of the launch: a chain of latencies, not the card's rate.
 //
-// This first design: one block per 16x16 tile, one thread per pixel. Each
-// batch of up to blockDim entries is gathered cooperatively from the
-// per-gaussian rows (the block reads flatten_ids itself, so no packed copy
-// of the stream is materialised) into shared memory, where every pixel of
-// the tile reads it as a broadcast. Each pixel walks the batch front to
-// back and stops at its own cutoff; the block stops fetching once every
-// pixel is done (__syncthreads_count). Colours are accumulated in registers
-// (templated channel bound), written straight into the [I, H, W, D] image,
-// with pixels beyond the image edge masked.
+// Design: kernel 9's walk (composite_walk.cuh), with the rows read through
+// flatten_ids as kernel 2 reads them: one thread per pixel; the block
+// stages each batch of 32 entries asynchronously and double-buffered
+// (cp.async), each thread loading the gaussian id of its lane's entry a
+// batch ahead and copying that gaussian's fields from means2d, conics,
+// opacities and colors into the padded rows of row_stage.cuh (no packed copy
+// of the stream is materialised); each warp culls the entries that cannot
+// reach its pixels (conic_cull.cuh) and walks the rest; each pixel stops at
+// its own cutoff and the block once every pixel is done. A tile's warps
+// share one block, or n_split blocks (the wrapper's choice; the output does
+// not depend on it). Colours accumulate in registers (templated channel
+// bound) and are written straight into the [I, H, W, D] image, with pixels
+// beyond the image edge masked.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "composite_walk.cuh"
+
 namespace {
 
-constexpr float kAlphaClamp = 0.999f;
-constexpr float kAlphaThreshold = 1.0f / 255.0f;
-constexpr float kTransmittanceEps = 1e-4f;
+using tdgsstage::kBatch;
 
 template <int CMAX>
 __global__ void rasterize_packed_fwd_kernel(
@@ -52,25 +60,25 @@ __global__ void rasterize_packed_fwd_kernel(
     float* __restrict__ out_colors,         // [I, H, W, D]
     float* __restrict__ out_alphas,         // [I, H, W]
     int width, int height, int tile_size, int tile_width,
-    int tiles_per_image, int D, int max_entries, int write_transmittance) {
-  extern __shared__ float4 smem_raw[];
-  const int block = blockDim.x;
-  float2* s_xy = reinterpret_cast<float2*>(smem_raw);        // [block]
-  float* s_conic = reinterpret_cast<float*>(s_xy + block);   // [block, 3]
-  float* s_op = s_conic + 3 * block;                         // [block]
-  float* s_col = s_op + block;                               // [block, D]
+    int tiles_per_image, int D, int max_entries, int write_transmittance, int n_split) {
+  extern __shared__ float4 smem4[];
+  float* s_batches = reinterpret_cast<float*>(smem4);  // two batches
+  const int n_warps = blockDim.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / n_split;
+  const int part = blockIdx.x - t * n_split;
   const int image = t / tiles_per_image;
   const int t_in = t - image * tiles_per_image;
   const int ty = t_in / tile_width;
   const int tx = t_in - ty * tile_width;
-  const int tid = threadIdx.x;
-  const int px = tx * tile_size + tid % tile_size;
-  const int py = ty * tile_size + tid / tile_size;
+  const int p = part * blockDim.x + tid;  // the pixel within its tile
+  const int px = tx * tile_size + p % tile_size;
+  const int py = ty * tile_size + p / tile_size;
   const bool inside = px < width && py < height;
-  const float fx = static_cast<float>(px) + 0.5f;
-  const float fy = static_cast<float>(py) + 0.5f;
+  const tdgswalk::Pixel centre = tdgswalk::pixel(px, py);
 
   const int start = offsets[t];
   const int count = min(offsets[t + 1] - start, max_entries);
@@ -81,49 +89,24 @@ __global__ void rasterize_packed_fwd_kernel(
   float T = 1.f;
   bool done = !inside;
 
-  for (int b0 = 0; b0 < count; b0 += block) {
-    // also the barrier that keeps the previous batch alive until read
-    if (__syncthreads_count(done) == block) break;
-    const int e = b0 + tid;
-    if (e < count) {
-      const int64_t g = flatten_ids[start + e];
-      s_xy[tid] = make_float2(means2d[2 * g], means2d[2 * g + 1]);
-      s_conic[3 * tid] = conics[3 * g];
-      s_conic[3 * tid + 1] = conics[3 * g + 1];
-      s_conic[3 * tid + 2] = conics[3 * g + 2];
-      s_op[tid] = opacities[g];
-      for (int c = 0; c < D; ++c) s_col[tid * D + c] = colors[g * D + c];
-    }
-    __syncthreads();
-    const int n = min(block, count - b0);
-    for (int k = 0; k < n && !done; ++k) {
-      // sigma and alpha round each operation on its own (the _rn
-      // intrinsics are never contracted into FMAs), as the plain PyTorch
-      // version does, so the sigma < 0 and 1/255 tests agree bit for bit
-      const float2 xy = s_xy[k];
-      const float dx = __fsub_rn(xy.x, fx);
-      const float dy = __fsub_rn(xy.y, fy);
-      const float quad = __fadd_rn(
-          __fmul_rn(__fmul_rn(s_conic[3 * k], dx), dx),
-          __fmul_rn(__fmul_rn(s_conic[3 * k + 2], dy), dy));
-      const float sigma = __fadd_rn(
-          __fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(s_conic[3 * k + 1], dx), dy));
-      if (sigma < 0.f) continue;
-      const float alpha = fminf(kAlphaClamp, __fmul_rn(s_op[k], expf(-sigma)));
-      if (alpha < kAlphaThreshold) continue;
-      const float next_T = __fmul_rn(T, __fsub_rn(1.f, alpha));
-      if (next_T <= kTransmittanceEps) {
-        done = true;
-        break;
-      }
-      const float w = alpha * T;
-#pragma unroll
-      for (int c = 0; c < CMAX; ++c) {
-        if (c < D) acc[c] += w * s_col[k * D + c];
-      }
-      T = next_T;
-    }
-  }
+  // Thread (warp, lane) copies field `warp` (and every n_warps-th after it)
+  // of entry `lane`, so it needs the gaussian of its lane's entry alone,
+  // which it loads a batch ahead.
+  const auto gaussian = [&](int from) {
+    return from + lane < count ? flatten_ids[start + from + lane] : -1;
+  };
+  int g_next = -1;
+  tdgswalk::walk<CMAX>(
+      s_batches, count, D, centre, acc, T, done, [&](int from, float* dst) {
+        const int64_t g = from == 0 ? gaussian(0) : g_next;
+        g_next = gaussian(from + kBatch);
+        tdgsstage::stage(dst, g >= 0, lane, warp, n_warps, D, [&](int f) {
+          return f < 2   ? means2d + 2 * g + f
+                 : f < 5 ? conics + 3 * g + (f - 2)
+                 : f < 6 ? opacities + g
+                         : colors + g * D + (f - 6);
+        });
+      });
 
   if (!inside) return;
   const int64_t pix = (static_cast<int64_t>(image) * height + py) * width + px;
@@ -146,37 +129,36 @@ cudaError_t launch(const float* means2d, const float* conics,
                    const float* backgrounds, float* out_colors,
                    float* out_alphas, int n_tiles, int width, int height,
                    int tile_size, int tile_width, int tiles_per_image, int D,
-                   int max_entries, int write_transmittance,
+                   int max_entries, int write_transmittance, int n_split,
                    cudaStream_t stream) {
-  const int block = tile_size * tile_size;
-  const size_t smem = static_cast<size_t>(block) * (6 + D) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rasterize_packed_fwd_kernel<CMAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  rasterize_packed_fwd_kernel<CMAX><<<n_tiles, block, smem, stream>>>(
+  const int block = tile_size * tile_size / n_split;
+  // two batches of at most 32 x (8 + 32) floats: 10 KB
+  const size_t smem = static_cast<size_t>(2) * tdgsstage::batch_floats(D) * sizeof(float);
+  rasterize_packed_fwd_kernel<CMAX><<<n_tiles * n_split, block, smem, stream>>>(
       means2d, conics, opacities, colors, offsets, flatten_ids, backgrounds,
       out_colors, out_alphas, width, height, tile_size, tile_width,
-      tiles_per_image, D, max_entries, write_transmittance);
+      tiles_per_image, D, max_entries, write_transmittance, n_split);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t (0 on success). `backgrounds` may be null;
-// `write_transmittance` != 0 writes T_out into `out_alphas`.
+// `write_transmittance` != 0 writes T_out into `out_alphas`. D <= 32; tiles
+// of a whole number of warps, at most 1024 pixels; n_split divides a tile's
+// warps (the output does not depend on it).
 extern "C" int tdgs_rasterize_packed_fwd(
     const float* means2d, const float* conics, const float* opacities,
     const float* colors, const int32_t* offsets, const int32_t* flatten_ids,
     const float* backgrounds, float* out_colors, float* out_alphas,
     int n_images, int width, int height, int tile_size, int tile_width,
-    int tile_height, int D, int max_entries, int write_transmittance,
+    int tile_height, int D, int max_entries, int write_transmittance, int n_split,
     void* stream) {
   const int tiles_per_image = tile_width * tile_height;
   const int n_tiles = n_images * tiles_per_image;
-  if (tile_size <= 0 || tile_size * tile_size > 1024 || D <= 0 || D > 32) {
+  const int block = tile_size * tile_size;
+  if (tile_size <= 0 || block > 1024 || block % 32 != 0 || D <= 0 || D > 32 ||
+      n_split < 1 || (block / 32) % n_split != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_tiles == 0) return static_cast<int>(cudaSuccess);
@@ -185,7 +167,7 @@ extern "C" int tdgs_rasterize_packed_fwd(
   launch<CM>(means2d, conics, opacities, colors, offsets, flatten_ids,       \
              backgrounds, out_colors, out_alphas, n_tiles, width, height,    \
              tile_size, tile_width, tiles_per_image, D, max_entries,         \
-             write_transmittance, s)
+             write_transmittance, n_split, s)
   cudaError_t err;
   if (D <= 4) {
     err = TDGS_LAUNCH(4);

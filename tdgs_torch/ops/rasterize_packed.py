@@ -30,6 +30,8 @@ TRANSMITTANCE_EPS = 1e-4
 CHUNK = 128
 KERNEL = "rasterize_packed_fwd"
 KERNEL_BWD = "rasterize_packed_bwd"
+# kernel name -> the blocks a tile of its last launch (kernels 1, 9 and 10)
+BLOCKS_A_TILE = {}
 MAX_CHANNELS = 32
 
 
@@ -279,9 +281,21 @@ def _device_kind(t):
 def _load_fwd():
     lib = _build.load(KERNEL)
     fn = lib.tdgs_rasterize_packed_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def split_count(n_tiles, device, most):
+    """The blocks that share each tile in kernels 1, 9 and 10: the largest
+    power of two up to ``most`` that keeps the launch within two blocks per
+    SM of the card (1 wherever tiles are many: 8,160 at 1080p; 4 at image
+    fitting's 64 on a card of 132 SMs)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    s = 1
+    while 2 * s <= most and 2 * s * n_tiles <= 2 * sms:
+        s *= 2
+    return s
 
 
 def _load_bwd():
@@ -316,9 +330,11 @@ def _check_stream(means2d, conics, colors, opacities, image_width, image_height,
 
 def _launch_fwd(means2d, conics, colors, opacities, image_width, image_height,
                 tile_size, offsets, flatten_ids, backgrounds, tile_capacity,
-                write_transmittance):
+                write_transmittance, n_split=None):
     """Kernel 1 on CUDA tensors → (colors [I, H, W, D], alphas or, with
-    ``write_transmittance``, T [I, H, W, 1])."""
+    ``write_transmittance``, T [I, H, W, 1]), each tile's warps in
+    ``n_split`` blocks (default ``split_count``, at least two for tiles of
+    8 warps or more; the output does not depend on it)."""
     device = means2d.device
     image_dims, I, N, D, tw, th = _check_stream(
         means2d, conics, colors, opacities, image_width, image_height,
@@ -326,6 +342,15 @@ def _launch_fwd(means2d, conics, colors, opacities, image_width, image_height,
     )
     if backgrounds is not None:
         _check("backgrounds", backgrounds, torch.float32, device, image_dims + (D,))
+    warps = tile_size * tile_size // 32
+    if n_split is None:
+        # tiles of 8 warps or more in at least two blocks: where a few long
+        # tiles set the time (the rally's), their warps spread over twice
+        # the SMs (-11% there, +0.8% at the bench frame's even tiles;
+        # kernel_ab.py on the H100)
+        n_split = max(split_count(I * tw * th, device, warps), 2 if warps >= 8 else 1)
+    if n_split < 1 or warps % n_split:
+        raise ValueError(f"n_split {n_split}: must divide the {warps} warps of a tile")
     out_c = torch.empty((I, image_height, image_width, D), dtype=torch.float32,
                         device=device)
     out_a = torch.empty((I, image_height, image_width, 1), dtype=torch.float32,
@@ -339,11 +364,12 @@ def _launch_fwd(means2d, conics, colors, opacities, image_width, image_height,
             None if backgrounds is None else backgrounds.data_ptr(),
             out_c.data_ptr(), out_a.data_ptr(),
             I, image_width, image_height, tile_size, tw, th, D,
-            max_entries_per_tile(tile_capacity), int(write_transmittance), stream,
+            max_entries_per_tile(tile_capacity), int(write_transmittance), n_split, stream,
         )
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with cudaError_t {err}")
     _build.count_launch(KERNEL)
+    BLOCKS_A_TILE[KERNEL] = n_split
     return out_c, out_a
 
 

@@ -39,6 +39,7 @@ import torch
 from tdgs_torch.ops import _build
 from tdgs_torch.ops.rasterize_jax import gather_tile_gaussians
 from tdgs_torch.ops.rasterize_packed import (
+    BLOCKS_A_TILE,
     _check,
     _device_kind,
     _launch,
@@ -46,6 +47,7 @@ from tdgs_torch.ops.rasterize_packed import (
     _response_3dgs,
     backward_walk,
     composite_walk,
+    split_count,
 )
 from tdgs_torch.ops.segment_sum import gather_rows_segsum
 
@@ -55,8 +57,6 @@ CHUNK = 128
 MAX_CHANNELS = 32
 GEOM_COLS = 6  # mx, my, a, b, c, opacity
 MAX_RANGES = 8  # kernel 10: the most blocks a tile's slots are cut into
-# kernel name -> the blocks a tile of its last launch
-BLOCKS_A_TILE = {}
 
 
 def dense_rows(means2d, conics, colors, opacities, isect_offsets, flatten_ids, n_isects,
@@ -141,18 +141,6 @@ def _check_rows(rows, counts, n_images, image_width, image_height, tile_size):
         raise ValueError(f"tile_size {tile_size}: one thread per pixel, whole "
                          "warps, at most 1024")
     return T, cap, D
-
-
-def split_count(n_tiles, device, most):
-    """The blocks that share each tile in kernels 9 and 10: the largest power
-    of two up to ``most`` that keeps the launch within two blocks per SM of
-    the card (1 wherever tiles are many: 8,160 at 1080p; 4 at image
-    fitting's 64 on a card of 132 SMs)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    s = 1
-    while 2 * s <= most and 2 * s * n_tiles <= 2 * sms:
-        s *= 2
-    return s
 
 
 def rasterize_dense_fwd(rows, counts, n_images, image_width, image_height, tile_size):

@@ -1102,3 +1102,366 @@ def test_bwd_kernel_adversarial_layouts_on_card(cuda_device, layout):
     if layout == "tile_truncated_at_128":
         start = int(offsets[4])
         assert float(first[start + 128:start + 300].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1 and 7: the contract of each call, and the per-warp culls on
+# layouts that graze them
+# ---------------------------------------------------------------------------
+
+
+def _k1_stream(seed, D, n_images=1, tile_size=16, N=300):
+    """Kernel 1's operands for ``n_images`` images of random screen-space
+    gaussians, tiled by the port on the CPU."""
+    rng = np.random.default_rng(seed)
+    I = n_images
+    means2d = rng.uniform(0, [W, H], size=(I, N, 2)).astype(np.float32)
+    A = rng.normal(size=(I, N, 2, 2)).astype(np.float32)
+    cov = A @ np.swapaxes(A, -1, -2) + 2.0 * np.eye(2, dtype=np.float32)
+    inv = np.linalg.inv(cov)
+    conics = np.stack([inv[..., 0, 0], inv[..., 0, 1], inv[..., 1, 1]], -1)
+    radii = np.maximum(np.ceil(3.33 * np.sqrt(np.stack(
+        [cov[..., 0, 0], cov[..., 1, 1]], -1))), 10).astype(np.int32)
+    depths = rng.uniform(0.1, 10, size=(I, N)).astype(np.float32)
+    isect = isect_tiles_packed(torch.from_numpy(means2d), torch.from_numpy(radii),
+                               torch.from_numpy(depths), tile_size, -(-W // tile_size),
+                               -(-H // tile_size),
+                               max_tiles_per_gauss=16 * (16 // tile_size) ** 2)
+    return (torch.from_numpy(means2d), torch.from_numpy(conics.astype(np.float32)),
+            torch.from_numpy(rng.uniform(0, 1, size=(I, N, D)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0.05, 0.95, size=(I, N)).astype(np.float32)),
+            W, H, tile_size, isect.offsets, isect.flatten_ids)
+
+
+def _assert_k1(args, tile_capacity, bg, tiles=None):
+    """Kernel 1's inference call (with ``bg``) and training call: within
+    ATOL of the plain versions (on the pixels of ``tiles``, default all),
+    two launches bit for bit equal, and the output bitwise independent of
+    the blocks each tile is cut into."""
+    from tdgs_torch.ops import rasterize_packed as P
+
+    tc = tile_capacity
+    warps = args[6] * args[6] // 32
+    got = P.rasterize_to_pixels_packed_inference(*args, backgrounds=bg, tile_capacity=tc)
+    train = P.rasterize_packed_train_fwd(*args, tile_capacity=tc)
+    want = P.rasterize_to_pixels_packed_inference_plain(*args, backgrounds=bg, tile_capacity=tc)
+    want_train = P.rasterize_packed_train_fwd_plain(*args, tile_capacity=tc)
+    torch.cuda.synchronize()
+    mask = torch.ones(want[1].shape[:-1], dtype=torch.bool, device=want[1].device)
+    if tiles is not None:
+        mask = tiles
+    for g, w in ((got[0], want[0]), (got[1], want[1]), (train[0], want_train[0]),
+                 (train[1][..., None], want_train[1][..., None])):
+        assert bool(torch.isfinite(g[mask]).all())
+        torch.testing.assert_close(g[mask], w[mask], rtol=0, atol=ATOL)
+    again = P.rasterize_to_pixels_packed_inference(*args, backgrounds=bg, tile_capacity=tc)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for s in [d for d in (1, 2, 4, 8) if warps % d == 0]:
+        split = P._launch_fwd(*args, bg, tc, False, n_split=s)
+        assert all(torch.equal(a, b.reshape(a.shape)) for a, b in zip(got, split)), s
+        split = P._launch_fwd(*args, None, tc, True, n_split=s)
+        assert torch.equal(split[0], train[0]) and torch.equal(split[1][..., 0], train[1]), s
+    return got, train
+
+
+@pytest.mark.cuda
+# every templated channel bound (4, 8, 16, 32), tiles of 16 and 8 pixels,
+# one and two images
+@pytest.mark.parametrize("D,tile_size,n_images", [(1, 16, 1), (3, 16, 2), (4, 8, 1),
+                                                  (8, 16, 1), (16, 8, 2), (32, 16, 1)])
+def test_kernel_1_calls_on_card(cuda_device, D, tile_size, n_images):
+    """Kernel 1's inference call with backgrounds and its training call,
+    with and without the cut at tile_capacity = 128: within ATOL of the
+    plain versions, bitwise repeatable and independent of the split."""
+    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                 for a in _k1_stream(300 + D, D, n_images, tile_size))
+    assert int(torch.diff(args[7].long()).max()) > 128  # some tile is cut
+    bg = torch.linspace(0.1, 0.9, D, device=cuda_device).repeat(n_images, 1)
+    for tc in (128, 1024):
+        got, _ = _assert_k1(args, tc, bg)
+    assert float(got[1].max()) > 0.5  # the gaussians cover pixels
+
+
+CULL_LAYOUTS_K1 = ["tiles_of_0_1_31_32_33_entries", "tile_truncated_at_128",
+                   "every_pixel_cut_off_in_the_first_batch", "means_inside_one_warp",
+                   "grazing_the_threshold", "op_at_1_255", "scales_1e-4_against_1",
+                   "nan_rows"]
+
+
+def _k1_cull_layout(name, rng, D=3):
+    """Kernel 1's operands on the 3 x 2 tiles of LW x LH: one gaussian per
+    entry, in stream order tile by tile (flatten ids 0..n-1, zero ids in
+    the padding); and the tile capacity."""
+    if name in BWD_LAYOUTS:
+        tiles, tc = _bwd_layout(name, rng)
+        ent, offsets, L = _layout_stream(tiles)
+        return _layout_args_packed(ent, offsets, L, D, rng), tc
+    n = 96
+    tile = rng.integers(0, 6, n)
+    ox, oy = 16.0 * (tile % 3), 16.0 * (tile // 3)
+    # a pixel centre of the tile, and a gaussian near it
+    px = ox + rng.integers(0, 16, n) + 0.5
+    py = oy + rng.integers(0, 16, n) + 0.5
+    mean = np.stack([px, py], -1) + rng.uniform(-0.5, 0.5, (n, 2))
+    size = rng.uniform(0.5, 3.0, n)
+    th = rng.uniform(0, np.pi, n)
+    stretch = np.ones((n, 2))
+    op = rng.uniform(0.05, 0.95, n)
+    if name == "means_inside_one_warp":
+        # small, faint gaussians on pixel rows 2-3 of their tile: one warp
+        # of the tile sees them
+        mean[:, 1] = oy + rng.uniform(2.0, 4.0, n)
+        size = rng.uniform(0.2, 0.6, n)
+    elif name == "grazing_the_threshold":
+        # isotropic, alpha within 0.1% of 1/255 at the pixel centre nearest
+        # the mean, 1-3 pixels off a warp's rows
+        mean[:, 1] = oy + 2.0 * rng.integers(0, 8, n) - rng.uniform(1.0, 3.0, n)
+        near_y = np.clip(np.floor(mean[:, 1]) + 0.5, oy + 0.5, oy + 15.5)
+        sigma = rng.uniform(1.0, 4.0, n)
+        dist = np.abs(mean[:, 1] - near_y)
+        size = dist / np.sqrt(2 * sigma)
+        mean[:, 0] = px
+        op = np.minimum(np.exp(sigma) / 255 * rng.uniform(0.999, 1.001, n), 1.0)
+    elif name == "op_at_1_255":
+        # op = 1/255 on a pixel centre (alpha = 1/255 there: included), just
+        # above it, and up to 3 times it
+        op[0::3] = np.float32(1 / 255)
+        mean[0::3] = np.stack([px, py], -1)[0::3]
+        op[1::3] = np.nextafter(np.float32(1 / 255), np.float32(1))
+        op[2::3] = rng.uniform(1.0, 3.0, len(op[2::3])) / 255
+        size = rng.uniform(2.0, 8.0, n)
+    elif name == "scales_1e-4_against_1":
+        stretch = np.stack([np.full(n, 1e-4), np.ones(n)], -1)
+        size = rng.uniform(1.0, 20.0, n)
+    order = np.argsort(tile, kind="stable")
+    mean, size, th, stretch, op, tile = (x[order] for x in (mean, size, th, stretch, op, tile))
+    conics = np.zeros((1, n, 3), np.float32)
+    for i in range(n):
+        R = np.array([[np.cos(th[i]), -np.sin(th[i])], [np.sin(th[i]), np.cos(th[i])]])
+        inv = R @ np.diag(1.0 / (size[i] * stretch[i]) ** 2) @ R.T
+        conics[0, i] = [inv[0, 0], inv[0, 1], inv[1, 1]]
+    if name == "nan_rows":  # the first entry of tiles 0, 2 and 4
+        first = np.searchsorted(tile, [0, 2, 4])
+        conics[0, first, 1] = np.nan
+    offsets = np.searchsorted(tile, np.arange(7)).astype(np.int32)
+    L = n + 37
+    ids = np.zeros(L, np.int32)
+    ids[:n] = np.arange(n)
+    return (torch.from_numpy(mean[None].astype(np.float32)), torch.from_numpy(conics),
+            torch.from_numpy(rng.uniform(0, 1, (1, n, D)).astype(np.float32)),
+            torch.from_numpy(op[None].astype(np.float32)), LW, LH, 16,
+            torch.from_numpy(offsets), torch.from_numpy(ids)), 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", CULL_LAYOUTS_K1)
+def test_kernel_1_cull_layouts_on_card(cuda_device, layout):
+    """Kernel 1 on tiles of few, many, cut and dead entries and on entries
+    that graze its cull (conic_cull.cuh): within ATOL of the plain version,
+    bitwise repeatable and independent of the split. A NaN conic makes
+    sigma NaN, which the kernel includes at alpha = 0.999: every pixel of
+    a tile that starts with one ends with T = 0.001 or less, so no warp
+    culled it (the plain version cuts such tiles off at the NaN and is not
+    held there)."""
+    rng = np.random.default_rng(70 + CULL_LAYOUTS_K1.index(layout))
+    args, tc = _k1_cull_layout(layout, rng)
+    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args)
+    bg = torch.tensor([[0.2, 0.5, 0.8]], device=cuda_device)
+    tiles = None
+    if layout == "nan_rows":
+        ty, tx = torch.meshgrid(torch.arange(LH) // 16, torch.arange(LW) // 16, indexing="ij")
+        nan_tile = ((ty * 3 + tx) % 2 == 0).to(cuda_device)  # tiles 0, 2 and 4
+        tiles = ~nan_tile[None]
+    _, train = _assert_k1(args, tc, bg, tiles)
+    if layout == "nan_rows":
+        assert bool(nan_tile.any())
+        assert float(train[1][0][nan_tile].max()) <= 1.001e-3
+
+
+def _eval3d_stream_tiles(seed, D, n_images, rolling_shutter, tile_size, N=300):
+    """``_eval3d_stream`` at any tile size: (rows, d, o', offsets)."""
+    from tdgs_torch.ops import rasterize_eval3d_packed as E
+    from tdgs_torch.ops.camera_models import RollingShutterType
+    from tdgs_torch.ops.projection import fully_fused_projection
+
+    rng = np.random.default_rng(seed)
+    means = (rng.normal(size=(N, 3)) * [1.0, 0.8, 0.5] + [0, 0, 5]).astype(np.float32)
+    quats = rng.normal(size=(N, 4)).astype(np.float32)
+    scales = rng.uniform(0.05, 0.3, size=(N, 3)).astype(np.float32)
+    viewmats = np.tile(np.eye(4, dtype=np.float32), (n_images, 1, 1))
+    viewmats[1:, :3, 3] = [0.3, -0.2, 0.1]
+    Ks = np.tile(np.array([[40.0, 0, W / 2], [0, 40, H / 2], [0, 0, 1]], np.float32),
+                 (n_images, 1, 1))
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(means=means, quats=quats, scales=scales, viewmats=viewmats, Ks=Ks).items()}
+    radii, means2d, depths, _, _ = fully_fused_projection(
+        t["means"], t["quats"], t["scales"], t["viewmats"], t["Ks"], W, H)
+    tw, th = -(-W // tile_size), -(-H // tile_size)
+    isect = isect_tiles_packed(means2d, radii, depths, tile_size, tw, th,
+                               max_tiles_per_gauss=16 * (16 // tile_size) ** 2)
+    rs = {}
+    if rolling_shutter:
+        end = t["viewmats"].clone()
+        end[:, 0, 3] += 0.15
+        rs = dict(rolling_shutter=RollingShutterType.TOP_TO_BOTTOM, viewmats_rs=end)
+    d, o, o_ref = E.tile_rays_world(n_images, tw, th, tile_size, W, H, t["viewmats"], t["Ks"],
+                                    **rs)
+    colors = torch.from_numpy(rng.uniform(0, 1, size=(n_images, N, D)).astype(np.float32))
+    opac = torch.from_numpy(rng.uniform(0.05, 0.95, size=(n_images, N)).astype(np.float32))
+    feats = E.feature_rows(t["means"], t["quats"], t["scales"], opac, colors, o_ref)
+    return (feats[isect.flatten_ids.long()].contiguous(), d.contiguous(),
+            None if o is None else o.contiguous(), isect.offsets)
+
+
+def _assert_k7(geo, tile_capacity, bg, keep=None):
+    """Kernel 7's inference call (with ``bg``) and training call: within
+    ATOL of the plain version (on the pixels ``keep``, default all) and two
+    launches bit for bit equal; returns the training call's outputs."""
+    from tdgs_torch.ops import rasterize_eval3d_packed as E
+
+    tc = tile_capacity
+    I, D = geo[4], geo[5]
+    img, alp = E.rasterize_eval3d_inference(*geo, bg, tc)
+    img_t, T = E.rasterize_eval3d_train_fwd(*geo, tc)
+    p_img, p_T, _ = E.rasterize_eval3d_fwd_plain(*geo, tc)
+    torch.cuda.synchronize()
+    keep = torch.ones_like(p_T, dtype=torch.bool) if keep is None else keep
+    with_bg = p_img + p_T[..., None] * bg.reshape(I, 1, 1, D)
+    for g, w in ((img, with_bg), (alp[..., 0], 1.0 - p_T), (img_t, p_img), (T, p_T)):
+        assert bool(torch.isfinite(g[keep]).all())
+        torch.testing.assert_close(g[keep], w[keep], rtol=0, atol=ATOL)
+    again = (E.rasterize_eval3d_inference(*geo, bg, tc), E.rasterize_eval3d_train_fwd(*geo, tc))
+    assert torch.equal(again[0][0], img) and torch.equal(again[0][1], alp)
+    assert torch.equal(again[1][0], img_t) and torch.equal(again[1][1], T)
+    return img_t, T
+
+
+@pytest.mark.cuda
+# every templated channel bound (4, 8, 16, 32; D = 3 and 7 make rows of
+# whole float4s: 16-byte copies), tiles of 16 and 8 pixels, one and two
+# images, central and rolling-shutter cameras
+@pytest.mark.parametrize("D,tile_size,n_images,rolling_shutter", [
+    (1, 16, 1, False), (3, 8, 2, True), (3, 16, 1, False), (7, 16, 2, True),
+    (8, 8, 1, False), (16, 16, 1, True), (32, 8, 2, False)])
+def test_kernel_7_calls_on_card(cuda_device, D, tile_size, n_images, rolling_shutter):
+    """Kernel 7's inference call with backgrounds and its training call,
+    with and without the cut at tile_capacity = 128: within ATOL of the
+    plain version and bitwise repeatable; rows that start off the 16-byte
+    grid (4-byte copies) give the same bits as aligned ones."""
+    dev = cuda_device
+    rows, d, o, offsets = (None if x is None else x.to(dev) for x in
+                           _eval3d_stream_tiles(400 + D, D, n_images, rolling_shutter,
+                                                tile_size))
+    assert int(torch.diff(offsets.long()).max()) > 128  # some tile is cut
+    geo = (rows, d, o, offsets, n_images, D, W, H, tile_size)
+    bg = torch.linspace(0.1, 0.9, D, device=dev).repeat(n_images, 1)
+    for tc in (128, 1024):
+        img, T = _assert_k7(geo, tc, bg)
+    assert float(T.min()) < 0.5  # the gaussians cover pixels
+    # the same rows one float past a 16-byte boundary
+    buf = torch.empty(rows.numel() + 1, device=dev)
+    shifted = buf[1:].view(rows.shape)
+    shifted.copy_(rows)
+    assert shifted.data_ptr() % 16 != 0
+    from tdgs_torch.ops import rasterize_eval3d_packed as E
+
+    got = E.rasterize_eval3d_train_fwd(shifted, *geo[1:], 1024)
+    assert torch.equal(got[0], img) and torch.equal(got[1], T)
+
+
+CULL_LAYOUTS_K7 = ["means_on_the_rays", "grazing_the_threshold",
+                   "grazing_the_threshold_rolling_shutter", "op_at_1_255",
+                   "scales_1e-4_against_1", "camera_inside_a_gaussian",
+                   "entries_behind_the_camera", "nan_opacity_rows"]
+
+
+def _k7_cull_layout(name, rng, n=64, D=3):
+    """Kernel 7's operands on the 3 x 2 tiles of LW x LH (focal length 40,
+    camera at the origin looking along +z): n world gaussians placed about
+    the pixel rays, every tile walking all of them in one order."""
+    from tdgs_torch.ops import rasterize_eval3d_packed as E
+    from tdgs_torch.ops.camera_models import RollingShutterType
+
+    viewmats = torch.eye(4)[None]
+    Ks = torch.tensor([[[40.0, 0, LW / 2], [0, 40.0, LH / 2], [0, 0, 1]]])
+    rs = {}
+    if name.endswith("_rolling_shutter"):
+        end = viewmats.clone()
+        end[:, 0, 3] += 0.15
+        rs = dict(rolling_shutter=RollingShutterType.TOP_TO_BOTTOM, viewmats_rs=end)
+    d, o, o_ref = E.tile_rays_world(1, 3, 2, 16, LW, LH, viewmats, Ks, **rs)
+    # a pixel ray each, a depth along it, a gaussian there
+    ray = d.reshape(-1, 3)[torch.as_tensor(rng.integers(0, d.shape[0] * d.shape[1], n))]
+    ray = ray.numpy().astype(np.float64)
+    depth = rng.uniform(2.0, 6.0, (n, 1))
+    side = np.cross(ray, [0.0, 1.0, 0.0])
+    side /= np.linalg.norm(side, axis=-1, keepdims=True)
+    up = np.cross(ray, side)
+    off = rng.uniform(-1.5, 1.5, (n, 2)) / 40.0 * depth  # up to 1.5 pixels off
+    means = depth * ray + off[:, :1] * side + off[:, 1:] * up
+    scales = rng.uniform(0.02, 0.1, (n, 3))
+    op = rng.uniform(0.05, 0.95, n)
+    if name.startswith("grazing_the_threshold"):
+        # spheres whose alpha = 1/255 surface passes within 10% of the
+        # nearest ray, 1-3 pixels off it
+        off = rng.uniform(1.0, 3.0, n) / 40.0 * depth[:, 0]
+        means = depth * ray + off[:, None] * up
+        s = off * rng.uniform(0.9, 1.1, n) / np.sqrt(2 * np.log(255 * op))
+        scales = np.repeat(s[:, None], 3, axis=-1)
+    elif name == "op_at_1_255":
+        # op = 1/255, just above it, and up to 3 times it, on the rays
+        means = depth * ray
+        op[0::3] = np.float32(1 / 255)
+        op[1::3] = np.nextafter(np.float32(1 / 255), np.float32(1))
+        op[2::3] = rng.uniform(1.0, 3.0, len(op[2::3])) / 255
+    elif name == "scales_1e-4_against_1":
+        scales = np.where(rng.random((n, 3)) < 0.5, 1e-4, 1.0)
+        scales[:, 0] = 1e-4
+    elif name == "camera_inside_a_gaussian":
+        means[: n // 4] = rng.uniform(-0.2, 0.2, (n // 4, 3))
+        scales[: n // 4] = rng.uniform(0.5, 1.0, (n // 4, 3))
+    elif name == "entries_behind_the_camera":
+        means[::2] *= -1.0
+    if name == "nan_opacity_rows":
+        op[0] = np.nan  # the first entry, kept in tiles 0, 2 and 4 below
+        means[0] = [0.0, 0.0, 4.0]
+        scales[0] = [0.05, 0.05, 0.05]
+    quats = rng.normal(size=(n, 4))
+    t32 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float32))  # noqa: E731
+    feats = E.feature_rows(t32(means), t32(quats), t32(scales), t32(op[None]),
+                           t32(rng.uniform(0, 1, (1, n, D))), o_ref)
+    T = d.shape[0]
+    rows = feats.repeat(T, 1).contiguous()  # each tile walks all n entries
+    if name == "nan_opacity_rows":
+        rows[n::2 * n, 12] = 0.5  # tiles 1, 3 and 5: an opacity of 0.5
+    offsets = torch.arange(T + 1, dtype=torch.int32) * n
+    return rows, d.contiguous(), None if o is None else o.contiguous(), offsets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", CULL_LAYOUTS_K7)
+def test_kernel_7_cull_layouts_on_card(cuda_device, layout):
+    """Kernel 7 on world gaussians that graze its cull (ray_cull.cuh): means
+    on the pixel rays, spheres whose threshold surface passes within 10% of
+    a ray, op at 1/255, scales 1e-4 against 1, a camera inside a gaussian,
+    entries behind the camera: within ATOL of the plain version and bitwise
+    repeatable. A NaN opacity makes alpha 0.999 wherever g.r < 0: every
+    pixel of a tile that starts with one ends with T = 0.001 or less, so no
+    warp culled the entry (the plain version cuts such tiles off at the NaN
+    and is not held there)."""
+    dev = cuda_device
+    rng = np.random.default_rng(80 + CULL_LAYOUTS_K7.index(layout))
+    rows, d, o, offsets = (None if x is None else x.to(dev)
+                           for x in _k7_cull_layout(layout, rng))
+    geo = (rows, d, o, offsets, 1, 3, LW, LH, 16)
+    bg = torch.tensor([[0.2, 0.5, 0.8]], device=dev)
+    nan_op = layout == "nan_opacity_rows"
+    keep = None
+    if nan_op:
+        ty, tx = torch.meshgrid(torch.arange(LH) // 16, torch.arange(LW) // 16, indexing="ij")
+        keep = ((ty * 3 + tx) % 2 == 1).to(dev)[None]  # tiles 1, 3 and 5
+    img, T = _assert_k7(geo, 1024, bg, keep)
+    if nan_op:
+        assert float(T[~keep].max()) <= 1.001e-3
+    else:
+        assert float(T.min()) < 0.99  # the gaussians reach pixels
