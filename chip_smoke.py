@@ -273,6 +273,18 @@ def graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def named_rows(offsets, ids, tile_capacity):
+    """(entries the tiles keep after the cut, distinct gaussians those
+    entries name)."""
+    starts = offsets[:-1].long()
+    counts = torch.clamp(torch.diff(offsets.long()), 0, max_entries_per_tile(tile_capacity))
+    entries = int(counts.sum())
+    # stream positions each tile reads: its start plus 0..count-1
+    pos = torch.arange(entries, device=ids.device) + torch.repeat_interleave(
+        starts - (torch.cumsum(counts, 0) - counts), counts, output_size=entries)
+    return entries, int(torch.unique(ids[pos]).numel())
+
+
 def kernel_work(args, tile_capacity):
     """(pixel, entry) evaluations (walked, live), bytes and the least time
     the card could take for one launch on these inputs."""
@@ -280,13 +292,7 @@ def kernel_work(args, tile_capacity):
     D = colors.shape[-1]
     n_images = means2d.numel() // (means2d.shape[-2] * 2)
     evals = pixel_entry_evaluations(*args, tile_capacity=tile_capacity)
-    starts = offsets[:-1].long()
-    counts = torch.clamp(torch.diff(offsets.long()), 0, max_entries_per_tile(tile_capacity))
-    entries = int(counts.sum())
-    # stream positions each tile reads: its start plus 0..count-1
-    pos = torch.arange(entries, device=ids.device) + torch.repeat_interleave(
-        starts - (torch.cumsum(counts, 0) - counts), counts, output_size=entries)
-    rows = int(torch.unique(ids[pos]).numel())
+    entries, rows = named_rows(offsets, ids, tile_capacity)
     # each input read once: the feature rows (means2d, conics, opacity,
     # colors) of the gaussians the cut ranges name, their flatten ids and
     # the offsets; colors and alphas written once
@@ -651,8 +657,10 @@ def measure_train_kernels(inputs, reps=20):
     fwd_graph_ms = graph_ms(lambda: rasterize_packed_train_fwd(*args, tile_capacity=tc), reps)
     fwd_plain = time_ms(lambda: rasterize_packed_train_fwd_plain(*args, tile_capacity=tc), 2)
 
-    bwd_ms = time_ms(lambda: rasterize_packed_bwd(*args, img, trans, v_img, v_t,
-                                                  tile_capacity=tc), reps)
+    def bwd():
+        rasterize_packed_bwd(*args, img, trans, v_img, v_t, tile_capacity=tc)
+
+    bwd_ms, bwd_graph_ms = time_ms(bwd, reps), graph_ms(bwd, reps)
     bwd_plain = time_ms(lambda: rasterize_packed_bwd_plain(*args, img, trans, v_img, v_t,
                                                            tile_capacity=tc), 1)
     n_pix = img.numel() // D
@@ -669,7 +677,8 @@ def measure_train_kernels(inputs, reps=20):
                      bound_ms=fwd["bound_ms"],
                      bound_by=fwd["bound_by"], library_ms=None,
                      evaluations=fwd["evaluations"], bytes=fwd["bytes"]),
-        KERNEL_BWD: dict(ms=bwd_ms, plain_ms=bwd_plain, bound_ms=max(t_b, t_o),
+        KERNEL_BWD: dict(ms=bwd_ms, device_graph_ms=bwd_graph_ms, plain_ms=bwd_plain,
+                         bound_ms=max(t_b, t_o),
                          bound_by="bytes" if t_b >= t_o else "operations",
                          library_ms=None, evaluations=fwd["evaluations"],
                          bytes=bwd_bytes, fp32_ops=n_bwd_ops),
@@ -886,37 +895,54 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100, rasterizer="pac
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs_2dgs(sc, render_mode="RGB+ED", distloss=True, **kw):
+def kernel_inputs_2dgs(sc, render_mode="RGB+ED", distloss=True, width=None, height=None,
+                       **kw):
     """The 2DGS kernels' inputs for one frame, built by the port's own
-    projection, SH and tiling (rasterization_2dgs's meta): stream-order
-    feature rows, offsets, the image count and the channel count D (3 for
-    "RGB", 4 with the depth channel that "RGB+ED" and distloss add)."""
+    projection, SH and tiling (rasterization_2dgs's meta): ``geo``, the
+    stream-order feature rows with the offsets, the image count, the
+    channel count D (3 for "RGB", 4 with the depth channel that "RGB+ED"
+    and distloss add) and the image's size, as kernels 5 and 6 take them;
+    and ``k4``, the per-gaussian rows at the inference kernel's stride with
+    the flatten ids and the rest of ``geo``, as kernel 4 takes them."""
+    width = WIDTH if width is None else width
+    height = HEIGHT if height is None else height
     out = tdgs_torch.rasterization_2dgs(
         sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
-        sc["viewmats"], sc["Ks"], WIDTH, HEIGHT, sh_degree=3, render_mode=render_mode,
+        sc["viewmats"], sc["Ks"], width, height, sh_degree=3, render_mode=render_mode,
         distloss=distloss, device=DEVICE, **kw)
     meta = out[6]
     colors = _colors_per_camera(sc["sh"], 3, sc["means"], sc["viewmats"], meta["radii"])
     if distloss or render_mode == "RGB+ED":
         colors = torch.cat([colors, meta["depths"][..., None]], -1)
-    feats = R2.feature_rows(meta["means2d"], meta["ray_transforms"], colors,
-                            meta["normals"], meta["opacities"])
-    rows = feats[meta["flatten_ids"].long()].contiguous()
-    return (rows, meta["isect_offsets"], 1, colors.shape[-1], WIDTH, HEIGHT,
-            meta["tile_size"]), meta
+    D = colors.shape[-1]
+    args = (meta["means2d"], meta["ray_transforms"], colors, meta["normals"],
+            meta["opacities"])
+    ids = meta["flatten_ids"]
+    rows = R2.feature_rows(*args)[ids.long()].contiguous()
+    rest = (meta["isect_offsets"], 1, D, width, height, meta["tile_size"])
+    feats = R2.feature_rows(*args, width=R2.padded_width(D))
+    return ((rows,) + rest, (feats, ids) + rest), meta
 
 
-def kernel_work_2dgs(args, tile_capacity, evaluations):
-    """Bytes and operations of kernels 4, 5 and 6 on these inputs, each
-    input read once and each output written once, and their bounds."""
+def kernel_work_2dgs(args, tile_capacity, evaluations, k4=None):
+    """Bytes and operations of kernels 4, 5 and 6 on these inputs (kernel
+    4's bytes from ``k4``, its inputs, where given), each input read once
+    and each output written once, and their bounds."""
     rows, offsets, n_images, D, W, H, _ = args
     DA, F = D + 3, rows.shape[1]
     counts = torch.clamp(torch.diff(offsets.long()), 0, max_entries_per_tile(tile_capacity))
     entries = int(counts.sum())
     n_pix = n_images * W * H
     read = entries * F * 4 + offsets.numel() * 4  # the cut ranges' rows, offsets
+    if k4 is not None:
+        # through flatten_ids: the rows of the gaussians the cut ranges
+        # name, their ids and the offsets
+        _, named = named_rows(offsets, k4[1], tile_capacity)
+        read_k4 = named * F * 4 + entries * 4 + offsets.numel() * 4
+    else:
+        read_k4 = read
     work = {
-        R2.KERNEL_FWD: (read + n_pix * (DA + 1) * 4,
+        R2.KERNEL_FWD: (read_k4 + n_pix * (DA + 1) * 4,
                         fwd_2dgs_ops(DA, False, evaluations)),
         R2.KERNEL_TRAIN: (read + n_pix * (DA + 3) * 4,
                           fwd_2dgs_ops(DA, True, evaluations)),
@@ -938,13 +964,14 @@ def _abs_err(a, b):
     return float((a - b).abs().max())
 
 
-def inference_errors(args, tile_capacity, plain, backgrounds=None):
-    """Kernel 4 against its plain version: ``plain`` is
-    rasterize_2dgs_fwd_plain's output on ``args``, with the background
-    blended as the wrapper's CPU path blends it. max|Δ| of colours, alpha
-    and normals, and whether the kernel's outputs are finite."""
-    I, D = args[2], args[3]
-    img, alp, nrm = R2.rasterize_2dgs_inference(*args, backgrounds, tile_capacity)
+def inference_errors(k4, tile_capacity, plain, backgrounds=None):
+    """Kernel 4 on ``k4`` against its plain version: ``plain`` is
+    rasterize_2dgs_fwd_plain's output on the same frame's stream-order
+    rows, with the background blended as the wrapper's CPU path blends it.
+    max|Δ| of colours, alpha and normals, and whether the kernel's outputs
+    are finite."""
+    I, D = k4[3], k4[4]
+    img, alp, nrm = R2.rasterize_2dgs_inference(*k4, backgrounds, tile_capacity)
     p_img, p_nrm, p_T = plain[:3]
     p_alp = 1.0 - p_T
     if backgrounds is not None:
@@ -960,37 +987,48 @@ def stream_stats(offsets, tile_capacity):
                 tiles_cut=int((counts > max_entries_per_tile(tile_capacity)).sum()))
 
 
-def parity_2dgs_inference(name, args, backgrounds, tile_capacity=1024):
-    """Kernel 4 as its main paths call it, "RGB" (D = 3): without a
-    background (the bench render) and with one blended in the kernel (the
-    Runner's eval). Fails above TOL."""
-    plain = R2.rasterize_2dgs_fwd_plain(*args, tile_capacity)
+def parity_2dgs_inference(name, inputs, backgrounds, tile_capacity=1024):
+    """Kernel 4 as its main paths call it, "RGB" (D = 3), through
+    flatten_ids: without a background (the bench render) and with one
+    blended in the kernel (the Runner's eval). Fails above TOL, or if a
+    second launch differs from the first in a bit."""
+    geo, k4 = inputs
+    plain = R2.rasterize_2dgs_fwd_plain(*geo, tile_capacity)
     errs, finite = {}, True
     for case, bg in (("no_background", None), ("background", backgrounds)):
-        errs[case], ok = inference_errors(args, tile_capacity, plain, bg)
+        errs[case], ok = inference_errors(k4, tile_capacity, plain, bg)
         finite = finite and ok
+    first, again = (R2.rasterize_2dgs_inference(*k4, backgrounds, tile_capacity)
+                    for _ in range(2))
+    repeat_bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
     worst = max(max(e.values()) for e in errs.values())
-    emit("parity_2dgs", case=name, tile_capacity=tile_capacity, D=args[3],
-         **stream_stats(args[1], tile_capacity), pixel_entry_evaluations=plain[5].tolist(),
+    emit("parity_2dgs", case=name, tile_capacity=tile_capacity, D=geo[3],
+         **stream_stats(geo[1], tile_capacity), pixel_entry_evaluations=plain[5].tolist(),
          alpha_mean=float((1.0 - plain[2]).mean()), inference_max_abs_err=errs, tol=TOL,
+         repeat_bitwise=repeat_bitwise, blocks_a_tile=R2.BLOCKS_A_TILE.get(R2.KERNEL_FWD),
          finite=finite)
     if not finite:
         raise RuntimeError(f"parity_2dgs {name}: non-finite kernel output")
+    if not repeat_bitwise:
+        raise RuntimeError(f"parity_2dgs {name}: two launches of kernel 4 differ")
     if not worst <= TOL:
         raise RuntimeError(f"parity_2dgs {name}: kernel 4 {errs} > {TOL}")
-    return dict(fwd=worst, evaluations=plain[5].tolist(), inputs=args)
+    return dict(fwd=worst, evaluations=plain[5].tolist(), inputs=inputs)
 
 
-def parity_2dgs(name, geo, tile_capacity, seed):
+def parity_2dgs(name, inputs, tile_capacity, seed):
     """Kernels 4, 5 and 6 against their plain versions on "RGB+ED" inputs
     with the distortion (the training path's), random cotangents; fails
-    above the tolerances."""
+    above the tolerances, or if two launches of kernel 5 differ in a bit."""
+    geo, k4 = inputs
     D = geo[3]
     plain = R2.rasterize_2dgs_fwd_plain(*geo, tile_capacity, depth_row=D - 1,
                                         compute_distort=True)
     p_img, p_nrm, p_T, p_dist, p_med, evals = plain
-    fwd_err, fwd_finite = inference_errors(geo, tile_capacity, plain)
+    fwd_err, fwd_finite = inference_errors(k4, tile_capacity, plain)
     train = R2.rasterize_2dgs_train_fwd(*geo, tile_capacity, D - 1, True)
+    again = R2.rasterize_2dgs_train_fwd(*geo, tile_capacity, D - 1, True)
+    repeat_bitwise = all(torch.equal(a, b) for a, b in zip(train, again))
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     cot = [torch.randn(x.shape, generator=g, device=DEVICE) for x in train[:4]]
     v_rows = R2.rasterize_2dgs_bwd(*geo, *train[:4], *cot, tile_capacity, D - 1, True)
@@ -1014,10 +1052,13 @@ def parity_2dgs(name, geo, tile_capacity, seed):
          distortion_max_rel_err=dist_rel, dist_rtol=DIST_RTOL,
          distortion_max=float(p_dist.abs().max()), median_differs_share=median_share,
          median_share_tol=MEDIAN_SHARE, bwd_max_rel_err=bwd_rel, bwd_rtol=BWD_RTOL,
-         bwd_max_abs_err=_abs_err(v_rows, want_rows), finite=finite)
+         bwd_max_abs_err=_abs_err(v_rows, want_rows), repeat_bitwise=repeat_bitwise,
+         blocks_a_tile=R2.BLOCKS_A_TILE.get(R2.KERNEL_TRAIN), finite=finite)
     worst = max(max(fwd_err.values()), max(train_err.values()))
     if not finite:
         raise RuntimeError(f"parity_2dgs {name}: non-finite kernel output")
+    if not repeat_bitwise:
+        raise RuntimeError(f"parity_2dgs {name}: two launches of kernel 5 differ")
     if not worst <= TOL or not dist_rel <= DIST_RTOL or not median_share <= MEDIAN_SHARE:
         raise RuntimeError(f"parity_2dgs {name}: forward {fwd_err} {train_err}, "
                            f"distortion {dist_rel}, median {median_share}")
@@ -1036,13 +1077,13 @@ def phase_parity_2dgs(bench, heavy, cap):
     "RGB+ED" and the distortion) and on a truncating case (60k large
     surfels, tile_capacity = 128)."""
     kw = dict(tile_capacity=1024, max_tiles_per_gauss=16, isect_capacity=cap)
-    args_rgb, _ = kernel_inputs_2dgs(bench, render_mode="RGB", distloss=False, **kw)
+    inputs_rgb, _ = kernel_inputs_2dgs(bench, render_mode="RGB", distloss=False, **kw)
     bg = torch.tensor([[0.3, 0.5, 0.7]], device=DEVICE)
-    rgb = parity_2dgs_inference("a_bench_rgb", args_rgb, bg)
-    args, _ = kernel_inputs_2dgs(bench, **kw)
-    a = parity_2dgs("b_bench_rgb_ed_dist", args, 1024, seed=3)
-    args_h, _ = kernel_inputs_2dgs(heavy, tile_capacity=128, isect_exact=True)
-    b = parity_2dgs("c_heavy_overlap_truncated", args_h, 128, seed=4)
+    rgb = parity_2dgs_inference("a_bench_rgb", inputs_rgb, bg)
+    inputs, _ = kernel_inputs_2dgs(bench, **kw)
+    a = parity_2dgs("b_bench_rgb_ed_dist", inputs, 1024, seed=3)
+    inputs_h, _ = kernel_inputs_2dgs(heavy, tile_capacity=128, isect_exact=True)
+    b = parity_2dgs("c_heavy_overlap_truncated", inputs_h, 128, seed=4)
     errs = {k: max(a[k], b[k]) for k in ("train", "dist_rel", "median_share", "bwd", "bwd_rel")}
     errs["fwd"] = max(rgb["fwd"], a["fwd"], b["fwd"])
     return errs, rgb, a
@@ -1050,18 +1091,26 @@ def phase_parity_2dgs(bench, heavy, cap):
 
 def measure_kernels_2dgs(rgb, ed, reps=20):
     """Times of kernel 4 at the bench render's shapes ("RGB", no
-    background) and of kernels 5 and 6 at the training step's ("RGB+ED",
-    distortion), with their plain versions' and their bounds. No PyTorch
-    call composites a sorted tile stream, so there is no library
-    yardstick."""
+    background, through flatten_ids) and of kernels 5 and 6 at the training
+    step's ("RGB+ED", distortion), by CUDA events and by graph replay, with
+    their plain versions' and their bounds; beside kernel 4, the earlier
+    inference path's gather of the feature rows into stream order, which
+    it no longer makes. No PyTorch call composites a sorted tile stream, so
+    there is no library yardstick."""
     tc = 1024
-    geo_rgb = rgb["inputs"]
+    geo_rgb, k4 = rgb["inputs"]
     geo, train, cot = ed["inputs"]
     D = geo[3]
     work = kernel_work_2dgs(geo, tc, ed["evaluations"])
-    work[R2.KERNEL_FWD] = kernel_work_2dgs(geo_rgb, tc, rgb["evaluations"])[R2.KERNEL_FWD]
+    work[R2.KERNEL_FWD] = kernel_work_2dgs(geo_rgb, tc, rgb["evaluations"], k4)[R2.KERNEL_FWD]
+    F = R2.GEOM_COLS + geo_rgb[3] + 3
+    feats = k4[0][:, :F].contiguous()
+
+    def gather():
+        return feats[k4[1].long()]
+
     calls = {
-        R2.KERNEL_FWD: (lambda: R2.rasterize_2dgs_inference(*geo_rgb, None, tc),
+        R2.KERNEL_FWD: (lambda: R2.rasterize_2dgs_inference(*k4, None, tc),
                         lambda: R2.rasterize_2dgs_fwd_plain(*geo_rgb, tc)),
         R2.KERNEL_TRAIN: (lambda: R2.rasterize_2dgs_train_fwd(*geo, tc, D - 1, True),
                           lambda: R2.rasterize_2dgs_fwd_plain(*geo, tc, D - 1, True)),
@@ -1071,8 +1120,12 @@ def measure_kernels_2dgs(rgb, ed, reps=20):
     }
     out = {}
     for name, (kernel, plain) in calls.items():
-        out[name] = dict(ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 2),
-                         library_ms=None, **work[name])
+        out[name] = dict(ms=time_ms(kernel, reps), device_graph_ms=graph_ms(kernel, reps),
+                         plain_ms=time_ms(plain, 2), library_ms=None,
+                         blocks_a_tile=R2.BLOCKS_A_TILE.get(name), **work[name])
+    out[R2.KERNEL_FWD].update(earlier_gather_ms=time_ms(gather, reps),
+                              earlier_gather_device_graph_ms=graph_ms(gather, reps),
+                              earlier_gather_bytes=k4[1].numel() * F * 4)
     emit("kernels_2dgs", **out)
     return out
 
@@ -1452,9 +1505,8 @@ def measure_kernels_eval3d(a, reps=20):
     }
     out = {}
     for name, (kernel, plain) in calls.items():
-        out[name] = dict(ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 1),
-                         library_ms=None, **work[name])
-    out[E.KERNEL_FWD]["device_graph_ms"] = graph_ms(calls[E.KERNEL_FWD][0], reps)
+        out[name] = dict(ms=time_ms(kernel, reps), device_graph_ms=graph_ms(kernel, reps),
+                         plain_ms=time_ms(plain, 1), library_ms=None, **work[name])
     out[E.KERNEL_FWD]["train_call_ms"] = time_ms(
         lambda: E.rasterize_eval3d_train_fwd(*stream, tc), reps)
     # kernel 3 on kernel 8's own rows (13 + D columns), as the eval3d VJP
@@ -1942,8 +1994,7 @@ def main():
         KERNEL: ("rasterize_packed_fwd.cu", "tdgs/ops/rasterize_pallas_packed.py:322",
                  train_launches[KERNEL],
                  dict(max_abs_err=max(max_err, train_errs["fwd"]), abs_tol=TOL),
-                 dict(device_graph_ms=timings[KERNEL]["device_graph_ms"],
-                      bench_render_launches=bench_launches,
+                 dict(bench_render_launches=bench_launches,
                       trainer_launches=trainer_launches[KERNEL],
                       trainer_eval_launches=trainer_eval, rally_launches=rally_launches,
                       rally_ms=k_rally["ms"], rally_device_graph_ms=k_rally["device_graph_ms"],
@@ -1967,14 +2018,17 @@ def main():
                         render_train_pallas_launches=train_dense_launches[S.KERNEL],
                         trainer_pallas_launches=trainer_dense_launches[S.KERNEL],
                         image_fitting_launches=fitting_launches[S.KERNEL],
-                        device_graph_ms=timings[S.KERNEL]["device_graph_ms"],
                         library_graph_ms=timings[S.KERNEL]["library_graph_ms"],
                         **{f"eval3d_rows_{k}": seg_eval3d[k]
                            for k in ("columns", "ms", "device_graph_ms", "bound_ms",
                                      "library_ms", "library_graph_ms")})),
         R2.KERNEL_FWD: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:84", render_2dgs_launches,
                         dict(max_abs_err=errs_2dgs["fwd"], abs_tol=TOL),
-                        dict(trainer_2dgs_eval_launches=trainer_2dgs_eval)),
+                        dict(trainer_2dgs_eval_launches=trainer_2dgs_eval,
+                             blocks_a_tile=timings[R2.KERNEL_FWD]["blocks_a_tile"],
+                             **{k: timings[R2.KERNEL_FWD][k]
+                                for k in ("earlier_gather_ms", "earlier_gather_device_graph_ms",
+                                          "earlier_gather_bytes")})),
         R2.KERNEL_TRAIN: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:457",
                           train_2dgs_launches[R2.KERNEL_TRAIN],
                           dict(max_abs_err=errs_2dgs["train"], abs_tol=TOL,
@@ -1982,7 +2036,8 @@ def main():
                                dist_rtol=DIST_RTOL,
                                median_differs_share=errs_2dgs["median_share"],
                                median_share_tol=MEDIAN_SHARE),
-                          dict(trainer_launches=trainer_2dgs_launches[R2.KERNEL_TRAIN])),
+                          dict(trainer_launches=trainer_2dgs_launches[R2.KERNEL_TRAIN],
+                               blocks_a_tile=timings[R2.KERNEL_TRAIN]["blocks_a_tile"])),
         R2.KERNEL_BWD: ("rasterize_2dgs_bwd.cu", f"{pallas_2dgs}:596",
                         train_2dgs_launches[R2.KERNEL_BWD],
                         dict(max_abs_err=errs_2dgs["bwd"], max_rel_err=errs_2dgs["bwd_rel"],
@@ -1991,8 +2046,7 @@ def main():
         E.KERNEL_FWD: ("rasterize_eval3d_fwd.cu", f"{pallas_e3}:98", render_e3_launches,
                        dict(max_abs_err=errs_e3["fwd"], abs_tol=TOL,
                             sigma_max_abs_err_vs_f64=errs_e3["sigma"], sigma_tol=SIGMA_TOL),
-                       dict(device_graph_ms=timings[E.KERNEL_FWD]["device_graph_ms"],
-                            render_train_launches=train_e3_launches[E.KERNEL_FWD],
+                       dict(render_train_launches=train_e3_launches[E.KERNEL_FWD],
                             trainer_launches=trainer_e3_launches[E.KERNEL_FWD],
                             trainer_eval_launches=trainer_e3_eval,
                             train_call_ms=timings[E.KERNEL_FWD]["train_call_ms"])),
@@ -2004,8 +2058,7 @@ def main():
         RP.KERNEL_FWD: ("rasterize_dense_fwd.cu", "tdgs/ops/rasterize_pallas.py:99",
                         train_dense_launches[RP.KERNEL_FWD],
                         dict(max_abs_err=errs_dense["fwd"], abs_tol=TOL),
-                        dict(device_graph_ms=timings[RP.KERNEL_FWD]["device_graph_ms"],
-                             bench_render_launches=render_dense_launches,
+                        dict(bench_render_launches=render_dense_launches,
                              trainer_launches=trainer_dense_launches[RP.KERNEL_FWD],
                              image_fitting_launches=fitting_launches[RP.KERNEL_FWD],
                              **fitting_shape[RP.KERNEL_FWD])),
@@ -2013,8 +2066,7 @@ def main():
                         train_dense_launches[RP.KERNEL_BWD],
                         dict(max_abs_err=errs_dense["bwd"], max_rel_err=errs_dense["bwd_rel"],
                              rtol=BWD_RTOL),
-                        dict(device_graph_ms=timings[RP.KERNEL_BWD]["device_graph_ms"],
-                             trainer_launches=trainer_dense_launches[RP.KERNEL_BWD],
+                        dict(trainer_launches=trainer_dense_launches[RP.KERNEL_BWD],
                              image_fitting_launches=fitting_launches[RP.KERNEL_BWD],
                              **fitting_shape[RP.KERNEL_BWD])),
     }
@@ -2024,7 +2076,8 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": f"tdgs_torch/csrc/{src}",
             "replaces": replaces, "launches": launches, **errs, "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "device_graph_ms": k["device_graph_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], **others,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,172 +29,174 @@
 // sigma2d, the min, one expf) and DA channel FMAs each -- against the FP32
 // and SFU rates. The bytes (the entries' rows of 12 + DA floats, read once
 // per tile, and the per-pixel outputs) are small beside them at the
-// training path's depth of overlap.
+// training path's depth of overlap. Measured on the H100 (kernel_ab.py, the
+// earlier design: a block copying batches of 256 rows synchronously, every
+// pixel evaluating every entry, at the bench shape): the staging cost
+// nothing measurable, the correctly rounded reciprocal about 7%, and 37% of
+// the warp-entries had a lane at which the entry reached alpha >= 1/255 --
+// the ceiling of any per-warp cull; kernel 6's bound keeps 53%.
 //
-// Design: kernel 1's (rasterize_packed_fwd.cu). One block per 16x16 tile,
-// one thread per pixel. The feature rows arrive gathered in stream order
-// (the wrapper gathers them by flatten_ids, so that their VJP is the
-// segment-sum kernel), so each batch of up to blockDim entries is one
-// contiguous, coalesced copy into shared memory, where every pixel reads it
-// as a broadcast. Each pixel walks front to back and stops at its own
-// cutoff; the block stops fetching once every pixel is done. Channels,
-// transmittance, the distortion's prefix sums and the median live in
-// registers. The TPU kernels' 3-slot DMA, rolled unaligned windows,
-// log-space prefix products on the MXU and polynomial transcendentals are
-// TPU artefacts and are not carried over.
+// Design: kernel 1's (rasterize_packed_fwd.cu) on the surfel walk of
+// surfel_walk.cuh: one thread per pixel; the block stages each batch of 32
+// entries asynchronously and double-buffered (cp.async, row_stage.cuh);
+// each warp culls the entries that cannot reach its pixels (surfel_cull.cuh,
+// kernel 6's bound) and walks the rest; each pixel stops at its own cutoff
+// and the block once every pixel is done. Channels, transmittance, the
+// distortion's prefix sums and the median live in registers.
+// - The training call (kernel 5) stages the stream-order rows that the
+//   wrapper gathers by flatten_ids (their VJP is the segment-sum kernel,
+//   and kernel 6 reads the same rows): each batch is contiguous.
+// - The inference call (kernel 4) reads through flatten_ids as kernel 1
+//   does: each thread loads the gaussian id of its lane's entry a batch
+//   ahead and copies that gaussian's per-gaussian feature row (padded to
+//   whole float4s, so its geometry lands in three 16-byte copies) into the
+//   batch. No stream-order copy of the rows is materialised.
+// A tile's warps share one block, or n_split blocks (the wrapper's choice;
+// the output does not depend on it). The TPU kernels' 3-slot DMA, rolled
+// unaligned windows, log-space prefix products on the MXU and polynomial
+// transcendentals are TPU artefacts and are not carried over.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "rasterize_2dgs_common.cuh"
+#include "surfel_walk.cuh"
 
 namespace {
 
-using namespace tdgs2dgs;
+using tdgs2dgs::kGeomCols;
+using tdgsstage::kBatch;
 
 template <int CMAX, bool TRAIN>
 __global__ void rasterize_2dgs_fwd_kernel(
-    const float* __restrict__ rows,         // [L, 12 + DA] stream order
-    const int32_t* __restrict__ offsets,    // [T + 1]
-    const float* __restrict__ backgrounds,  // [I, D] or nullptr (inference)
-    float* __restrict__ out_colors,         // [I, H, W, D]
-    float* __restrict__ out_normals,        // [I, H, W, 3]
-    float* __restrict__ out_alphas,         // [I, H, W]: 1 - T, or T (training)
-    float* __restrict__ out_dist,           // [I, H, W] (training)
-    float* __restrict__ out_median,         // [I, H, W] (training)
+    const float* __restrict__ rows,          // TRAIN: [L, 12 + DA] stream order;
+                                             // else [G, row_stride] per gaussian
+    const int32_t* __restrict__ flatten_ids, // [L] (inference)
+    const int32_t* __restrict__ offsets,     // [T + 1]
+    const float* __restrict__ backgrounds,   // [I, D] or nullptr (inference)
+    float* __restrict__ out_colors,          // [I, H, W, D]
+    float* __restrict__ out_normals,         // [I, H, W, 3]
+    float* __restrict__ out_alphas,          // [I, H, W]: 1 - T, or T (training)
+    float* __restrict__ out_dist,            // [I, H, W] (training)
+    float* __restrict__ out_median,          // [I, H, W] (training)
     int width, int height, int tile_size, int tile_width, int tiles_per_image,
-    int D, int max_entries, int depth_row, int compute_distort) {
-  extern __shared__ float s_rows[];  // [blockDim, F]
+    int D, int max_entries, int depth_row, int compute_distort, int row_stride, int n_split) {
+  extern __shared__ float4 smem4[];
+  float* s_batches = reinterpret_cast<float*>(smem4);  // two batches
   const int DA = D + 3;
-  const int F = kGeomCols + DA;
-  const int block = blockDim.x;
+  const int n_warps = blockDim.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / n_split;
+  const int part = blockIdx.x - t * n_split;
   const int image = t / tiles_per_image;
   const int t_in = t - image * tiles_per_image;
   const int ty = t_in / tile_width;
   const int tx = t_in - ty * tile_width;
-  const int tid = threadIdx.x;
-  const int px = tx * tile_size + tid % tile_size;
-  const int py = ty * tile_size + tid / tile_size;
+  const int p = part * blockDim.x + tid;  // the pixel within its tile
+  const int px = tx * tile_size + p % tile_size;
+  const int py = ty * tile_size + p / tile_size;
   const bool inside = px < width && py < height;
-  const float fx = static_cast<float>(px) + 0.5f;
-  const float fy = static_cast<float>(py) + 0.5f;
+  const tdgswalk::Pixel centre = tdgswalk::pixel(px, py);
 
   const int start = offsets[t];
   const int count = min(offsets[t + 1] - start, max_entries);
-  const bool with_depth = TRAIN && depth_row >= 0;
-  const bool with_dist = with_depth && compute_distort;
 
-  float acc[CMAX];
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) acc[c] = 0.f;
-  float T = 1.f;
-  float A = 0.f, B = 0.f, dist = 0.f, med = 0.f;
-  bool done = !inside;
-
-  for (int b0 = 0; b0 < count; b0 += block) {
-    // also the barrier that keeps the previous batch alive until read
-    if (__syncthreads_count(done) == block) break;
-    const int n = min(block, count - b0);
-    const float* src = rows + static_cast<int64_t>(start + b0) * F;
-    for (int i = tid; i < n * F; i += block) s_rows[i] = src[i];
-    __syncthreads();
-    for (int k = 0; k < n && !done; ++k) {
-      const float* row = s_rows + k * F;
-      Response r;
-      const float sigma = ray_splat_sigma(row, fx, fy, r);
-      const float alpha = fminf(kAlphaClamp, __fmul_rn(row[11], expf(-sigma)));
-      if (alpha < kAlphaThreshold) continue;
-      const float next_T = __fmul_rn(T, __fsub_rn(1.f, alpha));
-      if (next_T <= kTransmittanceEps) {
-        done = true;
-        break;
-      }
-      const float w = __fmul_rn(alpha, T);
-#pragma unroll
-      for (int c = 0; c < CMAX; ++c) {
-        if (c < DA) acc[c] += w * row[kGeomCols + c];
-      }
-      if (with_depth) {
-        const float d = row[kGeomCols + depth_row];
-        if (with_dist) {
-          dist += 2.f * w * (d * A - B);
-          A += w;
-          B += w * d;
-        }
-        if (T > 0.5f && w > 0.f) med = d;  // the last qualifying entry wins
-      }
-      T = next_T;
-    }
+  tdgssurfel::Carry<CMAX> c;
+  tdgssurfel::init(c, inside);
+  const bool with_dist = TRAIN && depth_row >= 0 && compute_distort;
+  if (TRAIN) {
+    // the batch's rows are contiguous: thread (warp, lane) copies fields of
+    // entry `lane`
+    const int F = kGeomCols + DA;
+    tdgssurfel::walk<CMAX, true>(
+        s_batches, count, DA, centre, depth_row, with_dist, c, [&](int from, float* dst) {
+          const bool valid = from + lane < count;
+          const float* row = rows + static_cast<int64_t>(start + from + lane) * F;
+          tdgsstage::stage<kGeomCols>(dst, valid, lane, warp, n_warps, DA,
+                                      [&](int f) { return row + f; });
+        });
+  } else {
+    // Thread (warp, lane) copies fields of entry `lane`, so it needs the
+    // gaussian of its lane's entry alone, which it loads a batch ahead.
+    const auto gaussian = [&](int from) {
+      return from + lane < count ? flatten_ids[start + from + lane] : -1;
+    };
+    int g_next = -1;
+    tdgssurfel::walk<CMAX, false>(
+        s_batches, count, DA, centre, -1, false, c, [&](int from, float* dst) {
+          const int64_t g = from == 0 ? gaussian(0) : g_next;
+          g_next = gaussian(from + kBatch);
+          tdgsstage::stage_row16<kGeomCols>(dst, g >= 0, lane, warp, n_warps, DA,
+                                            rows + g * row_stride);
+        });
   }
 
   if (!inside) return;
   const int64_t pix = (static_cast<int64_t>(image) * height + py) * width + px;
-  const float alpha_out = 1.f - T;
+  const float alpha_out = 1.f - c.T;
   if (TRAIN) {
-    out_alphas[pix] = T;
-    out_dist[pix] = dist;
-    out_median[pix] = med;
+    out_alphas[pix] = c.T;
+    out_dist[pix] = c.dist;
+    out_median[pix] = c.med;
   } else {
     out_alphas[pix] = alpha_out;
   }
 #pragma unroll
-  for (int c = 0; c < CMAX; ++c) {
-    if (c < D) {
-      float v = acc[c];
+  for (int i = 0; i < CMAX; ++i) {
+    if (i < D) {
+      float v = c.acc[i];
       if (!TRAIN && backgrounds != nullptr) {
-        v += (1.f - alpha_out) * backgrounds[image * D + c];
+        v += (1.f - alpha_out) * backgrounds[image * D + i];
       }
-      out_colors[pix * D + c] = v;
-    } else if (c < DA) {
-      out_normals[pix * 3 + (c - D)] = acc[c];
+      out_colors[pix * D + i] = v;
+    } else if (i < DA) {
+      out_normals[pix * 3 + (i - D)] = c.acc[i];
     }
   }
 }
 
 template <int CMAX, bool TRAIN>
-cudaError_t launch(const float* rows, const int32_t* offsets,
-                   const float* backgrounds, float* out_colors,
-                   float* out_normals, float* out_alphas, float* out_dist,
-                   float* out_median, int n_tiles, int width, int height,
-                   int tile_size, int tile_width, int tiles_per_image, int D,
-                   int max_entries, int depth_row, int compute_distort,
-                   cudaStream_t stream) {
-  const int block = tile_size * tile_size;
-  const size_t smem = static_cast<size_t>(block) * (kGeomCols + D + 3) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rasterize_2dgs_fwd_kernel<CMAX, TRAIN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  rasterize_2dgs_fwd_kernel<CMAX, TRAIN><<<n_tiles, block, smem, stream>>>(
-      rows, offsets, backgrounds, out_colors, out_normals, out_alphas, out_dist,
-      out_median, width, height, tile_size, tile_width, tiles_per_image, D,
-      max_entries, depth_row, compute_distort);
+cudaError_t launch(const float* rows, const int32_t* flatten_ids, const int32_t* offsets,
+                   const float* backgrounds, float* out_colors, float* out_normals,
+                   float* out_alphas, float* out_dist, float* out_median, int n_tiles,
+                   int width, int height, int tile_size, int tile_width,
+                   int tiles_per_image, int D, int max_entries, int depth_row,
+                   int compute_distort, int row_stride, int n_split, cudaStream_t stream) {
+  const int block = tile_size * tile_size / n_split;
+  // two batches of at most 32 x (12 + 36) floats: 12 KB
+  const size_t smem =
+      static_cast<size_t>(2) * tdgsstage::batch_floats<kGeomCols>(D + 3) * sizeof(float);
+  rasterize_2dgs_fwd_kernel<CMAX, TRAIN><<<n_tiles * n_split, block, smem, stream>>>(
+      rows, flatten_ids, offsets, backgrounds, out_colors, out_normals, out_alphas,
+      out_dist, out_median, width, height, tile_size, tile_width, tiles_per_image, D,
+      max_entries, depth_row, compute_distort, row_stride, n_split);
   return cudaGetLastError();
 }
 
 template <bool TRAIN>
-int dispatch(const float* rows, const int32_t* offsets, const float* backgrounds,
-             float* out_colors, float* out_normals, float* out_alphas,
-             float* out_dist, float* out_median, int n_images, int width,
-             int height, int tile_size, int tile_width, int tile_height, int D,
-             int max_entries, int depth_row, int compute_distort, void* stream) {
+int dispatch(const float* rows, const int32_t* flatten_ids, const int32_t* offsets,
+             const float* backgrounds, float* out_colors, float* out_normals,
+             float* out_alphas, float* out_dist, float* out_median, int n_images,
+             int width, int height, int tile_size, int tile_width, int tile_height, int D,
+             int max_entries, int depth_row, int compute_distort, int row_stride,
+             int n_split, void* stream) {
   const int tiles_per_image = tile_width * tile_height;
   const int n_tiles = n_images * tiles_per_image;
-  if (tile_size <= 0 || tile_size * tile_size > 1024 || D <= 0 || D > 32 ||
-      depth_row >= D) {
+  const int block = tile_size * tile_size;
+  if (tile_size <= 0 || block > 1024 || block % 32 != 0 || D <= 0 || D > 32 ||
+      depth_row >= D || n_split < 1 || (block / 32) % n_split != 0 ||
+      row_stride < kGeomCols + D + 3 || (!TRAIN && row_stride % 4 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_tiles == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TDGS_LAUNCH(CM)                                                       \
-  launch<CM, TRAIN>(rows, offsets, backgrounds, out_colors, out_normals,      \
-                    out_alphas, out_dist, out_median, n_tiles, width, height, \
-                    tile_size, tile_width, tiles_per_image, D, max_entries,   \
-                    depth_row, compute_distort, s)
+#define TDGS_LAUNCH(CM)                                                              \
+  launch<CM, TRAIN>(rows, flatten_ids, offsets, backgrounds, out_colors, out_normals, \
+                    out_alphas, out_dist, out_median, n_tiles, width, height,        \
+                    tile_size, tile_width, tiles_per_image, D, max_entries,          \
+                    depth_row, compute_distort, row_stride, n_split, s)
   cudaError_t err;
   if (D + 3 <= 8) {
     err = TDGS_LAUNCH(8);
@@ -210,28 +212,35 @@ int dispatch(const float* rows, const int32_t* offsets, const float* backgrounds
 }  // namespace
 
 // Kernel 4, the inference call. Returns a cudaError_t (0 on success).
-// `backgrounds` may be null.
+// `feats` holds one row per gaussian, `row_stride` floats apart (a multiple
+// of 4, the pointer 16-byte aligned): 12 geometry floats, then the D + 3
+// channels; `backgrounds` may be null. Tiles of a whole number of warps, at
+// most 1024 pixels; n_split divides a tile's warps (the output does not
+// depend on it).
 extern "C" int tdgs_rasterize_2dgs_fwd(
-    const float* rows, const int32_t* offsets, const float* backgrounds,
-    float* out_colors, float* out_normals, float* out_alphas, int n_images,
-    int width, int height, int tile_size, int tile_width, int tile_height,
-    int D, int max_entries, void* stream) {
-  return dispatch<false>(rows, offsets, backgrounds, out_colors, out_normals,
-                         out_alphas, nullptr, nullptr, n_images, width, height,
-                         tile_size, tile_width, tile_height, D, max_entries, -1, 0,
+    const float* feats, const int32_t* flatten_ids, const int32_t* offsets,
+    const float* backgrounds, float* out_colors, float* out_normals, float* out_alphas,
+    int n_images, int width, int height, int tile_size, int tile_width, int tile_height,
+    int D, int max_entries, int row_stride, int n_split, void* stream) {
+  if (reinterpret_cast<uintptr_t>(feats) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch<false>(feats, flatten_ids, offsets, backgrounds, out_colors, out_normals,
+                         out_alphas, nullptr, nullptr, n_images, width, height, tile_size,
+                         tile_width, tile_height, D, max_entries, -1, 0, row_stride, n_split,
                          stream);
 }
 
-// Kernel 5, the training call. Returns a cudaError_t (0 on success).
-// `depth_row` < 0: no depth channel (distortion and median stay 0).
+// Kernel 5, the training call on stream-order rows of 12 + D + 3 floats.
+// Returns a cudaError_t (0 on success). `depth_row` < 0: no depth channel
+// (distortion and median stay 0).
 extern "C" int tdgs_rasterize_2dgs_fwd_train(
-    const float* rows, const int32_t* offsets, float* out_colors,
-    float* out_normals, float* out_T, float* out_dist, float* out_median,
-    int n_images, int width, int height, int tile_size, int tile_width,
-    int tile_height, int D, int max_entries, int depth_row,
-    int compute_distort, void* stream) {
-  return dispatch<true>(rows, offsets, nullptr, out_colors, out_normals, out_T,
+    const float* rows, const int32_t* offsets, float* out_colors, float* out_normals,
+    float* out_T, float* out_dist, float* out_median, int n_images, int width, int height,
+    int tile_size, int tile_width, int tile_height, int D, int max_entries, int depth_row,
+    int compute_distort, int n_split, void* stream) {
+  return dispatch<true>(rows, nullptr, offsets, nullptr, out_colors, out_normals, out_T,
                         out_dist, out_median, n_images, width, height, tile_size,
-                        tile_width, tile_height, D, max_entries, depth_row,
-                        compute_distort, stream);
+                        tile_width, tile_height, D, max_entries, depth_row, compute_distort,
+                        kGeomCols + D + 3, n_split, stream);
 }

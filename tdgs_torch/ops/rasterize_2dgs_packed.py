@@ -7,14 +7,15 @@ The wrapper forms the per-gaussian feature rows
 ``[mx, my, t0, tpx, tpy, op, channels (D), normals (3)]`` (12 + DA
 columns, DA = D + 3), with the cross products t0 = T0×T1, tpx = T1×T2 and
 tpy = T2×T0 of the screen-space rows T of K [RS_u, RS_v, mean_c] (the
-columns of the projection's ray transform M, ``feature_rows``), and
-gathers them into stream order by ``flatten_ids``. In training the gather is
-``segment_sum.gather_rows_segsum``, so its VJP is the segment-sum kernel
-and autograd carries the per-entry t0/tpx/tpy gradients back to M. The
-per-tile compositing runs in hand-written CUDA kernels for CUDA tensors
-(``tdgs_torch/csrc/rasterize_2dgs_fwd.cu``: the inference and training
-forwards; ``rasterize_2dgs_bwd.cu``: the gradients) and in the plain
-PyTorch versions below for CPU tensors. The walk is the 3DGS one
+columns of the projection's ray transform M, ``feature_rows``). The
+inference kernel reads them per gaussian through ``flatten_ids``. In
+training they are gathered into stream order by
+``segment_sum.gather_rows_segsum``, so that the gather's VJP is the
+segment-sum kernel and autograd carries the per-entry t0/tpx/tpy gradients
+back to M. The per-tile compositing runs in hand-written CUDA kernels for
+CUDA tensors (``tdgs_torch/csrc/rasterize_2dgs_fwd.cu``: the inference and
+training forwards; ``rasterize_2dgs_bwd.cu``: the gradients) and in the
+plain PyTorch versions below for CPU tensors. The walk is the 3DGS one
 (``rasterize_packed._plain_walk``: the whole-chunk cut, α clamp 0.999,
 1/255 skip, 1e-4 inclusion) with the 2DGS σ = ½·min(σ3d, σ2d).
 """
@@ -30,12 +31,14 @@ import torch
 from tdgs_torch.ops import _build
 from tdgs_torch.ops.rasterize_packed import (
     ALPHA_CLAMP,
+    BLOCKS_A_TILE,
     _check,
     _device_kind,
     _launch,
     _plain_walk,
     max_entries_per_tile,
     tile_pixels,
+    tile_split,
     untile,
     walked_evaluations,
 )
@@ -50,9 +53,17 @@ TMPZ_EPS = 1e-9
 SIGMA_BAD = 1e6
 
 
-def feature_rows(means2d, ray_transforms, colors, normals, opacities) -> torch.Tensor:
+def padded_width(D: int) -> int:
+    """The inference kernel's row stride: 12 + D + 3 floats padded to whole
+    float4s, so that each row's geometry lands by 16-byte copies."""
+    return (GEOM_COLS + D + 3 + 3) // 4 * 4
+
+
+def feature_rows(means2d, ray_transforms, colors, normals, opacities,
+                 width=None) -> torch.Tensor:
     """Per-gaussian rows [I·N, 12 + D + 3]: mx, my, t0, tpx, tpy, op,
-    colors, normals.
+    colors, normals; with ``width``, zero columns after them up to that
+    width (``padded_width(D)`` for the inference kernel).
 
     ``ray_transforms`` is the projection's M = (K [RS_u, RS_v, mean_c])ᵀ,
     so the screen-space rows of K [RS_u, RS_v, mean_c], which the ray-splat
@@ -65,19 +76,23 @@ def feature_rows(means2d, ray_transforms, colors, normals, opacities) -> torch.T
     t0 = torch.linalg.cross(T[:, 0], T[:, 1], dim=-1)
     tpx = torch.linalg.cross(T[:, 1], T[:, 2], dim=-1)
     tpy = torch.linalg.cross(T[:, 2], T[:, 0], dim=-1)
-    return torch.cat([
-        means2d.reshape(I_N, 2), t0, tpx, tpy, opacities.reshape(I_N, 1),
-        colors.reshape(I_N, -1), normals.reshape(I_N, 3),
-    ], dim=-1).contiguous()
+    cols = [means2d.reshape(I_N, 2), t0, tpx, tpy, opacities.reshape(I_N, 1),
+            colors.reshape(I_N, -1), normals.reshape(I_N, 3)]
+    pad = 0 if width is None else width - GEOM_COLS - colors.shape[-1] - 3
+    if pad:
+        cols.append(t0.new_zeros((I_N, pad)))
+    return torch.cat(cols, dim=-1).contiguous()
 
 
 def _response_2dgs(rows):
-    """σ = ½·min(σ3d, σ2d) of the ray-splat intersection, from stream-order
-    rows; the order of operations is the kernels' (rasterize_2dgs_common.cuh).
-    geom is (tmpx, tmpy, rtz, σ3d, dx, dy, use3d, px, py, row block)."""
+    """σ = ½·min(σ3d, σ2d) of the ray-splat intersection, from the rows of
+    the walk's ``ids`` (stream positions, or gaussians through
+    ``flatten_ids``); the order of operations is the kernels'
+    (rasterize_2dgs_common.cuh). geom is (tmpx, tmpy, rtz, σ3d, dx, dy,
+    use3d, px, py, row block)."""
 
     def response(tt, idx, ids, px, py):
-        f = rows[idx]  # [n, L, F]
+        f = rows[ids]  # [n, L, F]
 
         def col(j):
             return f[..., j][:, None, :]  # [n, 1, L]
@@ -107,10 +122,12 @@ def _exclusive_cumsum(x):
 def rasterize_2dgs_fwd_plain(
     rows, offsets, n_images, D, image_width, image_height, tile_size,
     tile_capacity=1024, depth_row=-1, compute_distort=False, budget=1 << 23,
+    flatten_ids=None,
 ):
     """The plain version of kernels 4 and 5 on stream-order ``rows``
-    [L, 12 + D + 3]. Returns (colors [I, H, W, D] without background,
-    normals [I, H, W, 3], T [I, H, W], distortion [I, H, W], median depth
+    [L, 12 + D + 3], or with ``flatten_ids`` on per-gaussian rows read
+    through them. Returns (colors [I, H, W, D] without background, normals
+    [I, H, W, 3], T [I, H, W], distortion [I, H, W], median depth
     [I, H, W], ``walked_evaluations`` summed over the tiles)."""
     I = n_images
     tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
@@ -123,7 +140,7 @@ def rasterize_2dgs_fwd_plain(
     dist = torch.zeros((T_total, P, 1), dtype=torch.float32, device=device)
     med = torch.zeros((T_total, P, 1), dtype=torch.float32, device=device)
     n_evals = torch.zeros(2, dtype=torch.int64, device=device)
-    for c in _plain_walk(I, image_width, image_height, tile_size, offsets, None,
+    for c in _plain_walk(I, image_width, image_height, tile_size, offsets, flatten_ids,
                          tile_capacity, budget, _response_2dgs(rows)):
         alpha, included = c.alpha, c.included
         ch = c.geom[-1][..., GEOM_COLS:]  # [n, L, DA]
@@ -244,12 +261,14 @@ def _load(symbol, n_ptrs, n_ints, slots=False):
     return fn
 
 
-def _check_rows(rows, offsets, n_images, D, image_width, image_height, tile_size):
+def _check_rows(rows, offsets, n_images, D, image_width, image_height, tile_size,
+                width=None):
     device = rows.device
     tw, th = math.ceil(image_width / tile_size), math.ceil(image_height / tile_size)
     if not 1 <= D <= MAX_CHANNELS:
         raise ValueError(f"colors: 1..{MAX_CHANNELS} channels supported, got {D}")
-    _check("rows", rows, torch.float32, device, (rows.shape[0], GEOM_COLS + D + 3))
+    _check("rows", rows, torch.float32, device,
+           (rows.shape[0], width or GEOM_COLS + D + 3))
     _check("offsets", offsets, torch.int32, device, (n_images * tw * th + 1,))
     if not 1 <= tile_size * tile_size <= 1024 or (tile_size * tile_size) % 32:
         raise ValueError(f"tile_size {tile_size}: one thread per pixel, whole "
@@ -257,37 +276,47 @@ def _check_rows(rows, offsets, n_images, D, image_width, image_height, tile_size
     return tw, th
 
 
-def rasterize_2dgs_inference(rows, offsets, n_images, D, image_width, image_height,
-                             tile_size, backgrounds=None, tile_capacity=1024):
+def rasterize_2dgs_inference(feats, flatten_ids, offsets, n_images, D, image_width,
+                             image_height, tile_size, backgrounds=None, tile_capacity=1024,
+                             n_split=None):
     """Kernel 4 → (colors [I, H, W, D] with the background blended, alphas
-    [I, H, W, 1], normals [I, H, W, 3]). CUDA tensors launch the kernel (or
-    raise); CPU tensors take the plain version."""
+    [I, H, W, 1], normals [I, H, W, 3]) from per-gaussian rows ``feats``
+    [G, padded_width(D)] (``feature_rows(..., width=padded_width(D))``)
+    read through ``flatten_ids`` [L] int32. CUDA tensors launch the kernel
+    (or raise); CPU tensors take the plain version. Both take the same
+    inputs."""
     H, W = image_height, image_width
-    if _device_kind(rows) == "cpu":
+    tw, th = _check_rows(feats, offsets, n_images, D, W, H, tile_size, padded_width(D))
+    _check("flatten_ids", flatten_ids, torch.int32, feats.device, (flatten_ids.shape[0],))
+    if backgrounds is not None:
+        _check("backgrounds", backgrounds, torch.float32, feats.device, (n_images, D))
+    n_split = tile_split(tile_size, n_split)
+    if _device_kind(feats) == "cpu":
         img, nrm, T, _, _, _ = rasterize_2dgs_fwd_plain(
-            rows, offsets, n_images, D, W, H, tile_size, tile_capacity)
+            feats[:, :GEOM_COLS + D + 3], offsets, n_images, D, W, H, tile_size,
+            tile_capacity, flatten_ids=flatten_ids)
         alp = 1.0 - T
         if backgrounds is not None:
             img = img + (1.0 - alp)[..., None] * backgrounds.reshape(n_images, 1, 1, D)
         return img, alp[..., None], nrm
-    tw, th = _check_rows(rows, offsets, n_images, D, W, H, tile_size)
-    if backgrounds is not None:
-        _check("backgrounds", backgrounds, torch.float32, rows.device, (n_images, D))
-    out_c = rows.new_empty((n_images, H, W, D))
-    out_n = rows.new_empty((n_images, H, W, 3))
-    out_a = rows.new_empty((n_images, H, W, 1))
-    _launch(_load("rasterize_2dgs_fwd", 6, 8), KERNEL_FWD, rows, offsets,
+    out_c = feats.new_empty((n_images, H, W, D))
+    out_n = feats.new_empty((n_images, H, W, 3))
+    out_a = feats.new_empty((n_images, H, W, 1))
+    _launch(_load("rasterize_2dgs_fwd", 7, 10), KERNEL_FWD, feats, flatten_ids, offsets,
             None if backgrounds is None else backgrounds.data_ptr(), out_c, out_n, out_a,
-            n_images, W, H, tile_size, tw, th, D, max_entries_per_tile(tile_capacity))
+            n_images, W, H, tile_size, tw, th, D, max_entries_per_tile(tile_capacity),
+            feats.shape[1], n_split)
+    BLOCKS_A_TILE[KERNEL_FWD] = n_split
     return out_c, out_a, out_n
 
 
 def rasterize_2dgs_train_fwd(rows, offsets, n_images, D, image_width, image_height,
                              tile_size, tile_capacity=1024, depth_row=-1,
-                             compute_distort=False):
-    """Kernel 5 → (colors [I, H, W, D] without background, normals
-    [I, H, W, 3], T, distortion, median depth [I, H, W]). CUDA tensors
-    launch the kernel (or raise); CPU tensors take the plain version."""
+                             compute_distort=False, n_split=None):
+    """Kernel 5 on stream-order ``rows`` [L, 12 + D + 3] → (colors
+    [I, H, W, D] without background, normals [I, H, W, 3], T, distortion,
+    median depth [I, H, W]). CUDA tensors launch the kernel (or raise); CPU
+    tensors take the plain version."""
     H, W = image_height, image_width
     if _device_kind(rows) == "cpu":
         return rasterize_2dgs_fwd_plain(rows, offsets, n_images, D, W, H, tile_size,
@@ -295,12 +324,14 @@ def rasterize_2dgs_train_fwd(rows, offsets, n_images, D, image_width, image_heig
     tw, th = _check_rows(rows, offsets, n_images, D, W, H, tile_size)
     if depth_row >= D:
         raise ValueError(f"depth_row {depth_row} outside {D} channels")
+    n_split = tile_split(tile_size, n_split)
     out_c = rows.new_empty((n_images, H, W, D))
     out_n = rows.new_empty((n_images, H, W, 3))
     out_t, out_d, out_m = (rows.new_empty((n_images, H, W)) for _ in range(3))
-    _launch(_load("rasterize_2dgs_fwd_train", 7, 10), KERNEL_TRAIN, rows, offsets,
+    _launch(_load("rasterize_2dgs_fwd_train", 7, 11), KERNEL_TRAIN, rows, offsets,
             out_c, out_n, out_t, out_d, out_m, n_images, W, H, tile_size, tw, th, D,
-            max_entries_per_tile(tile_capacity), depth_row, int(compute_distort))
+            max_entries_per_tile(tile_capacity), depth_row, int(compute_distort), n_split)
+    BLOCKS_A_TILE[KERNEL_TRAIN] = n_split
     return out_c, out_n, out_t, out_d, out_m
 
 
@@ -385,10 +416,10 @@ def rasterize_to_pixels_2dgs_packed_inference(
     image_dims, I = _image_count(means2d)
     D = colors.shape[-1]
     with torch.no_grad():
-        feats = feature_rows(means2d, ray_transforms, colors, normals, opacities)
-        rows = feats[flatten_ids.long()]
+        feats = feature_rows(means2d, ray_transforms, colors, normals, opacities,
+                             width=padded_width(D))
         img, alp, nrm = rasterize_2dgs_inference(
-            rows, offsets, I, D, image_width, image_height, tile_size,
+            feats, flatten_ids, offsets, I, D, image_width, image_height, tile_size,
             None if backgrounds is None else backgrounds.reshape(I, D).contiguous(),
             tile_capacity)
     shp = image_dims + (image_height, image_width)

@@ -30,7 +30,7 @@ TRANSMITTANCE_EPS = 1e-4
 CHUNK = 128
 KERNEL = "rasterize_packed_fwd"
 KERNEL_BWD = "rasterize_packed_bwd"
-# kernel name -> the blocks a tile of its last launch (kernels 1, 9 and 10)
+# kernel name -> the blocks a tile of its last launch (kernels 1, 4, 5, 9, 10)
 BLOCKS_A_TILE = {}
 MAX_CHANNELS = 32
 
@@ -298,6 +298,25 @@ def split_count(n_tiles, device, most):
     return s
 
 
+def tile_split(tile_size, n_split=None, n_tiles=None, device=None):
+    """The blocks that share each tile in kernels 1, 4 and 5: ``n_split``
+    (forced, for tests and kernel_ab.py), else two for tiles of 8 warps or
+    more, or ``split_count`` of ``n_tiles`` where that is more (kernel 1).
+    Where a few long tiles set the time, a tile's warps spread over twice
+    the SMs: against one block a tile, -11% for kernel 1 at the rally's
+    frame (+0.8% at the bench frame's even tiles), -6.2% and -4.4% for
+    kernels 5 and 4 at trainer_2dgs's shape (-1.6% and +0.05% at the bench
+    frame's); kernel_ab.py on an H100. The output does not depend on it."""
+    warps = tile_size * tile_size // 32
+    if n_split is None:
+        n_split = 2 if warps >= 8 else 1
+        if n_tiles is not None:
+            n_split = max(split_count(n_tiles, device, warps), n_split)
+    if n_split < 1 or warps % n_split:
+        raise ValueError(f"n_split {n_split}: must divide the {warps} warps of a tile")
+    return n_split
+
+
 def _load_bwd():
     lib = _build.load(KERNEL_BWD)
     fn = lib.tdgs_rasterize_packed_bwd
@@ -333,8 +352,7 @@ def _launch_fwd(means2d, conics, colors, opacities, image_width, image_height,
                 write_transmittance, n_split=None):
     """Kernel 1 on CUDA tensors → (colors [I, H, W, D], alphas or, with
     ``write_transmittance``, T [I, H, W, 1]), each tile's warps in
-    ``n_split`` blocks (default ``split_count``, at least two for tiles of
-    8 warps or more; the output does not depend on it)."""
+    ``n_split`` blocks (default ``tile_split``)."""
     device = means2d.device
     image_dims, I, N, D, tw, th = _check_stream(
         means2d, conics, colors, opacities, image_width, image_height,
@@ -342,15 +360,7 @@ def _launch_fwd(means2d, conics, colors, opacities, image_width, image_height,
     )
     if backgrounds is not None:
         _check("backgrounds", backgrounds, torch.float32, device, image_dims + (D,))
-    warps = tile_size * tile_size // 32
-    if n_split is None:
-        # tiles of 8 warps or more in at least two blocks: where a few long
-        # tiles set the time (the rally's), their warps spread over twice
-        # the SMs (-11% there, +0.8% at the bench frame's even tiles;
-        # kernel_ab.py on the H100)
-        n_split = max(split_count(I * tw * th, device, warps), 2 if warps >= 8 else 1)
-    if n_split < 1 or warps % n_split:
-        raise ValueError(f"n_split {n_split}: must divide the {warps} warps of a tile")
+    n_split = tile_split(tile_size, n_split, I * tw * th, device)
     out_c = torch.empty((I, image_height, image_width, D), dtype=torch.float32,
                         device=device)
     out_a = torch.empty((I, image_height, image_width, 1), dtype=torch.float32,

@@ -313,7 +313,7 @@ def _surfel_stream(seed, D, n_images=1, N=300, tile_size=16):
     third one below a pixel (the σ2d branch). The last colour channel is
     the depth, as render_mode "RGB+ED" gives the rasterizer."""
     from tdgs_torch.ops.projection_2dgs import fully_fused_projection_2dgs
-    from tdgs_torch.ops.rasterize_2dgs_packed import feature_rows
+    from tdgs_torch.ops.rasterize_2dgs_packed import feature_rows, padded_width
 
     rng = np.random.default_rng(seed)
     means = (rng.normal(size=(N, 3)) * [1.0, 0.8, 0.5] + [0, 0, 5]).astype(np.float32)
@@ -332,10 +332,10 @@ def _surfel_stream(seed, D, n_images=1, N=300, tile_size=16):
     colors = torch.from_numpy(rng.uniform(0, 1, size=(n_images, N, D)).astype(np.float32))
     colors[..., -1] = depths
     opac = torch.from_numpy(rng.uniform(0.05, 0.95, size=(n_images, N)).astype(np.float32))
-    feats = feature_rows(means2d, M, colors, normals, opac)
-    return dict(rows=feats[isect.flatten_ids.long()].contiguous(), offsets=isect.offsets,
-                means2d=means2d, ray_transforms=M, colors=colors, normals=normals,
-                opacities=opac, flatten_ids=isect.flatten_ids)
+    feats = feature_rows(means2d, M, colors, normals, opac, width=padded_width(D))
+    return dict(rows=feats[isect.flatten_ids.long(), :12 + D + 3].contiguous(),
+                feats=feats, offsets=isect.offsets, means2d=means2d, ray_transforms=M,
+                colors=colors, normals=normals, opacities=opac, flatten_ids=isect.flatten_ids)
 
 
 def _median_share(got, want):
@@ -351,12 +351,13 @@ def test_2dgs_kernels_match_plain_on_card(cuda_device, D, tile_capacity, n_image
 
     s = _surfel_stream(150 + D, D, n_images)
     rows, offs = s["rows"].to(cuda_device), s["offsets"].to(cuda_device)
+    feats, ids = s["feats"].to(cuda_device), s["flatten_ids"].to(cuda_device)
     I, tc = n_images, tile_capacity
     geo = (rows, offs, I, D, W, H, 16)
     bg = torch.linspace(0.1, 0.9, D, device=cuda_device).repeat(I, 1)
 
     before = {k: _build.LAUNCHES.get(k, 0) for k in (R.KERNEL_FWD, R.KERNEL_TRAIN, R.KERNEL_BWD)}
-    got = R.rasterize_2dgs_inference(*geo, bg, tc)
+    got = R.rasterize_2dgs_inference(feats, ids, *geo[1:], bg, tc)
     p_img, p_nrm, p_T, p_dist, p_med, _ = R.rasterize_2dgs_fwd_plain(
         *geo, tc, depth_row=D - 1, compute_distort=True)
     want = (p_img + p_T[..., None] * bg[:, None, None, :], (1.0 - p_T)[..., None], p_nrm)
@@ -396,12 +397,21 @@ def test_2dgs_wrappers_reject_bad_inputs(cuda_device):
 
     s = _surfel_stream(160, 4, N=30)
     rows, offs = s["rows"].to(cuda_device), s["offsets"].to(cuda_device)
+    feats, ids = s["feats"].to(cuda_device), s["flatten_ids"].to(cuda_device)
     with pytest.raises(TypeError):  # int64 offsets
-        R.rasterize_2dgs_inference(rows, offs.long(), 1, 4, W, H, 16)
+        R.rasterize_2dgs_inference(feats, ids, offs.long(), 1, 4, W, H, 16)
     with pytest.raises(ValueError):  # rows of the wrong width for D
         R.rasterize_2dgs_train_fwd(rows, offs, 1, 5, W, H, 16)
+    with pytest.raises(ValueError):  # unpadded per-gaussian rows
+        R.rasterize_2dgs_inference(feats[:, :19].contiguous(), ids, offs, 1, 4, W, H, 16)
     with pytest.raises(ValueError):  # operands on two devices
-        R.rasterize_2dgs_inference(rows, offs.cpu(), 1, 4, W, H, 16)
+        R.rasterize_2dgs_inference(feats, ids, offs.cpu(), 1, 4, W, H, 16)
+    with pytest.raises(TypeError):  # int64 flatten ids
+        R.rasterize_2dgs_inference(feats, ids.long(), offs, 1, 4, W, H, 16)
+    with pytest.raises(ValueError):  # flatten ids on another device
+        R.rasterize_2dgs_inference(feats, ids.cpu(), offs, 1, 4, W, H, 16)
+    with pytest.raises(ValueError):  # a split that does not divide the tile's warps
+        R.rasterize_2dgs_train_fwd(rows, offs, 1, 4, W, H, 16, n_split=3)
     with pytest.raises(ValueError):  # a depth row outside the channels
         R.rasterize_2dgs_train_fwd(rows, offs, 1, 4, W, H, 16, depth_row=4)
 
@@ -1465,3 +1475,179 @@ def test_kernel_7_cull_layouts_on_card(cuda_device, layout):
         assert float(T[~keep].max()) <= 1.001e-3
     else:
         assert float(T.min()) < 0.99  # the gaussians reach pixels
+
+
+# ---------------------------------------------------------------------------
+# Kernels 4 and 5: the contract of each call, and the per-warp surfel cull
+# (surfel_cull.cuh, shared with kernel 6) on layouts that graze it
+# ---------------------------------------------------------------------------
+
+
+def _assert_k45(R, geo, feats, ids, tile_capacity, bg, mask=None):
+    """Kernel 4 through flatten_ids (with ``bg``) and kernel 5 (RGB+ED with
+    the distortion): within ATOL of the plain version (on the pixels of
+    ``mask``, default all), the distortion within 1e-3 of its scale, the
+    median in all but 1% of the pixels; two launches bit for bit equal;
+    kernel 4 through flatten_ids bitwise equal to kernel 4 on the same rows
+    gathered into stream order; the output bitwise independent of the
+    blocks each tile is cut into."""
+    D, tc, ts = geo[3], tile_capacity, geo[6]
+    k4 = (feats, ids) + geo[1:]
+    before = {k: _build.LAUNCHES.get(k, 0) for k in (R.KERNEL_FWD, R.KERNEL_TRAIN)}
+    got = R.rasterize_2dgs_inference(*k4, bg, tc)
+    train = R.rasterize_2dgs_train_fwd(*geo, tc, D - 1, True)
+    assert all(_build.LAUNCHES[k] == before[k] + 1 for k in before)
+    p_img, p_nrm, p_T, p_dist, p_med, _ = R.rasterize_2dgs_fwd_plain(*geo, tc, D - 1, True)
+    want = (p_img + p_T[..., None] * bg[:, None, None, :], (1.0 - p_T)[..., None], p_nrm)
+    torch.cuda.synchronize()
+    m = torch.ones(p_T.shape, dtype=torch.bool, device=p_T.device) if mask is None else mask
+    for g, w in list(zip(got, want)) + [(train[0], p_img), (train[1], p_nrm), (train[2], p_T)]:
+        assert g.shape == w.shape
+        assert bool(torch.isfinite(g[m]).all())
+        torch.testing.assert_close(g[m], w[m], rtol=0, atol=ATOL)
+    assert _rel_err(train[3][m], p_dist[m]) <= 1e-3
+    assert _median_share(train[4][m], p_med[m]) <= 0.01
+
+    again = R.rasterize_2dgs_inference(*k4, bg, tc)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    again = R.rasterize_2dgs_train_fwd(*geo, tc, D - 1, True)
+    assert all(torch.equal(a, b) for a, b in zip(train, again))
+    identity = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)
+    gathered = R.rasterize_2dgs_inference(feats[ids.long()], identity, *geo[1:], bg, tc)
+    assert all(torch.equal(a, b) for a, b in zip(got, gathered))
+    warps = ts * ts // 32
+    for n in [d for d in (1, 2, 4, 8) if warps % d == 0]:
+        split = R.rasterize_2dgs_inference(*k4, bg, tc, n_split=n)
+        assert all(torch.equal(a, b) for a, b in zip(got, split)), n
+        split = R.rasterize_2dgs_train_fwd(*geo, tc, D - 1, True, n_split=n)
+        assert all(torch.equal(a, b) for a, b in zip(train, split)), n
+    return got, train
+
+
+@pytest.mark.cuda
+# every templated channel bound (DA <= 8, 16, 35), tiles of 16 and 8
+# pixels, one and two images
+@pytest.mark.parametrize("D,tile_size,n_images", [(1, 16, 1), (4, 16, 2), (4, 8, 1),
+                                                  (10, 16, 1), (16, 8, 2), (32, 16, 1)])
+def test_kernels_4_5_calls_on_card(cuda_device, D, tile_size, n_images):
+    """Kernels 4 and 5 with and without the cut at tile_capacity = 128:
+    within ATOL of the plain version, bitwise repeatable, kernel 4 through
+    flatten_ids bitwise equal to it on gathered rows, and independent of
+    the split."""
+    from tdgs_torch.ops import rasterize_2dgs_packed as R
+
+    s = _surfel_stream(400 + D, D, n_images, tile_size=tile_size)
+    geo = (s["rows"].to(cuda_device), s["offsets"].to(cuda_device), n_images, D, W, H,
+           tile_size)
+    feats, ids = s["feats"].to(cuda_device), s["flatten_ids"].to(cuda_device)
+    assert int(torch.diff(s["offsets"].long()).max()) > 128  # some tile is cut
+    bg = torch.linspace(0.1, 0.9, D, device=cuda_device).repeat(n_images, 1)
+    for tc in (128, 1024):
+        got, _ = _assert_k45(R, geo, feats, ids, tc, bg)
+    assert float(got[1].max()) > 0.5  # the surfels cover pixels
+
+
+CULL_LAYOUTS_2DGS = BWD_LAYOUTS + ["edge_on_tmpz_changes_sign", "tmpz_below_1e-9",
+                                   "op_at_1_255", "far_larger_than_the_tile",
+                                   "grazing_the_threshold", "nan_geometry"]
+
+
+def _cull_rows_2dgs(name, rng, D):
+    """Surfel rows [L, 12 + D + 3] on the 3 x 2 tiles of LW x LH, in stream
+    order tile by tile, with the offsets, the tile capacity and the tiles
+    whose first entry has NaN geometry."""
+    if name in BWD_LAYOUTS:
+        tiles, tc = _bwd_layout(name, rng)
+        ent, offsets, L = _layout_stream(tiles)
+        return _layout_rows_2dgs(ent, L, D, rng), offsets, tc, []
+    n = 96
+    tile = np.sort(rng.integers(0, 6, n))
+    ox, oy = 16.0 * (tile % 3), 16.0 * (tile // 3)
+    px = ox + rng.integers(0, 16, n) + 0.5  # a pixel centre of the tile
+    py = oy + rng.integers(0, 16, n) + 0.5
+    c = np.stack([px, py], -1) + rng.uniform(-0.5, 0.5, (n, 2))
+    size = rng.uniform(0.8, 4.0, n)
+    op = rng.uniform(0.05, 0.95, n)
+    if name == "op_at_1_255":
+        # op = 1/255 on a pixel centre (alpha = 1/255 there: included), just
+        # above it, and up to 3 times it
+        op[0::3] = np.float32(1 / 255)
+        c[0::3] = np.stack([px, py], -1)[0::3]
+        op[1::3] = np.nextafter(np.float32(1 / 255), np.float32(1))
+        op[2::3] = rng.uniform(1.0, 3.0, len(op[2::3])) / 255
+        size = rng.uniform(2.0, 8.0, n)
+    elif name == "far_larger_than_the_tile":
+        c = c + rng.uniform(-150, 150, (n, 2))
+        size = rng.uniform(30.0, 400.0, n)
+        op = rng.uniform(0.02, 0.2, n)
+    elif name == "grazing_the_threshold":
+        # round, facing the camera, alpha within 0.1% of 1/255 at the pixel
+        # centre nearest the centre, 1-3 pixels off a warp's rows
+        c[:, 1] = oy + 2.0 * rng.integers(0, 8, n) - rng.uniform(1.0, 3.0, n)
+        c[:, 0] = px
+        near_y = np.clip(np.floor(c[:, 1]) + 0.5, oy + 0.5, oy + 15.5)
+        sigma = rng.uniform(1.0, 4.0, n)
+        size = np.maximum(np.abs(c[:, 1] - near_y) / np.sqrt(2 * sigma), 0.75)
+        sigma = (c[:, 1] - near_y) ** 2 / (2 * size ** 2)
+        op = np.minimum(np.exp(sigma) / 255 * rng.uniform(0.999, 1.001, n), 1.0)
+    L = n + 37
+    rows = rng.normal(size=(L, 12 + D + 3)).astype(np.float32)
+    for i in range(n):
+        th = rng.uniform(0, np.pi)
+        rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        stretch = [1.0, 1.0] if name == "grazing_the_threshold" else rng.uniform(0.7, 1.4, 2)
+        A = rot @ np.diag(stretch) / size[i]
+        M = np.zeros((3, 3))
+        M[:2, :2] = A
+        M[:2, 2] = -A @ c[i]
+        M[2] = [0.0, 0.0, 1.0]
+        if name != "grazing_the_threshold":
+            tilt = rng.uniform(-0.01, 0.01, 2)
+            M[2] = [tilt[0], tilt[1], 1.0 - tilt @ c[i]]
+        if name == "edge_on_tmpz_changes_sign":
+            # tmpz = s (n . (p - c) + e), zero on a line within 2 pixels of
+            # the centre
+            phi, s, e = rng.uniform(0, 2 * np.pi), rng.uniform(0.05, 1.0), rng.uniform(-2, 2)
+            nrm = np.array([np.cos(phi), np.sin(phi)])
+            M[2] = s * np.array([nrm[0], nrm[1], e - nrm @ c[i]])
+        elif name == "tmpz_below_1e-9":
+            # |tmpz| < 1e-9 over the tile: constant, or crossing zero
+            M[2] = [0.0, 0.0, 3e-10] if i % 2 else [1e-11, 0.0, -1e-11 * c[i, 0]]
+        rows[i, :12] = [c[i, 0], c[i, 1], *M[:, 2], *M[:, 0], *M[:, 1], op[i]]
+        rows[i, 12:] = rng.uniform(0, 1, D + 3)
+    rows[:n, 12 + D - 1] = rng.uniform(1, 10, n)  # the depth channel
+    nan_tiles = []
+    if name == "nan_geometry":  # the first entry of tiles 0, 2 and 4
+        nan_tiles = [0, 2, 4]
+        rows[np.searchsorted(tile, nan_tiles), :12] = np.nan
+    offsets = np.searchsorted(tile, np.arange(7)).astype(np.int32)
+    return torch.from_numpy(rows), torch.from_numpy(offsets), 1024, nan_tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", CULL_LAYOUTS_2DGS)
+def test_kernels_4_5_cull_layouts_on_card(cuda_device, layout):
+    """Kernels 4 and 5 (RGB+ED, D = 4) on tiles of few, many, cut and dead
+    entries and on surfels that graze their cull: within ATOL of the plain
+    version, bitwise repeatable, through flatten_ids as on gathered rows,
+    independent of the split. NaN geometry makes sigma NaN, which the
+    kernels include at alpha = 0.999: every pixel of a tile that starts with
+    one ends with T = 0.001 or less, so no warp culled it (the plain version
+    skips such entries and is not held there)."""
+    from tdgs_torch.ops import rasterize_2dgs_packed as R
+
+    D = 4
+    rng = np.random.default_rng(90 + CULL_LAYOUTS_2DGS.index(layout))
+    rows, offsets, tc, nan_tiles = _cull_rows_2dgs(layout, rng, D)
+    geo = (rows.to(cuda_device), offsets.to(cuda_device), 1, D, LW, LH, 16)
+    F = 12 + D + 3
+    feats = torch.nn.functional.pad(geo[0], (0, R.padded_width(D) - F)).contiguous()
+    ids = torch.arange(rows.shape[0], dtype=torch.int32, device=cuda_device)
+    bg = torch.tensor([[0.2, 0.5, 0.8, 0.0]], device=cuda_device)
+    ty, tx = torch.meshgrid(torch.arange(LH) // 16, torch.arange(LW) // 16, indexing="ij")
+    nan_tile = torch.isin(ty * 3 + tx, torch.tensor(nan_tiles, dtype=torch.long))
+    nan_tile = nan_tile.to(cuda_device)[None]
+    _, train = _assert_k45(R, geo, feats, ids, tc, bg, ~nan_tile)
+    if nan_tiles:
+        assert bool(nan_tile.any())
+        assert float(train[2][nan_tile].max()) <= 1.001e-3

@@ -38,8 +38,10 @@ from tdgs_torch.ops import _build
 from tdgs_torch.ops.rasterize_2dgs_packed import (
     GEOM_COLS,
     feature_rows,
+    padded_width,
     rasterize_2dgs_bwd_plain,
     rasterize_2dgs_fwd_plain,
+    rasterize_2dgs_inference,
     rasterize_to_pixels_2dgs_packed,
     rasterize_to_pixels_2dgs_packed_inference,
 )
@@ -278,3 +280,52 @@ def test_plain_truncation_matches_pallas_with_carry_artefact():
     assert float(v_rows[int(o[-1]):].abs().sum()) == 0.0
     for t in np.nonzero(np.diff(o) > tc)[0]:
         assert float(v_rows[o[t] + tc:o[t + 1]].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tile_capacity", [128, 1024])
+def test_plain_through_flatten_ids_equals_gathered_rows(tile_capacity):
+    """The plain version of kernels 4 and 5 on per-gaussian rows read
+    through flatten_ids gives, bit for bit, what it gives on the same rows
+    gathered into stream order, distortion and median included; so does
+    kernel 4's wrapper on CPU tensors, from rows at the kernel's padded
+    stride."""
+    s = _surfel_stream(511, N=120)
+    feats = feature_rows(*_inputs(s, "torch"))
+    offs, ids = torch.from_numpy(s["offsets"]), torch.from_numpy(s["flatten_ids"])
+    geo = (offs, 1, 4, s["width"], s["height"], 16, tile_capacity)
+    want = rasterize_2dgs_fwd_plain(feats[ids.long()], *geo, depth_row=3, compute_distort=True)
+    got = rasterize_2dgs_fwd_plain(feats, *geo, depth_row=3, compute_distort=True,
+                                   flatten_ids=ids)
+    assert float(want[3].abs().max()) > 0 and float(want[4].abs().max()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    padded = feature_rows(*_inputs(s, "torch"), width=padded_width(4))
+    assert padded.shape[1] == 20 and float(padded[:, GEOM_COLS + 7:].abs().max()) == 0.0
+    img, alp, nrm = rasterize_2dgs_inference(padded, ids, *geo[:-1], None, tile_capacity)
+    assert torch.equal(img, want[0]) and torch.equal(nrm, want[1])
+    assert torch.equal(alp[..., 0], 1.0 - want[2])
+
+
+@pytest.mark.parametrize("bad", ["unpadded_rows", "int64_ids", "int64_offsets",
+                                 "split_not_dividing"])
+def test_inference_wrapper_checks_the_kernels_inputs_on_cpu(bad):
+    """Kernel 4's wrapper holds CPU tensors to the inputs the kernel takes
+    on the card: rows at the padded stride, int32 ids and offsets, a split
+    that divides the tile's warps."""
+    s = _surfel_stream(160, N=30)
+    feats = feature_rows(*_inputs(s, "torch"), width=padded_width(4))
+    offs, ids = torch.from_numpy(s["offsets"]), torch.from_numpy(s["flatten_ids"])
+    args = dict(feats=feats, flatten_ids=ids, offsets=offs)
+    kw = {}
+    if bad == "unpadded_rows":
+        args["feats"] = feats[:, :GEOM_COLS + 7].contiguous()
+    elif bad == "int64_ids":
+        args["flatten_ids"] = ids.long()
+    elif bad == "int64_offsets":
+        args["offsets"] = offs.long()
+    else:
+        kw["n_split"] = 3
+    geo = (1, 4, s["width"], s["height"], 16)
+    rasterize_2dgs_inference(feats, ids, offs, *geo)  # the inputs as they should be
+    with pytest.raises((TypeError, ValueError)):
+        rasterize_2dgs_inference(*args.values(), *geo, **kw)
