@@ -8,7 +8,11 @@ training step, the Runner with the normal and distortion losses) and for
 float64, the Runner with the mcmc preset, the command line) and for the
 tile-dense rasterizer (``rasterizer="pallas"``: kernels 9 and 10 at the
 bench scale, the bench render and training step, the Runner, the
-image-fitting example), and print one JSON line per phase.
+image-fitting example), then the domino chain of ``tdgs_torch.rally_e2e``
+(instance masks, training with identity-vector segmentation, clustering,
+PLY, bodies, the rally on its derived tiling plan against a float64
+golden) with kernels 1-3 held and timed at its shapes and the
+segmentation step's cost, and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -604,10 +608,12 @@ def train_parity(name, args, tile_capacity, seed):
     sids, perm = S.sort_ids(ids, offsets[-1])
     s1 = S.segment_rows_sum(rows, perm, sids, G, abs_cols=True)
     s2 = S.segment_rows_sum(rows, perm, sids, G, abs_cols=True)
+    s0 = S.segment_rows_sum(rows, perm, sids, G)  # without the AbsGS columns
     sp = S.segment_rows_sum_plain(rows, perm, sids, G, abs_cols=True)
     torch.cuda.synchronize()
     bitwise = bool(torch.equal(s1, s2))
     seg_rel = {k: _rel(s1[:, c], sp[:, c]) for k, c in seg_groups(args[2].shape[-1]).items()}
+    seg_rel["without_abs_columns"] = _rel(s0, sp[:, :rows.shape[1]])
     seg_abs = float((s1 - sp).abs().max())
     counts = torch.diff(offsets.long())
     emit("train_parity", case=name, tile_capacity=tile_capacity,
@@ -640,12 +646,12 @@ def phase_train_parity(bench, heavy, cap):
     return errs, a["inputs"]
 
 
-def measure_train_kernels(inputs, reps=20):
-    """Times of kernels 1 (training call), 2 and 3 at the bench shapes, with
-    their plain versions', their bounds, and index_add_ as the segment
-    sum's library yardstick."""
+def measure_train_kernels(inputs, reps=20, tile_capacity=1024, phase="train_kernels"):
+    """Times of kernels 1 (training call), 2 and 3 on a training stream (the
+    bench shapes unless given others), with their plain versions', their
+    bounds, and index_add_ as the segment sum's library yardstick."""
     args, img, trans, v_img, v_t, rows = inputs
-    tc = 1024
+    tc = tile_capacity
     D = args[2].shape[-1]
     offsets, ids = args[7], args[8]
     G = args[0].numel() // 2
@@ -684,7 +690,8 @@ def measure_train_kernels(inputs, reps=20):
                          bytes=bwd_bytes, fp32_ops=n_bwd_ops),
         S.KERNEL: measure_segment_sum(rows, ids, offsets, G, reps),
     }
-    emit("train_kernels", n_isects=n_isects, stream_slots=L, n_gaussians=G, **out)
+    emit(phase, n_isects=n_isects, stream_slots=L, n_gaussians=G, D=D, tile_capacity=tc,
+         **out)
     return out
 
 
@@ -1920,6 +1927,128 @@ def phase_image_fitting(min_iterations=1000):
     return {k: launches.get(k, 0) for k in DENSE_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# the domino chain (python -m tdgs_torch.rally_e2e): dataset with instance
+# masks → training with identity-vector segmentation (kernels 1, 2, 3; the
+# identity render at D = 16) → clustering → PLY → bodies → rally (kernel 1
+# at tile_capacity 2048 on the trained scene's plan)
+# ---------------------------------------------------------------------------
+
+
+def phase_rally_e2e(root, **chain_kw):
+    """The chain at the JAX example's defaults (6 dominoes, 32 views of
+    480x360, capacity 24k, 2000 steps, identity_dim 16; 90 frames at
+    1920x1080, 240 Hz, 8 substeps), written under ``root``, no GIF. Fails
+    unless it finds one cluster and one body per domino, its kernel-vs-
+    float64 golden reaches 40 dB, the bodies move, the validation PSNR is
+    finite and each of kernels 1, 2 and 3 launched."""
+    from tdgs_torch.rally_e2e import run_chain
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    summary = run_chain(data_dir=f"{root}/data", out_dir=f"{root}/out", gif=None,
+                        device=DEVICE, **chain_kw)
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    emit("rally_e2e", launches=launches, **summary)
+    n = summary["n_dominoes"]
+    failures = [
+        (summary["clusters_found"] == summary["clusters_expected"] == n,
+         f"clusters {summary['clusters_found']} of {n}"),
+        (summary["n_bodies"] == n, f"bodies {summary['n_bodies']} of {n}"),
+        (summary["kernel_vs_oracle_psnr"] >= 40.0,
+         f"golden {summary['kernel_vs_oracle_psnr']} dB < 40"),
+        (summary["max_body_displacement"] > 0.0, "no body moved"),
+        (bool(np.isfinite(summary["train_psnr"])), f"val PSNR {summary['train_psnr']}"),
+        (summary["all_frames_finite"], "non-finite rally frame"),
+    ] + [(launches[k] > 0, f"{k} never launched") for k in KERNELS]
+    bad = [msg for ok, msg in failures if not ok]
+    if bad:
+        raise RuntimeError(f"rally_e2e: {'; '.join(bad)}")
+    return summary, launches
+
+
+def phase_parity_identity(root, summary, reps=20):
+    """Kernels 1 (training call), 2 and 3 at D = 16 on the identity render
+    of the chain's trained scene (its checkpoint's splats and head, the
+    first training view, 480x360, the Runner's stream: K = 32,
+    tile_capacity 1024) against their plain versions (TOL, BWD_RTOL,
+    SEG_RTOL, kernel 3 bitwise repeatable), then timed; and kernel 1's
+    inference call at the chain's rally frame (1920x1080, the PLY's
+    splats, tile_capacity 2048, the chain's tiling plan), held to TOL and
+    timed."""
+    import pickle
+
+    from tdgs_torch.datasets import Dataset, Parser
+    from tdgs_torch.pipeline import GaussianModel
+    from tdgs_torch.segmentation.head import apply_segmentation_head, head_from_numpy
+
+    with open(f"{root}/out/ckpts/ckpt_{summary['steps']}.pkl", "rb") as f:
+        state = pickle.load(f)
+    sp = {k: torch.as_tensor(v, device=DEVICE) for k, v in state["splats"].items()}
+    head = head_from_numpy(state["segmentation_head"], device=DEVICE)
+    view = Dataset(Parser(f"{root}/data", factor=1, normalize=False), "train")[0]
+    H, W = view["image"].shape[:2]
+    vm = torch.as_tensor(view["viewmat"], device=DEVICE)
+    K = torch.as_tensor(view["K"], device=DEVICE)
+    with torch.no_grad():
+        feats = apply_segmentation_head(head, sp["identity_encodings"])
+        _, _, meta = tdgs_torch.rasterization(
+            sp["means"], sp["quats"], torch.exp(sp["scales"]), torch.sigmoid(sp["opacities"]),
+            feats, vm[None], K[None], W, H, rasterizer="packed", device=DEVICE)
+    args = (meta["means2d"].contiguous(), meta["conics"].contiguous(),
+            feats[None].contiguous(), meta["opacities"].contiguous(), W, H,
+            meta["tile_size"], meta["isect_offsets"], meta["flatten_ids"])
+    ident = train_parity("identity_d16", args, 1024, seed=3)
+    t_ident = measure_train_kernels(ident["inputs"], reps=reps, tile_capacity=1024,
+                                    phase="identity_kernels")
+
+    splats = GaussianModel(sh_degree=3, device=DEVICE).load_splats_from_ply(
+        f"{root}/out/scene.ply")
+    K_r = K.clone()
+    K_r[0] *= WIDTH / W
+    K_r[1] *= HEIGHT / H
+    frame = dict(means=splats["means"], quats=splats["quats"],
+                 scales=torch.exp(splats["scales"]),
+                 opacities=torch.sigmoid(splats["opacities"]),
+                 sh=torch.cat([splats["sh0"], splats["shN"]], dim=-2),
+                 viewmats=vm[None], Ks=K_r[None])
+    bg = torch.full((1, 3), DOMINO_BACKGROUND, device=DEVICE)
+    args_r, bg_r, _ = kernel_inputs(frame, backgrounds=bg, tile_capacity=2048,
+                                    **summary["isect_plan"])
+    err_r = parity("e_trained_dominoes_2048", args_r, backgrounds=bg_r, tile_capacity=2048)
+    k_r = measure_kernel(args_r, backgrounds=bg_r, tile_capacity=2048, reps=reps)
+    emit("kernel_rally_e2e_shape", tile_capacity=2048, max_abs_err=err_r, **k_r)
+    return ident, t_ident, err_r, k_r
+
+
+def phase_seg_step(root, summary, reps=10):
+    """The segmentation layer's cost on the chain's trained scene (its
+    checkpoint, the first training view, 480x360): the Runner's step
+    without the segmentation step, with the CGC loss (the identity render
+    at D = 16 forward and backward, the loss), with the spatial regularizer
+    (8192 sampled gaussians) and with both, each by CUDA events over
+    ``reps`` back-to-back steps; one step with both traced."""
+    from tdgs_torch.rally_e2e import chain_config
+
+    step = summary["steps"]
+    cfg = chain_config(f"{root}/data", f"{root}/seg_step", step)
+    runner = Runner(cfg, device=DEVICE)
+    runner.load_checkpoint(f"{root}/out/ckpts/ckpt_{step}.pkl")
+    batch = runner._batch([0])
+
+    def run(use_seg, use_spatial):
+        runner.train_step(batch, step, cfg.sh_degree, use_seg=use_seg,
+                          use_spatial=use_spatial)
+
+    modes = {"main": (False, False), "seg_loss": (True, False), "spatial": (False, True),
+             "both": (True, True)}
+    ms = {name: time_ms(lambda f=flags: run(*f), reps) for name, flags in modes.items()}
+    emit("seg_step", reps=reps, step_ms=ms, seg_loss_ms=ms["seg_loss"] - ms["main"],
+         spatial_ms=ms["spatial"] - ms["main"], traced_both=traced(lambda: run(True, True)))
+    return ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1975,6 +2104,13 @@ def main():
         fitting_launches = phase_image_fitting()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    root_e2e = tempfile.mkdtemp(prefix="tdgs_rally_e2e_")
+    try:
+        e2e, e2e_launches = phase_rally_e2e(root_e2e)
+        ident, k_ident, err_e2e, k_e2e = phase_parity_identity(root_e2e, e2e)
+        phase_seg_step(root_e2e, e2e)
+    finally:
+        shutil.rmtree(root_e2e, ignore_errors=True)
     k_eval3d, seg_eval3d = measure_kernels_eval3d(par_e3)
     k_dense, k_fitting = measure_kernels_dense(par_dense, par_fitting)
     timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed), **k_eval3d, **k_dense)
@@ -1982,6 +2118,18 @@ def main():
                             for k in ("ms", "device_graph_ms", "plain_ms", "bound_ms",
                                       "blocks_a_tile")}
                      for name, t in k_fitting.items()}
+    # the chain's launches and the D = 16 identity render's times (kernels 1,
+    # 2, 3), kernel 1's inference call at the chain's rally frame
+    timed = ("ms", "device_graph_ms", "plain_ms", "bound_ms", "bound_by")
+    e2e_fields = {name: dict(rally_e2e_launches=e2e_launches[name],
+                             **{f"identity_d16_{k}": k_ident[name][k] for k in timed})
+                  for name in KERNELS}
+    e2e_fields[KERNEL].update(identity_d16_max_abs_err=ident["fwd"],
+                              rally_e2e_2048_max_abs_err=err_e2e,
+                              **{f"rally_e2e_2048_{k}": k_e2e[k] for k in timed})
+    e2e_fields[KERNEL_BWD].update(identity_d16_max_rel_err=ident["bwd_rel"])
+    e2e_fields[S.KERNEL].update(identity_d16_max_rel_err=ident["seg_rel"],
+                                identity_d16_library_ms=k_ident[S.KERNEL]["library_ms"])
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
@@ -2000,12 +2148,14 @@ def main():
                       rally_ms=k_rally["ms"], rally_device_graph_ms=k_rally["device_graph_ms"],
                       rally_plain_ms=k_rally["plain_ms"], rally_bound_ms=k_rally["bound_ms"],
                       bench_render_ms=k_bench["ms"],
-                      bench_render_device_graph_ms=k_bench["device_graph_ms"])),
+                      bench_render_device_graph_ms=k_bench["device_graph_ms"],
+                      **e2e_fields[KERNEL])),
         KERNEL_BWD: ("rasterize_packed_bwd.cu", "tdgs/ops/rasterize_pallas_packed.py:645",
                      train_launches[KERNEL_BWD],
                      dict(max_abs_err=train_errs["bwd"], max_rel_err=train_errs["bwd_rel"],
                           rtol=BWD_RTOL),
-                     dict(trainer_launches=trainer_launches[KERNEL_BWD])),
+                     dict(trainer_launches=trainer_launches[KERNEL_BWD],
+                          **e2e_fields[KERNEL_BWD])),
         S.KERNEL: ("segment_sum.cu", "tdgs/ops/segment_sum_pallas.py:48",
                    train_launches[S.KERNEL],
                    dict(max_abs_err=train_errs["seg"], max_rel_err=train_errs["seg_rel"],
@@ -2021,7 +2171,8 @@ def main():
                         library_graph_ms=timings[S.KERNEL]["library_graph_ms"],
                         **{f"eval3d_rows_{k}": seg_eval3d[k]
                            for k in ("columns", "ms", "device_graph_ms", "bound_ms",
-                                     "library_ms", "library_graph_ms")})),
+                                     "library_ms", "library_graph_ms")},
+                        **e2e_fields[S.KERNEL])),
         R2.KERNEL_FWD: ("rasterize_2dgs_fwd.cu", f"{pallas_2dgs}:84", render_2dgs_launches,
                         dict(max_abs_err=errs_2dgs["fwd"], abs_tol=TOL),
                         dict(trainer_2dgs_eval_launches=trainer_2dgs_eval,

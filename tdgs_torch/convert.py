@@ -7,7 +7,9 @@ pytrees works on the arrays directly) and returns the port's tensors on
 is the JAX ``Runner``'s: ``splats``, the Adam moments ``opt_state`` (``mu``
 and ``nu``, or a selective-Adam ``count``/``exp_avg``/``exp_avg_sq``) and
 the strategy state (the DefaultStrategy's ``grad2d``/``count``/
-``radii_norm``, the MCMCStrategy's ``binoms`` and ``n_alive``). A training
+``radii_norm``, the MCMCStrategy's ``binoms`` and ``n_alive``), and with
+segmentation the ``identity_encodings`` among the splats and the
+``segmentation_head`` (``w1``, ``b1``, ``w2``, ``b2``). A training
 ``Config`` goes across as a dict of builtins (``config_to_dict``,
 ``config_from_dict``), its strategy included. The image-fitting example's
 parameters (``means``, ``scales``, ``quats``, ``opacities``, ``colors``)
@@ -122,18 +124,21 @@ def config_from_dict(d: Mapping[str, Any]):
     return Config(strategy=cls(**strat), **kw)
 
 
+_STATE_KEYS = ("splats", "opt_state", "strategy_state", "segmentation_head")
+
+
 def runner_state_from_numpy(state: Mapping[str, Any], device: DeviceLike = None) -> Dict:
     """A Runner's state with the JAX package's checkpoint keys (``step``,
-    ``splats``, ``opt_state``, ``strategy_state``) as numpy → tensors, ready
-    for ``tdgs_torch.training.trainer.Runner.load_state_numpy``."""
-    out = {k: tree_from_numpy(dict(state[k]), device)
-           for k in ("splats", "opt_state", "strategy_state")}
+    ``splats``, ``opt_state``, ``strategy_state``, and
+    ``segmentation_head`` where segmentation is on) as numpy → tensors,
+    ready for ``tdgs_torch.training.trainer.Runner.load_state_numpy``."""
+    out = {k: tree_from_numpy(dict(state[k]), device) for k in _STATE_KEYS if k in state}
     out["step"] = int(state["step"])
     return out
 
 
 def runner_state_to_numpy(state: Mapping[str, Any]) -> Dict:
-    out = {k: tree_to_numpy(state[k]) for k in ("splats", "opt_state", "strategy_state")}
+    out = {k: tree_to_numpy(dict(state[k])) for k in _STATE_KEYS if k in state}
     out["step"] = int(state["step"])
     return out
 

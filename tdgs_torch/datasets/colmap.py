@@ -4,9 +4,10 @@
 The same parsing, splits, factor-downsampled image directories, numpy
 undistortion maps, world normalization and scene scale as the JAX package.
 Images are decoded by ``tdgs_torch.utils.png.imread`` (PIL when installed,
-else a standard-library PNG decoder). The JAX package's native prefetcher
-and its fork extensions (instance masks, normal maps, dense and sparse
-depths) are not ported; asking for them raises.
+else a standard-library PNG decoder). Instance masks for segmentation come
+from ``masks/instance_ids_npy/{stem}_instance_id.npy``, as in the JAX
+package. Its native prefetcher and its other fork extensions (normal maps,
+dense and sparse depths) are not ported; asking for them raises.
 """
 
 from __future__ import annotations
@@ -84,14 +85,14 @@ class Parser:
         load_instance_masks: bool = False,
         load_normals: bool = False,
     ):
-        if load_instance_masks or load_normals:
+        if load_normals:
             raise NotImplementedError(
-                "instance masks and normal maps are not ported yet "
-                "(ROADMAP queue 1, segmentation and remaining modules)")
+                "normal maps are not ported yet (ROADMAP queue 1: 3DGS training remainders)")
         self.data_dir = data_dir
         self.factor = factor
         self.normalize = normalize
         self.test_every = test_every
+        self.load_instance_masks = load_instance_masks
 
         sparse = os.path.join(data_dir, "sparse", "0")
         if not os.path.isdir(sparse):
@@ -170,8 +171,8 @@ class Dataset:
     def __init__(self, parser: Parser, split: str = "train",
                  patch_size: Optional[int] = None, load_depths: bool = False):
         if load_depths:
-            raise NotImplementedError("depth supervision is not ported yet "
-                                      "(ROADMAP queue 1, remaining modules)")
+            raise NotImplementedError("depth/normal losses are not ported yet "
+                                      "(ROADMAP queue 1: 3DGS training remainders)")
         self.parser = parser
         self.split = split
         self.patch_size = patch_size
@@ -203,6 +204,12 @@ class Dataset:
         if p.mask_dict.get(cam_id) is not None:
             # undistortion ROI: rendered pixels outside it are zeroed
             data["mask"] = p.mask_dict[cam_id]
+        if p.load_instance_masks:
+            stem = os.path.splitext(p.image_names[index])[0]
+            mpath = os.path.join(p.data_dir, "masks", "instance_ids_npy",
+                                 f"{stem}_instance_id.npy")
+            if os.path.exists(mpath):
+                data["instance_mask"] = np.load(mpath)
         if self.patch_size is not None:
             H, W = image.shape[:2]
             ps = self.patch_size
@@ -213,6 +220,7 @@ class Dataset:
             K[0, 2] -= x
             K[1, 2] -= y
             data["K"] = K
-            if "mask" in data:
-                data["mask"] = data["mask"][y:y + ps, x:x + ps]
+            for key in ("instance_mask", "mask"):
+                if key in data:
+                    data[key] = data[key][y:y + ps, x:x + ps]
         return data

@@ -78,10 +78,13 @@ def create_splats(
     init_opacity: float = 0.1,
     init_scale_mult: float = 1.0,
     n_max: Optional[int] = None,
+    identity_dim: int = 0,
 ) -> SplatParams:
     """Splats at ``points`` (SfM init), padded with dead rows to ``n_max``:
     scales = log(mean 3-NN distance · mult), opacities = logit(init_opacity),
-    quats ≈ identity + 0.1·N(0, 1), sh0 from the colours, shN zero."""
+    quats ≈ identity + 0.1·N(0, 1), sh0 from the colours, shN zero; with
+    ``identity_dim`` > 0 also ``identity_encodings`` [M, identity_dim] of
+    0.1·N(0, 1), the learnable identity vectors of segmentation."""
     m = points.shape[0]
     n_max = n_max or m
     if n_max < m:
@@ -104,6 +107,9 @@ def create_splats(
         "sh0": rgb_to_sh(rgbs.to(torch.float32))[:, None, :],
         "shN": torch.zeros((m, K - 1, 3), device=dev),
     }
+    if identity_dim > 0:
+        params["identity_encodings"] = torch.randn(
+            (m, identity_dim), generator=generator, device=dev) * 0.1
     return pad_splats(params, n_max)
 
 

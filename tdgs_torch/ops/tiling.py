@@ -1,7 +1,8 @@
 """Tile intersection + depth sorting (PyTorch port of
-``tdgs/ops/tiling.py``: the packed stream ``isect_tiles_packed`` :154, the
-dense buffers ``isect_tiles`` :43, and the footprint count behind
-``derive_isect_capacity`` :485).
+``tdgs/ops/tiling.py``: the packed stream ``isect_tiles_packed`` :154 with
+its two-population ``split_k`` expansion, the dense buffers ``isect_tiles``
+:43, and the footprint counts behind ``derive_isect_capacity`` :485 and
+``derive_isect_plan`` :539).
 
 The contracts are the JAX package's. Packed: one int32 key
 ``(image*n_tiles + tile) << depth_bits | qdepth`` per (gaussian, tile)
@@ -207,6 +208,74 @@ def derive_isect_capacity(
     return max(-(-int(capped * headroom) // 4096) * 4096, 4096)
 
 
+_SPLIT_CANDIDATES = (2, 3, 4, 6, 8, 12, 16, 24)
+
+
+@torch.no_grad()
+def derive_isect_plan(
+    means,
+    quats,
+    scales,
+    opacities,
+    viewmats,
+    Ks,
+    width: int,
+    height: int,
+    tile_size: int = 16,
+    max_tiles_per_gauss: int = 32,
+    headroom: float = 1.1,
+    big_budget: int = 8192,
+    dense_factor: int = 3,
+    device: DeviceLike = None,
+    **proj_kwargs,
+) -> dict:
+    """The packed tiling's expansion plan from the scene's footprints (port
+    of ``tdgs/ops/tiling.py:539``): ``isect_capacity`` (``headroom`` times
+    the capped count, rounded up to 4096), ``max_tiles_per_gauss`` (the
+    largest footprint, at most the cap), and ``isect_split_k`` /
+    ``isect_big_capacity``: the smallest candidate split whose big
+    gaussians fit ``big_budget``, taken only where the dense expansion's
+    rows exceed the split's by ``dense_factor``/2. Two more keys are not
+    rasterization options: ``footprint_kmax`` (a plan whose cap is below it
+    clips the biggest splats' coverage; callers needing full coverage
+    take ``isect_exact`` instead) and ``full_isect_demand``. Waits for the
+    device once: call it once per scene. Runs on the card unless
+    ``device="cpu"``."""
+    dev = resolve_device(device)
+    radii, means2d, _, _, _ = fully_fused_projection(
+        *(as_float(x, dev) for x in (means, quats, scales, viewmats, Ks)),
+        width, height, opacities=as_float(opacities, dev), **proj_kwargs,
+    )
+    tiles = _tiles_full(means2d, radii, tile_size, math.ceil(width / tile_size),
+                        math.ceil(height / tile_size))[2].reshape(-1).to(torch.int64)
+    stats = torch.stack(
+        [torch.clamp(tiles, max=max_tiles_per_gauss).sum(), tiles.sum(), tiles.max()]
+        + [(tiles > k).sum() for k in _SPLIT_CANDIDATES]).tolist()
+    cap_total, full_total, kmax = stats[:3]
+    n_big = stats[3:]
+    G = tiles.numel()
+    K = max(min(kmax, max_tiles_per_gauss), 1)
+    plan = {
+        "isect_capacity": max(-(-int(cap_total * headroom) // 4096) * 4096, 4096),
+        "max_tiles_per_gauss": K,
+        "isect_split_k": None,
+        "isect_big_capacity": None,
+        "footprint_kmax": kmax,
+        "full_isect_demand": full_total,
+    }
+    dense_rows = G * K
+    for k1, nb in zip(_SPLIT_CANDIDATES, n_big):
+        if k1 >= K:
+            break
+        if nb <= big_budget:
+            bigcap = max(-(-int(nb * 2 + 256) // 128) * 128, 1024)
+            if dense_rows > dense_factor / 2.0 * (G * k1 + bigcap * (K - k1)):
+                plan["isect_split_k"] = k1
+                plan["isect_big_capacity"] = bigcap
+            break
+    return plan
+
+
 def isect_tiles_packed(
     means2d: torch.Tensor,  # [..., N, 2]
     radii: torch.Tensor,  # [..., N, 2]
@@ -233,11 +302,13 @@ def isect_tiles_packed(
       quantized low key bits.
     - ``capacity``: the sorted stream is cut to ``capacity`` entries
       (rounded up to 128), dropping real entries from the highest tiles.
+    - ``split_k`` (capped mode, 0 < split_k < K): the two-population
+      expansion. Every gaussian keeps its first ``split_k`` tiles; of those
+      covering more, only the first ``big_capacity`` in gaussian order
+      (default G/4, rounded up to 128) keep tiles ``split_k..K``; the
+      others' tails count in ``n_dropped``. The stream is the JAX package's
+      ``G·split_k + big_capacity·(K − split_k)`` entries long.
     """
-    if split_k is not None or big_capacity is not None:
-        raise NotImplementedError(
-            "split_k/big_capacity are not ported yet (ROADMAP queue 1, slice-1 remainders)"
-        )
     device = means2d.device
     image_dims = means2d.shape[:-2]
     N = means2d.shape[-2]
@@ -289,10 +360,22 @@ def isect_tiles_packed(
         starts = torch.cumsum(counts, 0) - counts
         k_in = torch.arange(n_isects, device=device) - starts[owner]
     else:
+        tiles_capped = torch.clamp(tiles_full, max=K).reshape(-1).to(torch.int64)
+        if split_k is not None and 0 < split_k < K:
+            # the first n_big_kept big gaussians (gaussian order) keep their
+            # tails; the rest stop at split_k tiles
+            n_big_kept = max(_round_up_128(G // 4 if big_capacity is None else big_capacity),
+                             128)
+            full_len = G * split_k + n_big_kept * (K - split_k)
+            is_big = tiles_full.reshape(-1) > split_k
+            keeps_tail = ~is_big | (torch.cumsum(is_big.to(torch.int64), 0) <= n_big_kept)
+            tiles_capped = torch.where(keeps_tail, tiles_capped,
+                                       torch.clamp(tiles_capped, max=split_k))
+        else:
+            full_len = G * K
         if capacity is not None:
             capacity = _round_up_128(capacity)
-        out_len = G * K if capacity is None or capacity >= G * K else capacity
-        tiles_capped = torch.clamp(tiles_full, max=K).reshape(-1).to(torch.int64)
+        out_len = full_len if capacity is None or capacity >= full_len else capacity
         n_real = int(tiles_capped.sum())
         n_dropped = int((tiles_full.reshape(-1) - tiles_capped).sum())
         owner = torch.repeat_interleave(

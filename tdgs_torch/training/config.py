@@ -195,8 +195,6 @@ class Config:
              "eval3d/3DGUT remainders: training/modules.py"),
             (self.app_opt, "app_opt", "eval3d/3DGUT remainders: training/modules.py"),
             (self.use_bilateral_grid, "use_bilateral_grid", "remaining modules"),
-            (self.with_segmentation or bool(self.load_instance_masks),
-             "with_segmentation/load_instance_masks", "segmentation"),
             (self.depth_loss or self.depth_normal_loss or self.load_normals
              or self.save_depth_normal_vis, "depth/normal losses",
              "3DGS training remainders"),

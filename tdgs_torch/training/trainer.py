@@ -16,6 +16,14 @@ With ``with_eval3d`` (3DGUT) the render is the world-space
 the UT projection with ``with_ut``, and without the screen-space taps;
 3DGUT trains with the MCMCStrategy (relocation, 5% growth up to
 ``cap_max``, position noise every step).
+With ``with_segmentation`` each gaussian also carries a learnable identity
+vector, and at the ``seg_*`` cadence a segmentation step renders the
+segmentation head's features of those vectors through the packed
+rasterizer (``override_features``) and takes the CGC loss against the
+instance masks and the spatial regularizer. Its parameter gradients are
+added to the main step's before the one selective-Adam update (with the
+main render's visibility), as the JAX package's separate seg program does;
+the head has its own Adam without bias correction (lr 1e-3).
 Gaussian state is the JAX package's fixed-capacity layout (dead rows
 padded), and capacity may double between steps (``maybe_grow_capacity``).
 Everything runs eagerly in PyTorch on the runner's device; random draws
@@ -42,6 +50,8 @@ from tdgs_torch.datasets import Dataset, Parser
 from tdgs_torch.models import gaussians as G
 from tdgs_torch.ops.adam import adam_moments
 from tdgs_torch.rendering import rasterization, rasterization_2dgs
+from tdgs_torch.segmentation import head as seg_head_mod
+from tdgs_torch.segmentation import losses as seg_losses
 from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
 from tdgs_torch.strategy.ops import pad_rows, tree_map
 from tdgs_torch.training import losses as L
@@ -132,9 +142,11 @@ class Runner:
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.logger = _MetricsLog(cfg.result_dir)
 
+        load_masks = (cfg.load_instance_masks if cfg.load_instance_masks is not None
+                      else cfg.with_segmentation)
         self.parser = Parser(cfg.data_dir, factor=cfg.data_factor,
                              normalize=cfg.normalize_world_space,
-                             test_every=cfg.test_every)
+                             test_every=cfg.test_every, load_instance_masks=load_masks)
         self.trainset = Dataset(self.parser, "train", patch_size=cfg.patch_size)
         self.valset = Dataset(self.parser, "val")
         self.scene_scale = (self.parser.scene_scale * 1.1 * cfg.init_extent / 3.0
@@ -145,6 +157,14 @@ class Runner:
         self.capacity = self.splats["means"].shape[0]
         self.optimizer = SplatOptimizer(cfg, self.scene_scale, cfg.max_steps)
         self.opt_state = self.optimizer.init(self.splats)
+        # the identity-vector segmentation head and its Adam moments
+        self.seg_head = None
+        self.seg_opt_state = None
+        self.seg_steps = 0  # steps that ran the segmentation step
+        if cfg.with_segmentation:
+            self.seg_head = seg_head_mod.init_segmentation_head(
+                self.generator, cfg.identity_dim, 64, cfg.identity_dim, device=self.device)
+            self.seg_opt_state = self._zero_head_moments()
         self.strategy = cfg.strategy
         self.strategy.check_sanity(self.splats)
         if isinstance(self.strategy, MCMCStrategy):
@@ -180,22 +200,34 @@ class Runner:
             pts, rgbs, self.generator, sh_degree=cfg.sh_degree,
             init_opacity=cfg.init_opa, init_scale_mult=cfg.init_scale,
             n_max=max(capacity, n_init),
+            identity_dim=cfg.identity_dim if cfg.with_segmentation else 0,
         )
+
+    def _zero_head_moments(self):
+        params = self.seg_head.params()
+        return {part: {k: torch.zeros_like(v) for k, v in params.items()}
+                for part in ("mu", "nu")}
 
     # ------------------------------------------------------------------
     def rasterize_splats(self, params, viewmats, Ks, width, height, sh_degree,
                          means2d_offset=None, means2d_abs_tap=None,
                          backgrounds=None, render_mode="RGB",
-                         rasterizer: Optional[str] = None):
+                         rasterizer: Optional[str] = None, override_features=None):
         """Render ``params`` to the cameras; ``rasterizer`` defaults to the
         config's (``"auto"`` is the differentiable ``"packed"``). With
         ``with_eval3d`` every render is ``"eval3d_packed"``, and the
-        screen-space taps are dropped: that render never reads means2d."""
+        screen-space taps are dropped: that render never reads means2d.
+        ``override_features`` [N, D] are rendered in place of the SH colours
+        (the identity render), through the 3DGS rasterization for every
+        model type."""
         cfg = self.cfg
         means, quats, scales, opacities, sh = G.splat_activations(params)
+        colors, sh_deg = sh, sh_degree
+        if override_features is not None:
+            colors, sh_deg = override_features, None
         if rasterizer is None:
             rasterizer = "packed" if cfg.rasterizer == "auto" else cfg.rasterizer
-        if cfg.model_type == "2dgs":
+        if cfg.model_type == "2dgs" and override_features is None:
             # eval and render only: the 2DGS train step renders in _loss_2dgs
             out = rasterization_2dgs(
                 means, quats, scales, opacities, sh, viewmats, Ks, width, height,
@@ -209,8 +241,8 @@ class Runner:
         if cfg.with_eval3d:
             means2d_offset = means2d_abs_tap = None
         return rasterization(
-            means, quats, scales, opacities, sh, viewmats, Ks, width, height,
-            sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+            means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+            sh_degree=sh_deg, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
             camera_model=cfg.camera_model,
             rasterize_mode="antialiased" if cfg.antialiased else "classic",
             rasterizer=rasterizer, tile_capacity=cfg.tile_capacity,
@@ -222,11 +254,17 @@ class Runner:
         )
 
     # ------------------------------------------------------------------
-    def train_step(self, batch: Dict[str, torch.Tensor], step: int, sh_degree: int):
+    def train_step(self, batch: Dict[str, torch.Tensor], step: int, sh_degree: int,
+                   use_seg: bool = False, use_spatial: bool = False,
+                   seg_quality: bool = False):
         """One step: render, loss, gradients, selective Adam. Updates the
         splats and moments; returns (loss tensor, aux) with aux["radii"],
         aux["visibility"] and aux["v_means2d"] (None without the
-        DefaultStrategy)."""
+        DefaultStrategy). ``use_seg``/``use_spatial`` add the segmentation
+        step's CGC loss (``batch["instance_mask"]``) and spatial
+        regularizer (see ``_seg_step``); the loss returned includes their
+        terms, which aux["seg_terms"] holds, and with ``seg_quality``
+        aux["cluster_quality"] the (intra, inter) of the first image."""
         cfg = self.cfg
         images = batch["image"]
         B, H, W = images.shape[:3]
@@ -252,6 +290,10 @@ class Runner:
         if use_absgrad:
             abs_tap = torch.zeros((B, C, 2), device=dev, requires_grad=True)
             taps.append(abs_tap)
+        seg_grads, seg_terms, cq = {}, {}, None
+        if use_seg or use_spatial:
+            seg_grads, seg_terms, cq = self._seg_step(params, batch, sh_degree, use_seg,
+                                                      use_spatial, seg_quality)
         if cfg.model_type == "2dgs":
             loss, meta = self._loss_2dgs(params, batch, step, sh_degree, tap, abs_tap,
                                          backgrounds)
@@ -272,6 +314,9 @@ class Runner:
                                     allow_unused=True)
         g_params = {k: (g if g is not None else torch.zeros_like(params[k]))
                     for k, g in zip(names, grads)}
+        for k, g in seg_grads.items():
+            # summed before the one Adam update: the fused loss's gradient
+            g_params[k] = g_params[k] + g
         g_taps = grads[len(names):]
 
         radii = meta["radii"]
@@ -286,9 +331,59 @@ class Runner:
         v_means2d = None
         if use_tap:
             v_means2d = g_taps[1] if use_absgrad else g_taps[0]
-        return loss.detach(), {"radii": radii, "visibility": visibility,
-                               "v_means2d": v_means2d, "lr_means": lr_dict["means"],
-                               "n_dropped": meta["n_dropped"]}
+        loss = loss.detach()
+        for v in seg_terms.values():
+            loss = loss + v
+        return loss, {"radii": radii, "visibility": visibility,
+                      "v_means2d": v_means2d, "lr_means": lr_dict["means"],
+                      "n_dropped": meta["n_dropped"], "seg_terms": seg_terms,
+                      "cluster_quality": cq}
+
+    def _seg_step(self, params, batch, sh_degree, use_seg, use_spatial, quality):
+        """The segmentation losses on the pre-update ``params`` (port of
+        ``tdgs/training/trainer.py:948 _seg_step_impl``): the head's
+        features of the identity encodings rendered through the training
+        rasterizer, the CGC loss per image (averaged, times
+        ``seg_loss_weight``), and the spatial regularizer on a sample of
+        the gaussians drawn from the runner's generator (times
+        ``seg_spatial_weight``). Updates the head by its own Adam (lr 1e-3,
+        β 0.9/0.999, no bias correction) and returns (the gradients of
+        ``params``, the detached loss terms, the cluster quality of the
+        first image or None)."""
+        cfg = self.cfg
+        head = self.seg_head.params()
+        feats = seg_head_mod.apply_segmentation_head(head, params["identity_encodings"])
+        terms, cq = {}, None
+        if use_seg:
+            B, H, W = batch["image"].shape[:3]
+            fmap, _, _ = self.rasterize_splats(params, batch["viewmat"], batch["K"], W, H,
+                                               sh_degree, override_features=feats)
+            seg = sum(seg_losses.cgc_contrastive_clustering_loss(
+                fmap[b], batch["instance_mask"][b], min_cluster_size=cfg.cgc_min_cluster)
+                for b in range(B))
+            terms["segloss"] = cfg.seg_loss_weight * seg / B
+            if quality:
+                cq = seg_losses.cluster_quality(fmap[0].detach(), batch["instance_mask"][0])
+        if use_spatial:
+            terms["spatialreg"] = cfg.seg_spatial_weight * seg_losses.cgc_spatial_regularizer(
+                feats, params["means"], self.generator, k_near=cfg.cgc_k_near,
+                k_far=cfg.cgc_k_far, lambda_near=cfg.cgc_lambda_near,
+                lambda_far=cfg.cgc_lambda_far)
+        names = list(params)
+        head_names = list(head)
+        grads = torch.autograd.grad(sum(terms.values()),
+                                    [params[k] for k in names] + [head[k] for k in head_names],
+                                    allow_unused=True)
+        g_params = {k: g for k, g in zip(names, grads) if g is not None}
+        with torch.no_grad():
+            mu, nu = self.seg_opt_state["mu"], self.seg_opt_state["nu"]
+            for k, g in zip(head_names, grads[len(names):]):
+                if g is None:
+                    g = torch.zeros_like(head[k])
+                mu[k] = 0.9 * mu[k] + 0.1 * g
+                nu[k] = 0.999 * nu[k] + 0.001 * g * g
+                head[k].sub_(1e-3 * mu[k] / (torch.sqrt(nu[k]) + 1e-15))
+        return g_params, {k: v.detach() for k, v in terms.items()}, cq
 
     def _loss_2dgs(self, params, batch, step, sh_degree, tap, abs_tap, backgrounds):
         """The 2DGS step's render and losses (``tdgs/training/trainer.py``
@@ -332,6 +427,9 @@ class Runner:
         if all("mask" in it for it in items):
             batch["mask"] = torch.as_tensor(np.stack([it["mask"] for it in items]),
                                             dtype=torch.float32, device=dev)
+        if all("instance_mask" in it for it in items):
+            batch["instance_mask"] = torch.as_tensor(
+                np.stack([it["instance_mask"] for it in items]).astype(np.int64), device=dev)
         return batch
 
     def train(self, start_step: int = 0) -> Dict[str, Any]:
@@ -355,7 +453,15 @@ class Runner:
             batch = self._batch(idx)
             H, W = batch["image"].shape[1:3]
             sh_degree = min(step // cfg.sh_degree_interval, cfg.sh_degree)
-            loss, aux = self.train_step(batch, step, sh_degree)
+            # the segmentation cadence (tdgs/training/trainer.py:1100-1114)
+            seg_live = cfg.with_segmentation and step >= cfg.seg_start_iter
+            use_seg = (seg_live and step % cfg.seg_loss_every == 0
+                       and "instance_mask" in batch)
+            use_spatial = seg_live and step % cfg.seg_spatial_every == 0
+            log_step = step % cfg.tb_every == 0 or step == cfg.max_steps
+            loss, aux = self.train_step(batch, step, sh_degree, use_seg=use_seg,
+                                        use_spatial=use_spatial, seg_quality=log_step)
+            self.seg_steps += int(use_seg or use_spatial)
 
             info = {"radii": aux["radii"], "width": W, "height": H}
             if aux["v_means2d"] is not None:
@@ -385,14 +491,20 @@ class Runner:
                 raise FloatingPointError(f"non-finite loss at step {step}: "
                                          f"non-finite params={bad}")
 
-            if step % cfg.tb_every == 0 or step == cfg.max_steps:
+            if log_step:
                 history.append({"step": step, "loss": float(loss)})
-                self.logger.log(step, {
+                scalars = {
                     "train/loss": float(loss),
                     "train/num_GS": int(G.alive_mask(self.splats).sum()),
                     "train/visible_GS": int(aux["visibility"].sum()),
                     "train/sh_degree": sh_degree,
-                })
+                }
+                scalars.update({f"train/{k}": float(v) for k, v in aux["seg_terms"].items()})
+                if aux["cluster_quality"] is not None:
+                    intra, inter = aux["cluster_quality"]
+                    scalars["train/cluster_intra"] = float(intra)
+                    scalars["train/cluster_inter"] = float(inter)
+                self.logger.log(step, scalars)
             if step in cfg.eval_steps:
                 self.eval(step)
             if step in cfg.save_steps:
@@ -446,12 +558,15 @@ class Runner:
         def host(x):
             return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
-        return {
+        state = {
             "step": int(step),
             "splats": tree_map(host, self.splats),
             "opt_state": tree_map(host, self.opt_state),
             "strategy_state": tree_map(host, dict(self.strategy_state)),
         }
+        if self.seg_head is not None:
+            state["segmentation_head"] = seg_head_mod.head_to_numpy(self.seg_head)
+        return state
 
     def save_checkpoint(self, step: int) -> str:
         """Pickle of step, splats, Adam moments and strategy state."""
@@ -461,7 +576,9 @@ class Runner:
         return path
 
     def load_state_numpy(self, state: Dict[str, Any]) -> int:
-        """Restore from the checkpoint's content (see ``state_numpy``)."""
+        """Restore from the checkpoint's content (see ``state_numpy``). A
+        ``segmentation_head`` replaces the head; its Adam moments restart
+        at zero, as the JAX package's checkpoints do not hold them."""
         def dev(x):
             return torch.as_tensor(x, device=self.device) if isinstance(x, np.ndarray) else x
 
@@ -469,11 +586,32 @@ class Runner:
         self.capacity = self.splats["means"].shape[0]
         self.opt_state = tree_map(dev, state["opt_state"])
         self.strategy_state.update(tree_map(dev, state["strategy_state"]))
+        if "segmentation_head" in state:
+            self.seg_head = seg_head_mod.head_from_numpy(state["segmentation_head"],
+                                                         device=self.device)
+            self.seg_opt_state = self._zero_head_moments()
         return int(state["step"])
 
     def load_checkpoint(self, path: str) -> int:
         with open(path, "rb") as f:
             return self.load_state_numpy(pickle.load(f))
+
+    @torch.no_grad()
+    def render_identity_map(self, view_index: int = 0) -> np.ndarray:
+        """The head's features of the identity encodings rendered to one
+        training view by the forward-only ``packed_inference`` rasterizer →
+        [H, W, identity_dim] numpy."""
+        if self.seg_head is None:
+            raise ValueError("segmentation is not enabled (Config.with_segmentation)")
+        d = self.trainset[view_index]
+        H, W = d["image"].shape[:2]
+        feats = seg_head_mod.apply_segmentation_head(self.seg_head,
+                                                     self.splats["identity_encodings"])
+        fmap, _, _ = self.rasterize_splats(
+            self.splats, torch.as_tensor(d["viewmat"], device=self.device)[None],
+            torch.as_tensor(d["K"], device=self.device)[None], W, H, self.cfg.sh_degree,
+            rasterizer="packed_inference", override_features=feats)
+        return fmap[0].cpu().numpy()
 
     def export_ply(self, step: int) -> str:
         """The alive splats as a standard 3DGS PLY (dead rows dropped)."""

@@ -6,6 +6,9 @@ Same seeds, same draws, same arrays as the JAX package:
   ``make_domino_scene`` (:152), a row of coloured dominoes (z-up, ground
   z = 0, the physics engine's frame) on a ground plane of flat disks, plus
   an orbit of look-at cameras;
+- ``make_domino_scene`` (:152): that scene written as a COLMAP dataset with
+  per-view instance-id masks (``masks/instance_ids_npy``), for training
+  with segmentation;
 - ``make_colmap_test_scene`` (:307) and ``make_rich_scene`` (:380): COLMAP
   scenes for training, whose ground-truth images are rendered here by the
   port's own ``packed_inference`` rasterizer and written as PNG with the
@@ -78,7 +81,12 @@ def make_domino_scene_arrays(
     """GT arrays of the domino scene: means/quats/scales/opacities/colors/
     labels (0 = ground, 1..n_dominoes), viewmats/Ks, half_extents,
     spacing."""
-    rng = np.random.default_rng(seed)
+    return _domino_arrays(np.random.default_rng(seed), n_dominoes, n_images, width, height,
+                          gauss_per_domino, ground_gauss, domino_half_extents, spacing)
+
+
+def _domino_arrays(rng, n_dominoes, n_images, width, height, gauss_per_domino,
+                   ground_gauss, domino_half_extents, spacing) -> Dict[str, np.ndarray]:
     hx, hy, hz = domino_half_extents
 
     means_list, cols_list, labels_list = [], [], []
@@ -190,8 +198,9 @@ def _write_colmap_sparse(sparse, width, height, f, viewmats, image_names, pts, c
 
 def _render_gt(means, quats, scales, opac, cols, viewmats, Ks, width, height,
                background, device, **kw) -> np.ndarray:
-    """Ground-truth images [C, H, W, 3] in [0, 1] by the port's forward-only
-    packed rasterizer, one camera at a time."""
+    """Ground-truth images [C, H, W, D] in [0, 1] (``cols`` [N, D]) by the
+    port's forward-only packed rasterizer, one camera at a time;
+    ``background`` None composites onto zeros."""
     from tdgs_torch.rendering import rasterization
 
     dev = resolve_device(device)
@@ -202,10 +211,64 @@ def _render_gt(means, quats, scales, opac, cols, viewmats, Ks, width, height,
         img, _, _ = rasterization(
             t["means"], t["quats"], t["scales"], t["opac"], t["cols"],
             viewmats[i:i + 1], Ks[i:i + 1], width, height,
-            backgrounds=np.full((1, 3), background, np.float32),
+            backgrounds=(None if background is None
+                         else np.full((1, cols.shape[-1]), background, np.float32)),
             rasterizer="packed_inference", device=dev, **kw)
         out.append(np.clip(img[0].cpu().numpy(), 0, 1))
     return np.stack(out)
+
+
+def make_domino_scene(
+    root,
+    n_dominoes: int = 6,
+    n_images: int = 32,
+    width: int = 480,
+    height: int = 360,
+    gauss_per_domino: int = 700,
+    ground_gauss: int = 2500,
+    seed: int = 3,
+    domino_half_extents=(0.05, 0.2, 0.4),
+    spacing: float = 0.55,
+    sfm_points: int = 4000,
+    device: DeviceLike = None,
+):
+    """Write the domino scene as a COLMAP dataset under ``root``: PNG
+    images rendered on ``DOMINO_BACKGROUND``, ``sparse/0`` with
+    ``sfm_points`` ground-truth gaussians as the triangulated points, and
+    per view an instance-id mask (ids 1..n_dominoes, 0 = background)
+    ``masks/instance_ids_npy/{stem}_instance_id.npy``: the argmax of a
+    render of one-hot domino features where its maximum passes 0.35.
+    Renders use exact tile coverage. Returns the ground-truth arrays with
+    the images and masks."""
+    rng = np.random.default_rng(seed)
+    s = _domino_arrays(rng, n_dominoes, n_images, width, height, gauss_per_domino,
+                       ground_gauss, domino_half_extents, spacing)
+    means, quats, scales, opac = s["means"], s["quats"], s["scales"], s["opacities"]
+    labels, viewmats, Ks = s["labels"], s["viewmats"], s["Ks"]
+    n = means.shape[0]
+    onehot = np.zeros((n, n_dominoes), np.float32)
+    fg = labels > 0
+    onehot[fg, labels[fg] - 1] = 1.0
+    kw = dict(tile_capacity=512, isect_exact=True)
+    imgs = _render_gt(means, quats, scales, opac, s["colors"], viewmats, Ks, width, height,
+                      DOMINO_BACKGROUND, device, **kw)
+    fmap = _render_gt(means, quats, scales, opac, onehot, viewmats, Ks, width, height,
+                      None, device, **kw)
+    masks = np.where(fmap.max(axis=-1) > 0.35, fmap.argmax(axis=-1) + 1, 0).astype(np.int32)
+
+    names = [f"img_{i:03d}.png" for i in range(n_images)]
+    mask_dir = os.path.join(root, "masks", "instance_ids_npy")
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(mask_dir, exist_ok=True)
+    for i, name in enumerate(names):
+        write_png(os.path.join(root, "images", name), (imgs[i] * 255).astype(np.uint8))
+        np.save(os.path.join(mask_dir, f"{os.path.splitext(name)[0]}_instance_id.npy"),
+                masks[i])
+    sel = rng.choice(n, size=min(n, sfm_points), replace=False)
+    _write_colmap_sparse(os.path.join(root, "sparse", "0"), width, height,
+                         1.05 * max(width, height), viewmats, names, means[sel],
+                         s["colors"][sel])
+    return dict(s, images=imgs, masks=masks)
 
 
 def make_colmap_test_scene(root, n_images=8, width=64, height=48, n_pts=120,

@@ -181,6 +181,48 @@ def test_segment_sum_kernel_matches_plain_on_card(cuda_device, F, abs_cols):
         assert _rel_err(a[:, col], want[:, col]) <= 1e-5, col
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 16])
+def test_kernels_1_to_3_at_the_chain_shapes_on_card(cuda_device, D):
+    """The domino chain's shapes: tiles longer than the rally's
+    tile_capacity of 2048, and the identity render's D = 16 through kernel
+    1's training call, kernel 2 (its CMAX = 26 build: 32 values in the
+    reduce-scatter) and kernel 3 (rows of 22 columns, 24 with the AbsGS
+    columns), each against its plain version; kernel 3 bit for bit
+    repeatable."""
+    tc = 2048
+    s = _stream(140 + D, D, N=3000, min_radius=40)  # every gaussian on every tile
+    args = _args(s, cuda_device)
+    assert int(torch.diff(s["offsets"].long()).max()) > tc  # the cut is live
+    bg = torch.linspace(0.1, 0.9, D, device=cuda_device)[None]
+    got = rasterize_to_pixels_packed_inference(*args, backgrounds=bg, tile_capacity=tc)
+    want = rasterize_to_pixels_packed_inference_plain(*args, backgrounds=bg, tile_capacity=tc)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+    img, trans = rasterize_packed_train_fwd(*args, tile_capacity=tc)
+    img_p, trans_p = rasterize_packed_train_fwd_plain(*args, tile_capacity=tc)
+    torch.testing.assert_close(img, img_p, rtol=0, atol=ATOL)
+    torch.testing.assert_close(trans, trans_p, rtol=0, atol=ATOL)
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    v_img = torch.randn(img.shape, generator=gen, device=cuda_device)
+    v_t = torch.randn(trans.shape, generator=gen, device=cuda_device)
+    rows = rasterize_packed_bwd(*args, img, trans, v_img, v_t, tile_capacity=tc)
+    rows_p = rasterize_packed_bwd_plain(*args, img, trans, v_img, v_t, tile_capacity=tc)
+    for name, cols in GROUPS.items():
+        assert _rel_err(rows[:, cols], rows_p[:, cols]) <= 1e-3, name
+    offsets, ids = args[7], args[8]
+    sids, perm = S.sort_ids(ids, offsets[-1])
+    for abs_cols in (False, True):
+        a = S.segment_rows_sum(rows, perm, sids, 3000, abs_cols=abs_cols)
+        b = S.segment_rows_sum(rows, perm, sids, 3000, abs_cols=abs_cols)
+        want_s = S.segment_rows_sum_plain(rows, perm, sids, 3000, abs_cols=abs_cols)
+        torch.cuda.synchronize()
+        assert a.shape[1] == 6 + D + (2 if abs_cols else 0)
+        assert torch.equal(a, b)
+        for col in range(a.shape[1]):
+            assert _rel_err(a[:, col], want_s[:, col]) <= 1e-5, (abs_cols, col)
+
+
 def _segment_layout(name, rng):
     """(stream ids, n_valid or None, mask or None, n_out) of a layout that
     the kernel's decomposition makes hard: each block owns a window of

@@ -102,12 +102,12 @@ def test_isect_exact_depth_order_matches(exact):
 
 
 def test_isect_split_k_raises():
-    means2d, radii, depths, tw, th = _inputs(303, N=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttiling.isect_tiles_packed(
-            torch.from_numpy(means2d), torch.from_numpy(radii),
-            torch.from_numpy(depths), 16, tw, th, split_k=4,
-        )
+    """split_k raised until the two-population expansion was ported; it now
+    gives the JAX package's stream (tests/test_torch_isect_plan.py holds
+    it in full), and split_k outside (0, K) is the capped expansion."""
+    for split_k in (4, 16):
+        got, want = _both(*_inputs(303, N=8), max_tiles_per_gauss=16, split_k=split_k)
+        _assert_same_stream(got, want)
 
 
 def test_isect_offset_encode_matches():
