@@ -12,7 +12,13 @@ image-fitting example), then the domino chain of ``tdgs_torch.rally_e2e``
 (instance masks, training with identity-vector segmentation, clustering,
 PLY, bodies, the rally on its derived tiling plan against a float64
 golden) with kernels 1-3 held and timed at its shapes and the
-segmentation step's cost, and print one JSON line per phase.
+segmentation step's cost, then the depth path on the rich scene (its
+refined depths and normal maps rendered through kernel 1, the Runner with
+the dense depth, depth-normal and monocular-normal terms and LPIPS, with
+and without the decode-ahead, kernels 1-3 held and timed at its D = 4,
+the trajectory render, the sparse depth loss on a tracked copy) and the
+ortho and fisheye cameras at the bench scale, and print one JSON line per
+phase.
 
     python3 chip_smoke.py
 
@@ -25,6 +31,7 @@ reports for the card's name and power limit.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -2049,6 +2056,322 @@ def phase_seg_step(root, summary, reps=10):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# depth and normal supervision: the rich scene's refined depths and normal
+# maps, kernels 1-3 at the depth path's D = 4, the Runner with every depth
+# and normal term, the sparse depths of a tracked copy, the trajectory
+# render, and the ortho and fisheye cameras at the bench scale
+# ---------------------------------------------------------------------------
+
+# the depth path's Runner: dense depths from the refined maps, the
+# depth-normal regularizers and the monocular normals from step 30, and the
+# depth and normal dumps at the tb_every cadence
+DEPTH_TERMS = dict(depth_loss=True, use_precomputed_depths=True, depth_normal_loss=True,
+                   depth_normal_start_step=30, load_normals=True, start_normal_loss_step=30,
+                   save_depth_normal_vis=True)
+
+
+def phase_depth_scene(root, gt):
+    """The rich scene's refined depths and normal maps, as a depth or normal
+    estimator would give them: the ground-truth gaussians rendered in "ED"
+    at every view through kernel 1 (exact coverage, tile_capacity 2048) into
+    refined_depths/{stem}_refined_depth.npy, and the world normals of those
+    depths (``utils/depth.depth_to_normal``) into normals/{stem}.npy; both
+    in the frame the Runner's Parser normalizes to (depths times its scale,
+    normals turned by its rotation)."""
+    from tdgs_torch.datasets import Parser
+    from tdgs_torch.utils.depth import depth_to_normal, rotate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parser = Parser(root, factor=1)
+    T = parser.transform[:3, :3]
+    det = float(np.linalg.det(T))
+    if not det > 0:
+        raise RuntimeError(f"depth_scene: the normalization has det {det}")
+    scale = det ** (1.0 / 3.0)
+    R = torch.as_tensor(T / scale, dtype=torch.float32, device=DEVICE)
+    for sub in ("refined_depths", "normals"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    sc = to_card({k: gt[k] for k in ("means", "quats", "scales", "opacities", "colors")})
+    W, H = parser.imsize_dict[parser.camera_ids[0]]
+    _build.reset_launches()
+    coverage = []
+    for i, name in enumerate(parser.image_names):
+        vm = torch.as_tensor(gt["viewmats"][i], device=DEVICE)
+        K = torch.as_tensor(gt["Ks"][i], device=DEVICE)
+        depth, _, _ = tdgs_torch.rasterization(
+            sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["colors"], vm[None],
+            K[None], W, H, render_mode="ED", rasterizer="packed_inference",
+            tile_capacity=2048, isect_exact=True, device=DEVICE)
+        normals = rotate(R, depth_to_normal(depth[0], torch.linalg.inv(vm), K))
+        stem = os.path.splitext(name)[0]
+        d = (depth[0, ..., 0] * scale).cpu().numpy()
+        np.save(os.path.join(root, "refined_depths", f"{stem}_refined_depth.npy"), d)
+        np.save(os.path.join(root, "normals", f"{stem}.npy"), normals.cpu().numpy())
+        coverage.append(float((d > 0).mean()))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _build.LAUNCHES.get(KERNEL, 0)
+    emit("depth_scene", views=len(parser.image_names), width=W, height=H, seconds=seconds,
+         normalization_scale=scale, depth_coverage_min=min(coverage), kernel_1_launches=launches)
+    if launches < len(parser.image_names) or not min(coverage) > 0.5:
+        raise RuntimeError(f"depth_scene: {launches} launches, coverage {min(coverage)}")
+    return seconds
+
+
+def depth_config(root, name, n_steps, **extra):
+    """The trainer cell's configuration (packed, SH 3, DefaultStrategy
+    refining at 40 and 80) with the depth path's options, logging every 10
+    steps."""
+    strategy = DefaultStrategy(refine_start_iter=20, refine_every=40,
+                               refine_stop_iter=1000, reset_every=10_000)
+    return Config(data_dir=root, result_dir=f"{root}/results_{name}", data_factor=1,
+                  max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
+                  sh_degree_interval=20, rasterizer="packed", tb_every=10,
+                  strategy=strategy, **extra)
+
+
+def train_timed(runner, n_steps):
+    """runner.train() with the host time of its batches (decode, or the wait
+    for the decode-ahead, and the copies to the card) summed apart: (steps
+    a second, data ms a step, history)."""
+    box = {"s": 0.0, "n": 0}
+    batch = runner._batch
+
+    def timed(idx):
+        t = time.perf_counter()
+        out = batch(idx)
+        box["s"] += time.perf_counter() - t
+        box["n"] += 1
+        return out
+
+    runner._batch = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = runner.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runner._batch = batch
+    return n_steps / wall, box["s"] / max(box["n"], 1) * 1e3, out["history"]
+
+
+def train_records(result_dir):
+    with open(os.path.join(result_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "train/loss" in r]
+
+
+def phase_trainer_depth(root, n_steps=100):
+    """The Runner with every depth and normal term (``DEPTH_TERMS``) on the
+    rich scene with its refined depths and normal maps, 100 steps, then
+    eval (PSNR, SSIM, LPIPS); once without the decode-ahead and then, the
+    run that counts the launches, with it. Fails unless every loss term is
+    finite at the last step, the RGB loss dropped, the 20 dumps were
+    written, eval is finite and kernels 1-3 launched every step."""
+    runs = {}
+    for prefetch in (False, True):
+        name = f"trainer_depth{'' if prefetch else '_no_prefetch'}"
+        runner = Runner(depth_config(root, name, n_steps, data_prefetch=prefetch,
+                                     **DEPTH_TERMS), device=DEVICE)
+        _build.reset_launches()
+        steps_per_s, data_ms, hist = train_timed(runner, n_steps)
+        launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+        runs[prefetch] = dict(runner=runner, steps_per_s=steps_per_s, data_ms_per_step=data_ms,
+                              hist=hist, launches=launches)
+    runs[False]["runner"].close()
+    main = runs[True]
+    runner = main["runner"]
+    _build.reset_launches()
+    stats = runner.eval(n_steps)
+    eval_launches = _build.LAUNCHES.get(KERNEL, 0)
+    # one more step traced (it changes the splats after the eval above)
+    batch = runner._batch([0])
+    step_trace = traced(lambda: runner.train_step(batch, n_steps + 1, runner.cfg.sh_degree))
+    records = train_records(runner.cfg.result_dir)
+    terms = {k[len("train/"):]: v for k, v in records[-1].items()
+             if k.startswith("train/") and k[len("train/"):] in
+             ("rgbloss", "depthloss", "normalloss", "depthsmooth", "normalconsist")}
+    vis = sorted(os.listdir(os.path.join(runner.cfg.result_dir, "vis")))
+    emit("trainer_depth", steps=n_steps, train_images=len(runner.trainset),
+         capacity=runner.capacity, steps_per_s=main["steps_per_s"],
+         data_ms_per_step=main["data_ms_per_step"],
+         no_prefetch_steps_per_s=runs[False]["steps_per_s"],
+         no_prefetch_data_ms_per_step=runs[False]["data_ms_per_step"],
+         loss_terms_last=terms, rgbloss_first=records[0]["train/rgbloss"],
+         loss_first=main["hist"][0], loss_last=main["hist"][-1], vis_pngs=len(vis),
+         refines=runner.refines, launches=main["launches"],
+         no_prefetch_launches=runs[False]["launches"], eval_launches=eval_launches,
+         eval_psnr=stats["psnr"], eval_ssim=stats["ssim"],
+         eval_lpips_proxy=stats.get("lpips_proxy"), eval_lpips=stats.get("lpips"),
+         lpips_impl=stats["lpips_impl"], eval_num_gs=stats["num_GS"], traced_step=step_trace)
+    failures = [
+        (set(terms) == {"rgbloss", "depthloss", "normalloss", "depthsmooth", "normalconsist"}
+         and all(np.isfinite(v) for v in terms.values()), f"loss terms {terms}"),
+        (terms.get("rgbloss", np.inf) < records[0]["train/rgbloss"], "the RGB loss did not drop"),
+        (len(vis) == 2 * (n_steps // 10), f"{len(vis)} vis PNGs"),
+        (all(np.isfinite(stats[k]) for k in ("psnr", "ssim")) and stats["lpips_impl"]
+         and np.isfinite(stats.get("lpips_proxy", stats.get("lpips"))), f"eval {stats}"),
+        (eval_launches >= len(runner.valset), f"eval launched kernel 1 {eval_launches} times"),
+    ] + [(main["launches"][k] >= n_steps, f"{k} launched {main['launches'][k]} times")
+         for k in KERNELS]
+    bad = [msg for ok, msg in failures if not ok]
+    if bad:
+        raise RuntimeError(f"trainer_depth: {'; '.join(bad)}")
+    return runner, main["launches"], eval_launches
+
+
+def depth_kernel_inputs(runner, view=0):
+    """Kernel 1-3's operands on the depth path's stream: the Runner's splats
+    rendered to training view ``view`` in "RGB+ED" as its step renders them
+    (the packed tiling at its capacities), the SH colours with the depths
+    as the fourth channel."""
+    from tdgs_torch.models.gaussians import splat_activations
+
+    cfg = runner.cfg
+    d = runner.trainset[view]
+    H, W = d["image"].shape[:2]
+    vm = torch.as_tensor(d["viewmat"], device=DEVICE)[None]
+    K = torch.as_tensor(d["K"], device=DEVICE)[None]
+    with torch.no_grad():
+        means, quats, scales, opacities, sh = splat_activations(runner.splats)
+        _, _, meta = tdgs_torch.rasterization(
+            means, quats, scales, opacities, sh, vm, K, W, H, sh_degree=cfg.sh_degree,
+            render_mode="RGB+ED", rasterizer="packed", tile_capacity=cfg.tile_capacity,
+            isect_capacity=cfg.isect_capacity, max_tiles_per_gauss=cfg.max_tiles_per_gauss,
+            device=DEVICE)
+        colors = torch.cat([_colors_per_camera(sh, cfg.sh_degree, means, vm, meta["radii"]),
+                            meta["depths"][..., None]], -1)
+    return (meta["means2d"].contiguous(), meta["conics"].contiguous(), colors.contiguous(),
+            meta["opacities"].contiguous(), W, H, meta["tile_size"], meta["isect_offsets"],
+            meta["flatten_ids"])
+
+
+def phase_parity_depth(runner, reps=20):
+    """Kernels 1 (training call), 2 and 3 at D = 4 on the trained depth
+    path's first training view (1236x822), against their plain versions
+    (TOL, BWD_RTOL, SEG_RTOL; kernel 3 bitwise repeatable), also cut at
+    tile_capacity = 128; then timed by CUDA events and graph replay, with
+    their bounds and index_add_ beside kernel 3."""
+    args = depth_kernel_inputs(runner)
+    a = train_parity("depth_d4", args, 1024, seed=4)
+    counts = torch.diff(args[7].long())
+    cut = int((counts > max_entries_per_tile(128)).sum())
+    if cut == 0:
+        raise RuntimeError("parity_depth: no tile reaches 128 entries to cut")
+    b = train_parity("depth_d4_truncated", args, 128, seed=5)
+    t = measure_train_kernels(a["inputs"], reps=reps, tile_capacity=1024,
+                              phase="depth_kernels")
+    errs = {k: max(a[k], b[k]) for k in ("fwd", "bwd", "seg", "bwd_rel", "seg_rel")}
+    return errs, t
+
+
+def phase_trainer_depth_sparse(root, n_steps=20):
+    """The Runner with the sparse depth loss on a tracked copy of the rich
+    scene (each image tracks the SfM points that project inside it:
+    ``utils/test_data.tracked_copy``), 20 steps. Fails unless the depth
+    loss is finite and every training view has a point."""
+    from tdgs_torch.utils.test_data import tracked_copy
+
+    root_t = os.path.join(root, "tracked")
+    os.makedirs(root_t)
+    tracked_copy(root, root_t)
+    runner = Runner(depth_config(root_t, "trainer_depth_sparse", n_steps, depth_loss=True),
+                    device=DEVICE)
+    names = [runner.parser.image_names[i] for i in runner.trainset.indices]
+    counts = [len(runner.parser.point_indices[n]) for n in names]
+    _build.reset_launches()
+    steps_per_s, data_ms, hist = train_timed(runner, n_steps)
+    runner.close()
+    depthloss = train_records(runner.cfg.result_dir)[-1]["train/depthloss"]
+    emit("trainer_depth_sparse", steps=n_steps, steps_per_s=steps_per_s,
+         data_ms_per_step=data_ms, depthloss_last=depthloss,
+         mean_points_a_view=float(np.mean(counts)), min_points_a_view=min(counts),
+         loss_last=hist[-1],
+         launches={k: _build.LAUNCHES.get(k, 0) for k in KERNELS})
+    if not np.isfinite(depthloss) or min(counts) < 1:
+        raise RuntimeError(f"trainer_depth_sparse: depthloss {depthloss}, "
+                           f"min points a view {min(counts)}")
+
+
+def phase_render_traj(runner, n_frames=60):
+    """The trajectory render at the end of training: 60 "interp" frames of
+    the depth path's trained scene at 1236x822 in "RGB+ED" through kernel
+    1's inference call (``render_fps``: the frames on the host), then
+    written out (a GIF where PIL imports, else PNG frames; ``fps``: both)."""
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = runner.traj_frames(n_frames, traj_path="interp")
+    render_s = time.perf_counter() - t0
+    path = runner.write_traj(runner.cfg.max_steps, frames)
+    wall = time.perf_counter() - t0
+    if os.path.isdir(path):
+        frames = len(os.listdir(path))
+    else:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            frames = im.n_frames
+    launches = _build.LAUNCHES.get(KERNEL, 0)
+    emit("render_traj", frames=frames, fps=frames / wall, render_fps=n_frames / render_s,
+         wall_s=wall, write_s=wall - render_s, path=path, launches=launches)
+    if frames != n_frames or launches < n_frames:
+        raise RuntimeError(f"render_traj: {frames} frames, {launches} launches")
+
+
+def phase_camera_models(bench, n_frames=20):
+    """The 200k-gaussian bench scene at 1920x1080 through the orthographic
+    camera (90 pixels a world unit: the scene's ±3σ in y fills the height)
+    and the equidistant fisheye (f = 960 / (π / 2): the width spans 180°):
+    kernel 1 within TOL of its plain version on each stream, 20 frames each,
+    and one forward and backward "packed" step under the fisheye with
+    finite gradients."""
+    out = {}
+    worst = 0.0
+    for cm, f in (("ortho", 0.5 * HEIGHT / 6.0), ("fisheye", 0.5 * WIDTH / (np.pi / 2))):
+        K = torch.tensor([[[f, 0, WIDTH / 2], [0, f, HEIGHT / 2], [0, 0, 1]]],
+                         dtype=torch.float32, device=DEVICE)
+        sc = dict(bench, Ks=K)
+        args, _, meta = kernel_inputs(sc, max_tiles_per_gauss=16, camera_model=cm)
+        worst = max(worst, parity(f"{cm}_bench", args))
+
+        def frame(i):
+            img, _, _ = tdgs_torch.rasterization(
+                sc["means"], sc["quats"], sc["scales"], sc["opacities"] * (1.0 + 1e-5 * i),
+                sc["sh"], sc["viewmats"], K, WIDTH, HEIGHT, sh_degree=3, camera_model=cm,
+                tile_capacity=1024, max_tiles_per_gauss=16, device=DEVICE)
+            return img
+
+        frame(0)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        acc = torch.zeros((), device=DEVICE)
+        for i in range(n_frames):
+            acc += frame(i).mean()
+        torch.cuda.synchronize()
+        out[cm] = dict(focal=f, fps=n_frames / (time.perf_counter() - t0),
+                       n_isects=meta["n_isects"], n_dropped=meta["n_dropped"],
+                       launches=_build.LAUNCHES.get(KERNEL, 0),
+                       visible_share=float(meta["radii"].gt(0).all(-1).float().mean()),
+                       finite=bool(torch.isfinite(acc)))
+    names = ("means", "quats", "scales", "opacities", "sh")
+    leaves = [bench[k].clone().requires_grad_(True) for k in names]
+    K = torch.tensor([[[out["fisheye"]["focal"], 0, WIDTH / 2],
+                       [0, out["fisheye"]["focal"], HEIGHT / 2], [0, 0, 1]]], device=DEVICE)
+    img, alpha, _ = tdgs_torch.rasterization(
+        *leaves, bench["viewmats"], K, WIDTH, HEIGHT, sh_degree=3, camera_model="fisheye",
+        rasterizer="packed", tile_capacity=1024, max_tiles_per_gauss=16, device=DEVICE)
+    grads = torch.autograd.grad(img.mean() + alpha.mean(), leaves)
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    emit("camera_models", tol=TOL, max_abs_err=worst, fisheye_grads_finite=grads_finite,
+         fisheye_grad_means_max=float(grads[0].abs().max()), **out)
+    if not grads_finite or not all(v["finite"] and v["launches"] >= n_frames
+                                   for v in out.values()):
+        raise RuntimeError(f"camera_models: {out}, gradients finite {grads_finite}")
+    return worst
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2078,7 +2401,7 @@ def main():
     root = tempfile.mkdtemp(prefix="tdgs_rich_scene_")
     try:
         t0 = time.perf_counter()
-        make_rich_scene(root, device=DEVICE)
+        gt = make_rich_scene(root, device=DEVICE)
         scene_s = time.perf_counter() - t0
         trainer_launches, trainer_eval = phase_trainer(root, scene_s)
         k_train = measure_train_kernels(train_inputs)
@@ -2102,6 +2425,14 @@ def main():
         train_dense_launches = phase_render_train(bench, cap_dense, rasterizer="pallas")
         trainer_dense_launches, _ = phase_trainer(root, scene_s, rasterizer="pallas")
         fitting_launches = phase_image_fitting()
+
+        phase_depth_scene(root, gt)
+        depth_runner, depth_launches, depth_eval = phase_trainer_depth(root)
+        errs_depth, k_depth = phase_parity_depth(depth_runner)
+        phase_render_traj(depth_runner)
+        depth_runner.close()
+        phase_trainer_depth_sparse(root)
+        err_cameras = phase_camera_models(bench)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     root_e2e = tempfile.mkdtemp(prefix="tdgs_rally_e2e_")
@@ -2130,6 +2461,18 @@ def main():
     e2e_fields[KERNEL_BWD].update(identity_d16_max_rel_err=ident["bwd_rel"])
     e2e_fields[S.KERNEL].update(identity_d16_max_rel_err=ident["seg_rel"],
                                 identity_d16_library_ms=k_ident[S.KERNEL]["library_ms"])
+    # the depth path: its launches (trainer_depth) and kernels 1-3 at D = 4
+    # on its first training view ("RGB+ED")
+    for name in KERNELS:
+        e2e_fields[name].update(trainer_depth_launches=depth_launches[name],
+                                **{f"depth_d4_{k}": k_depth[name][k] for k in timed})
+    e2e_fields[KERNEL].update(depth_d4_max_abs_err=errs_depth["fwd"],
+                              trainer_depth_eval_launches=depth_eval,
+                              camera_models_max_abs_err=err_cameras)
+    e2e_fields[KERNEL_BWD].update(depth_d4_max_rel_err=errs_depth["bwd_rel"])
+    e2e_fields[S.KERNEL].update(depth_d4_max_rel_err=errs_depth["seg_rel"],
+                                depth_d4_library_ms=k_depth[S.KERNEL]["library_ms"],
+                                depth_d4_library_graph_ms=k_depth[S.KERNEL]["library_graph_ms"])
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7

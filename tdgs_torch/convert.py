@@ -14,7 +14,8 @@ segmentation the ``identity_encodings`` among the splats and the
 ``config_from_dict``), its strategy included. The image-fitting example's
 parameters (``means``, ``scales``, ``quats``, ``opacities``, ``colors``)
 go across with ``image_fitting_params_from_numpy`` and back with
-``image_fitting_params_to_numpy``. Nothing here imports JAX.
+``image_fitting_params_to_numpy``. LPIPS filter banks go across with
+``lpips_filters_from_numpy``. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -151,3 +152,13 @@ def adam_state_from_numpy(state: Any, device: DeviceLike = None) -> SelectiveAda
         tree_from_numpy(dict(_field(state, "exp_avg")), device),
         tree_from_numpy(dict(_field(state, "exp_avg_sq")), device),
     )
+
+
+def lpips_filters_from_numpy(bank: Any, device: DeviceLike = None) -> Any:
+    """LPIPS weights → float32 tensors on ``device``, in the same nesting:
+    the JAX package's proxy bank (``tdgs.training.metrics._filters()``, a
+    tuple of [c_out, c_in, k, k] filters, for ``metrics.lpips(filters=...)``)
+    or its learned weights (``_load_learned(net)``: convs as (w, b) pairs,
+    then the lins)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), bank)

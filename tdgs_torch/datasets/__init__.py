@@ -1,5 +1,6 @@
-"""Data layer: COLMAP parsing and world normalization (numpy copies of the
-JAX package's ``tdgs/datasets``)."""
+"""Data layer: COLMAP parsing, world normalization and camera trajectories
+(numpy copies of the JAX package's ``tdgs/datasets``), and the decode-ahead
+of the training images (``prefetch.py``)."""
 
 from tdgs_torch.datasets.colmap import Dataset, Parser
 from tdgs_torch.datasets.normalize import (

@@ -4,10 +4,13 @@
 The same parsing, splits, factor-downsampled image directories, numpy
 undistortion maps, world normalization and scene scale as the JAX package.
 Images are decoded by ``tdgs_torch.utils.png.imread`` (PIL when installed,
-else a standard-library PNG decoder). Instance masks for segmentation come
-from ``masks/instance_ids_npy/{stem}_instance_id.npy``, as in the JAX
-package. Its native prefetcher and its other fork extensions (normal maps,
-dense and sparse depths) are not ported; asking for them raises.
+else a standard-library PNG decoder), on demand or ahead of use by the
+thread-pool ``Prefetcher`` (``Dataset.enable_prefetch``). The fork
+extensions of the JAX package come along: instance masks
+(``masks/instance_ids_npy/{stem}_instance_id.npy``), monocular normal maps
+(``normals/{stem}.npy`` or an RGB-encoded image), the sparse depths of the
+SfM points each image tracks, and refined dense depths
+(``refined_depths/{stem}_refined_depth.npy``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,18 @@ import numpy as np
 
 from tdgs_torch.datasets import normalize as nrm
 from tdgs_torch.datasets.colmap_io import load_colmap_model, qvec_to_rotmat
+from tdgs_torch.datasets.prefetch import Prefetcher
 from tdgs_torch.utils.png import imread
+
+
+def _nearest_resize(arr: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Nearest-neighbour resize of a [H, W(, C)] map to (height, width), to
+    match auxiliary maps to the (possibly downsampled) images."""
+    if arr.shape[:2] == (height, width):
+        return arr
+    yi = (np.arange(height) * arr.shape[0] / height).astype(np.int64)
+    xi = (np.arange(width) * arr.shape[1] / width).astype(np.int64)
+    return arr[yi][:, xi]
 
 
 def _bilinear_remap(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:
@@ -85,14 +99,12 @@ class Parser:
         load_instance_masks: bool = False,
         load_normals: bool = False,
     ):
-        if load_normals:
-            raise NotImplementedError(
-                "normal maps are not ported yet (ROADMAP queue 1: 3DGS training remainders)")
         self.data_dir = data_dir
         self.factor = factor
         self.normalize = normalize
         self.test_every = test_every
         self.load_instance_masks = load_instance_masks
+        self.load_normals = load_normals
 
         sparse = os.path.join(data_dir, "sparse", "0")
         if not os.path.isdir(sparse):
@@ -134,6 +146,16 @@ class Parser:
         self.points_err = model.point_errors.astype(np.float32)
         self.points_rgb = model.point_colors
 
+        # each image's tracked SfM points, as rows of ``points`` (the ids
+        # are sorted; a track naming no point is dropped)
+        self.point_indices: Dict[str, np.ndarray] = {}
+        for im in images:
+            pids = im.point3D_ids[im.point3D_ids >= 0]
+            rows = np.searchsorted(model.point_ids, pids)
+            found = rows < len(model.point_ids)
+            found[found] = model.point_ids[rows[found]] == pids[found]
+            self.point_indices[im.name] = rows[found].astype(np.int64)
+
         if normalize:
             T1 = nrm.similarity_from_cameras(camtoworlds)
             camtoworlds = nrm.transform_cameras(T1, camtoworlds)
@@ -170,12 +192,11 @@ class Dataset:
 
     def __init__(self, parser: Parser, split: str = "train",
                  patch_size: Optional[int] = None, load_depths: bool = False):
-        if load_depths:
-            raise NotImplementedError("depth/normal losses are not ported yet "
-                                      "(ROADMAP queue 1: 3DGS training remainders)")
         self.parser = parser
         self.split = split
         self.patch_size = patch_size
+        self.load_depths = load_depths
+        self._prefetcher: Optional[Prefetcher] = None
         idx = np.arange(len(parser.image_names))
         if split == "train":
             self.indices = idx[idx % parser.test_every != 0]
@@ -185,11 +206,36 @@ class Dataset:
     def __len__(self):
         return len(self.indices)
 
+    def enable_prefetch(self, n_threads: int = 4) -> bool:
+        """Start decoding ahead on ``n_threads`` threads (``prefetch`` queues
+        the images, ``__getitem__`` takes them)."""
+        if self._prefetcher is None:
+            self._prefetcher = Prefetcher(self.parser.image_paths, factor=1,
+                                          n_threads=n_threads)
+        return True
+
+    def prefetch(self, items) -> None:
+        """Queue the decode of upcoming dataset items (returns at once)."""
+        if self._prefetcher is None:
+            return
+        for it in np.asarray(items).reshape(-1):
+            self._prefetcher.request(int(self.indices[int(it)]))
+
+    def close(self) -> None:
+        """Stop the decode-ahead threads, if any."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+
     def __getitem__(self, item: int) -> Dict[str, Any]:
         p = self.parser
         index = int(self.indices[item])
         cam_id = p.camera_ids[index]
-        image = imread(p.image_paths[index]).astype(np.float32) / 255.0
+        if self._prefetcher is not None:
+            image = self._prefetcher.get(index)
+        else:
+            image = imread(p.image_paths[index])
+        image = image.astype(np.float32) / 255.0
         image = p.undistort(cam_id, image)
         K = p.Ks_dict[cam_id].astype(np.float32)
         camtoworld = p.camtoworlds[index]
@@ -204,14 +250,43 @@ class Dataset:
         if p.mask_dict.get(cam_id) is not None:
             # undistortion ROI: rendered pixels outside it are zeroed
             data["mask"] = p.mask_dict[cam_id]
+        H, W = image.shape[:2]
+        stem = os.path.splitext(p.image_names[index])[0]
+        if p.load_normals:
+            # normals/{stem}.npy ([-1, 1] float [H, W, 3]), else an RGB
+            # encoding at normals/{image name}
+            npy = os.path.join(p.data_dir, "normals", f"{stem}.npy")
+            img = os.path.join(p.data_dir, "normals", p.image_names[index])
+            nmap = None
+            if os.path.exists(npy):
+                nmap = np.load(npy).astype(np.float32)
+            elif os.path.exists(img):
+                nmap = imread(img).astype(np.float32) / 255.0 * 2.0 - 1.0
+            if nmap is not None:
+                data["normal"] = _nearest_resize(nmap, H, W)
+        if self.load_depths:
+            # the tracked SfM points in front of the camera and inside the image
+            rows = p.point_indices.get(p.image_names[index], np.empty(0, np.int64))
+            w2c = data["viewmat"]
+            cam_pts = p.points[rows] @ w2c[:3, :3].T + w2c[:3, 3]
+            depths = cam_pts[:, 2]
+            uv = cam_pts @ K.T
+            uv = uv[:, :2] / np.maximum(uv[:, 2:3], 1e-8)
+            sel = ((depths > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < W)
+                   & (uv[:, 1] >= 0) & (uv[:, 1] < H))
+            data["points"] = uv[sel].astype(np.float32)
+            data["depths"] = depths[sel].astype(np.float32)
         if p.load_instance_masks:
-            stem = os.path.splitext(p.image_names[index])[0]
             mpath = os.path.join(p.data_dir, "masks", "instance_ids_npy",
                                  f"{stem}_instance_id.npy")
             if os.path.exists(mpath):
                 data["instance_mask"] = np.load(mpath)
+        if p.load_instance_masks or self.load_depths:
+            dpath = os.path.join(p.data_dir, "refined_depths", f"{stem}_refined_depth.npy")
+            if os.path.exists(dpath):
+                data["refined_depth"] = _nearest_resize(
+                    np.load(dpath).astype(np.float32), H, W)
         if self.patch_size is not None:
-            H, W = image.shape[:2]
             ps = self.patch_size
             x = np.random.randint(0, max(W - ps, 1))
             y = np.random.randint(0, max(H - ps, 1))
@@ -220,7 +295,7 @@ class Dataset:
             K[0, 2] -= x
             K[1, 2] -= y
             data["K"] = K
-            for key in ("instance_mask", "mask"):
+            for key in ("instance_mask", "refined_depth", "mask"):
                 if key in data:
                     data[key] = data[key][y:y + ps, x:x + ps]
         return data

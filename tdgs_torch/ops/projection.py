@@ -2,8 +2,9 @@
 ``tdgs/ops/projection.py:241 fully_fused_projection``).
 
 Dense ``[..., C, N]`` outputs; invalid gaussians have ``radii == 0``. The
-covariance chain stays in components, so every step is elementwise.
-Only the pinhole camera is ported so far.
+covariance chain stays in components, so every step is elementwise. Three
+camera models: pinhole (perspective), ortho and fisheye (equidistant), each
+differentiated by autograd through the same elementwise ops.
 """
 
 from __future__ import annotations
@@ -42,6 +43,11 @@ def _jac_sandwich_2x3(cov6, j00, j01, j02, j10, j11, j12):
     return c00, c01, c11
 
 
+def _stack_cov2d(c00, c01, c11):
+    return torch.stack([torch.stack([c00, c01], dim=-1),
+                        torch.stack([c01, c11], dim=-1)], dim=-2)
+
+
 def _persp_proj6(means, cov6, Ks, width: int, height: int):
     """Component-form EWA pinhole projection; the Jacobian is evaluated at
     frustum-clamped (tx, ty) with a 0.3·tan(fov) margin."""
@@ -74,6 +80,90 @@ def _persp_proj6(means, cov6, Ks, width: int, height: int):
     return means2d, cov2d6
 
 
+def _ortho_proj6(means, cov6, Ks, width: int, height: int):
+    """Component-form orthographic projection: J = diag(fx, fy) on x, y."""
+    fx = Ks[..., 0, 0, None]
+    fy = Ks[..., 1, 1, None]
+    cx = Ks[..., 0, 2, None]
+    cy = Ks[..., 1, 2, None]
+    zero = torch.zeros_like(fx * means[..., 0])
+    cov2d6 = _jac_sandwich_2x3(cov6, fx + zero, zero, zero, zero, fy + zero, zero)
+    means2d = torch.stack([means[..., 0] * fx + cx, means[..., 1] * fy + cy], dim=-1)
+    return means2d, cov2d6
+
+
+def _fisheye_proj6(means, cov6, Ks, width: int, height: int):
+    """Component-form equidistant fisheye projection: the radius in pixels
+    is f·θ, θ the angle to the optical axis. ``eps`` sits where the JAX
+    package puts it: in |xy| and x², and in the means' arctan2 denominator
+    but not the Jacobian's."""
+    x, y, z = means[..., 0], means[..., 1], means[..., 2]
+    fx = Ks[..., 0, 0, None]
+    fy = Ks[..., 1, 1, None]
+    cx = Ks[..., 0, 2, None]
+    cy = Ks[..., 1, 2, None]
+
+    eps = 1e-7
+    xy_len = torch.sqrt(x * x + y * y) + eps
+    theta = torch.atan2(xy_len, z + eps)
+    means2d = torch.stack(
+        [x * fx * theta / xy_len + cx, y * fy * theta / xy_len + cy], dim=-1)
+
+    x2 = x * x + eps
+    y2 = y * y
+    xy = x * y
+    x2y2 = x2 + y2
+    x2y2z2_inv = 1.0 / (x2y2 + z * z)
+    b = torch.atan2(xy_len, z) / xy_len / x2y2
+    a = z * x2y2z2_inv / x2y2
+    j00 = fx * (x2 * a + y2 * b)
+    j01 = fx * xy * (a - b)
+    j02 = -fx * x * x2y2z2_inv
+    j10 = fy * xy * (a - b)
+    j11 = fy * (y2 * a + x2 * b)
+    j12 = -fy * y * x2y2z2_inv
+
+    cov2d6 = _jac_sandwich_2x3(cov6, j00, j01, j02, j10, j11, j12)
+    return means2d, cov2d6
+
+
+_PROJ6 = {"pinhole": _persp_proj6, "ortho": _ortho_proj6, "fisheye": _fisheye_proj6}
+
+
+def _proj(camera_model: str):
+    proj6 = _PROJ6.get(camera_model)
+    if proj6 is None:
+        raise ValueError(f"unsupported camera_model {camera_model!r}")
+    return proj6
+
+
+def proj(
+    means: torch.Tensor,  # [..., C, N, 3] camera-space means
+    covars: torch.Tensor,  # [..., C, N, 3, 3] camera-space covariances
+    Ks: torch.Tensor,  # [..., C, 3, 3]
+    width: int,
+    height: int,
+    camera_model: str = "pinhole",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unfused projection of camera-space gaussians (``tdgs/ops/
+    projection.py:201 proj``) → (means2d [..., C, N, 2], cov2d [..., C, N,
+    2, 2])."""
+    means2d, (c00, c01, c11) = _proj(camera_model)(
+        means, _cov33_to_sym6(covars), Ks, width, height)
+    return means2d, _stack_cov2d(c00, c01, c11)
+
+
+def ortho_proj(means, covars, Ks, width: int, height: int):
+    """Orthographic projection (``proj`` with ``camera_model="ortho"``)."""
+    return proj(means, covars, Ks, width, height, "ortho")
+
+
+def fisheye_proj(means, covars, Ks, width: int, height: int):
+    """Equidistant fisheye projection (``proj`` with
+    ``camera_model="fisheye"``)."""
+    return proj(means, covars, Ks, width, height, "fisheye")
+
+
 def fully_fused_projection(
     means: torch.Tensor,  # [..., N, 3]
     quats: Optional[torch.Tensor],  # [..., N, 4]
@@ -101,20 +191,14 @@ def fully_fused_projection(
     The radius extend is min(3.33, sqrt(2·ln(op/αmin))) when opacities are
     given, else 3.33.
     """
-    if camera_model in ("ortho", "fisheye"):
-        raise NotImplementedError(
-            f"camera_model={camera_model!r} is not ported yet "
-            "(ROADMAP queue 1, slice-1 remainders)"
-        )
-    if camera_model != "pinhole":
-        raise ValueError(f"unsupported camera_model {camera_model!r}")
+    proj6 = _proj(camera_model)
     if covars is None:
         cov6_w = quat_scale_to_covar_sym6(quats, scales)
     else:
         cov6_w = _cov33_to_sym6(covars)
     means_c = pos_world_to_cam(means, viewmats)
     cov6_c = covar_cam_sym6(cov6_w, viewmats)
-    means2d, (c00, c01, c11) = _persp_proj6(means_c, cov6_c, Ks, width, height)
+    means2d, (c00, c01, c11) = proj6(means_c, cov6_c, Ks, width, height)
     depths = means_c[..., 2]
 
     # low-pass blur + antialiasing compensation

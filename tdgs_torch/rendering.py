@@ -506,3 +506,37 @@ def rasterization_2dgs(
     render_normals = rotate(camtoworlds[..., :3, :3], render_normals_cam)
     return (render_colors, render_alphas, render_normals, render_normals_from_depth,
             render_distort, render_median, meta)
+
+
+def rasterization_inria_wrapper(
+    means, quats, scales, opacities, colors, viewmats, Ks,
+    width: int, height: int,
+    near_plane: float = 0.01, far_plane: float = 100.0,
+    eps2d: float = 0.3, sh_degree=None, backgrounds=None, **kwargs,
+):
+    """The calling convention of the Inria rasterizer's wrapper (``tdgs/
+    rendering.py:855``): ``eps2d`` fixed at 0.3 and a far plane of 100,
+    rendered by :func:`rasterization`."""
+    if eps2d != 0.3:
+        raise ValueError(f"the Inria convention fixes eps2d at 0.3, got {eps2d}")
+    return rasterization(
+        means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+        near_plane=near_plane, far_plane=far_plane, eps2d=eps2d,
+        sh_degree=sh_degree, backgrounds=backgrounds, **kwargs,
+    )
+
+
+def rasterization_2dgs_inria_wrapper(
+    means, quats, scales, opacities, colors, viewmats, Ks,
+    width: int, height: int,
+    near_plane: float = 0.01, far_plane: float = 100.0,
+    sh_degree=None, backgrounds=None, **kwargs,
+):
+    """The surfel rasterizer's twin of :func:`rasterization_inria_wrapper`
+    (``tdgs/rendering.py:875``): a far plane of 100, rendered by
+    :func:`rasterization_2dgs`."""
+    return rasterization_2dgs(
+        means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+        near_plane=near_plane, far_plane=far_plane,
+        sh_degree=sh_degree, backgrounds=backgrounds, **kwargs,
+    )

@@ -19,8 +19,12 @@ evaluates on the test views.
 or the tile-dense ``pallas`` (kernels 9 and 10) or ``jax`` (its plain
 tensor form); eval renders through ``packed_inference`` either way.
 The ``mcmc`` preset is the MCMC strategy with ``init_opa=0.5``,
-``init_scale=0.1``, ``opacity_reg=0.01`` and ``scale_reg=0.01``. The camera
-trajectory video is not ported: the run says so and skips it.
+``init_scale=0.1``, ``opacity_reg=0.01`` and ``scale_reg=0.01``. Depth and
+normal supervision come with ``--depth-loss`` (``--use-precomputed-depths``
+for refined depth maps), ``--depth-normal-loss`` and ``--load-normals``.
+After training it renders the camera trajectory (``--render-traj-path``:
+``traj_<step>.gif`` where PIL is installed, else PNG frames under
+``traj_<step>/``) unless ``--disable-video`` is given.
 """
 
 from __future__ import annotations
@@ -104,16 +108,19 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     runner = Runner(cfg, device=args.device)
-    if args.ckpt:
-        step = runner.load_checkpoint(args.ckpt)
-        print(json.dumps(runner.eval(step)))
-        return 0
-    out = runner.train()
-    print(json.dumps(out["history"][-3:]))
-    print(json.dumps(runner.eval(cfg.max_steps)))
-    if not cfg.disable_video:
-        print("trajectory video: not ported yet (ROADMAP queue 1: 3DGS training "
-              "remainders); pass --disable-video to silence this", file=sys.stderr)
+    try:
+        if args.ckpt:
+            step = runner.load_checkpoint(args.ckpt)
+            print(json.dumps(runner.eval(step)))
+            return 0
+        out = runner.train()
+        print(json.dumps(out["history"][-3:]))
+        print(json.dumps(runner.eval(cfg.max_steps)))
+        if not cfg.disable_video:
+            # the camera-trajectory render at the end of training
+            print(runner.render_traj(cfg.max_steps, traj_path=cfg.render_traj_path))
+    finally:
+        runner.close()
     return 0
 
 

@@ -124,8 +124,8 @@ class Config:
     feature_dim: int = 32
     pose_noise: float = 0.0
 
-    # decode-ahead loading (the JAX package's native prefetcher; the port
-    # decodes on demand, as the JAX package does without it)
+    # decode-ahead loading: the training images are decoded on a thread
+    # pool a few steps before their step (datasets/prefetch.py)
     data_prefetch: bool = True
 
     # identity-vector segmentation
@@ -195,14 +195,12 @@ class Config:
              "eval3d/3DGUT remainders: training/modules.py"),
             (self.app_opt, "app_opt", "eval3d/3DGUT remainders: training/modules.py"),
             (self.use_bilateral_grid, "use_bilateral_grid", "remaining modules"),
-            (self.depth_loss or self.depth_normal_loss or self.load_normals
-             or self.save_depth_normal_vis, "depth/normal losses",
-             "3DGS training remainders"),
             (self.compression is not None, "compression", "remaining modules"),
             (not self.disable_viewer, "the viewer", "remaining modules"),
-            (self.ckpt_format != "pickle", "ckpt_format='orbax'", "3DGS training remainders"),
-            (self.camera_model != "pinhole", f"camera_model={self.camera_model!r}",
-             "slice-1 remainders"),
+            # orbax imports JAX: the sharded torch-native container comes
+            # with the sharded state
+            (self.ckpt_format != "pickle", f"ckpt_format={self.ckpt_format!r}",
+             "item 7, parallel/"),
         ]
         for is_set, what, item in unported:
             if is_set:

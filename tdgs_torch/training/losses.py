@@ -1,5 +1,6 @@
 """Training losses and image metrics (port of ``tdgs/training/losses.py``):
-l1, mse, psnr, ssim and the (1−λ)·L1 + λ·(1−SSIM) photometric loss.
+l1, mse, psnr, ssim, the (1−λ)·L1 + λ·(1−SSIM) photometric loss and the
+sparse (SfM points) and dense (refined depth maps) depth losses.
 
 SSIM's variance ``E[x²] − E[x]²`` cancels on flat regions. In TF32 (cuDNN's
 default for float32 convolutions) it came out negative enough to push the
@@ -9,6 +10,8 @@ TF32 off, in true float32, whatever the global setting.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -85,3 +88,43 @@ def d_ssim_l1_loss(pred: torch.Tensor, target: torch.Tensor,
     return (1.0 - ssim_lambda) * l1_loss(pred, target) + ssim_lambda * (
         1.0 - ssim(pred, target)
     )
+
+
+def depth_loss_sparse(
+    render_depth: torch.Tensor,  # [..., H, W, 1]
+    points_px: torch.Tensor,  # [..., M, 2] pixel coords of sparse points
+    point_depths: torch.Tensor,  # [..., M]
+    valid: Optional[torch.Tensor] = None,  # [..., M]
+) -> torch.Tensor:
+    """L1 in disparity between the rendered depth at the projected SfM
+    points and their depths. Pixel coordinates are truncated toward zero
+    (an int cast, as the JAX package takes them), then clipped to the
+    image."""
+    H, W = render_depth.shape[-3:-1]
+    x = torch.clamp(points_px[..., 0].to(torch.int64), 0, W - 1)
+    y = torch.clamp(points_px[..., 1].to(torch.int64), 0, H - 1)
+    flat = render_depth[..., 0].reshape(render_depth.shape[:-3] + (H * W,))
+    sampled = torch.gather(flat, -1, (y * W + x).reshape(points_px.shape[:-1]))
+    disp = 1.0 / torch.clamp(sampled, min=1e-6)
+    disp_gt = 1.0 / torch.clamp(point_depths, min=1e-6)
+    err = (disp - disp_gt).abs()
+    if valid is not None:
+        return (err * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return err.mean()
+
+
+def depth_loss_dense(
+    render_depth: torch.Tensor,  # [..., H, W, 1]
+    depth_map: torch.Tensor,  # [..., H, W] ground truth, 0 = invalid
+    scene_scale: float = 1.0,
+) -> torch.Tensor:
+    """Masked L1 in disparity against a refined depth map, times the scene
+    scale. Both reciprocals are of a clamped value, so the branch that
+    ``where`` drops holds no ``inf`` whose gradient would be NaN."""
+    rd = render_depth[..., 0]
+    valid = (depth_map > 0.0) & (rd > 0.0)
+    zero = torch.zeros((), dtype=rd.dtype, device=rd.device)
+    disp_r = torch.where(valid, 1.0 / torch.clamp(rd, min=1e-8), zero)
+    disp_g = torch.where(valid, 1.0 / torch.clamp(depth_map, min=1e-8), zero)
+    n = torch.clamp(valid.sum().to(rd.dtype), min=1.0)
+    return (disp_r - disp_g).abs().sum() / n * scene_scale

@@ -24,12 +24,23 @@ instance masks and the spatial regularizer. Its parameter gradients are
 added to the main step's before the one selective-Adam update (with the
 main render's visibility), as the JAX package's separate seg program does;
 the head has its own Adam without bias correction (lr 1e-3).
+With ``depth_loss`` or ``depth_normal_loss`` the 3DGS render is "RGB+ED"
+(kernels 1–3 at four channels, the fourth the expected depth), and the
+loss adds, each under its switch and start step: the depth loss against
+the refined depth maps (``use_precomputed_depths``) or the tracked SfM
+points' depths, the monocular-normal loss (``load_normals``: each
+gaussian's differentiable normal against the normal map sampled at its
+projected centre), and the edge-aware depth smoothness with the total
+variation of the depth map's normals (``depth_normal_loss``).
 Gaussian state is the JAX package's fixed-capacity layout (dead rows
 padded), and capacity may double between steps (``maybe_grow_capacity``).
 Everything runs eagerly in PyTorch on the runner's device; random draws
-come from one ``torch.Generator``. Eval renders the test views through the
-forward-only ``packed_inference`` rasterizer (kernel 7's forward-only call
-under eval3d) and reports PSNR and SSIM (LPIPS is not ported).
+come from one ``torch.Generator``. With ``data_prefetch`` the training
+images decode on a thread pool a few steps ahead. Eval renders the test
+views through the forward-only ``packed_inference`` rasterizer (kernel 7's
+forward-only call under eval3d) and reports PSNR, SSIM and LPIPS (learned
+with local weights, else the random-filter proxy, ``lpips_proxy``);
+``render_traj`` renders a camera path through it.
 """
 
 from __future__ import annotations
@@ -55,7 +66,10 @@ from tdgs_torch.segmentation import losses as seg_losses
 from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
 from tdgs_torch.strategy.ops import pad_rows, tree_map
 from tdgs_torch.training import losses as L
+from tdgs_torch.training import normal_losses as NL
 from tdgs_torch.training.config import Config
+from tdgs_torch.training.metrics import lpips, lpips_impl
+from tdgs_torch.utils.depth import depth_to_normal
 
 
 def make_lr_schedules(cfg: Config, scene_scale: float, max_steps: int):
@@ -121,7 +135,8 @@ class _MetricsLog:
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
         rec = {"step": int(step), "time": time.time()}
-        rec.update({k: float(v) for k, v in scalars.items() if v is not None})
+        rec.update({k: float(v) for k, v in scalars.items()
+                    if isinstance(v, (int, float, np.generic, torch.Tensor))})
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
@@ -146,9 +161,13 @@ class Runner:
                       else cfg.with_segmentation)
         self.parser = Parser(cfg.data_dir, factor=cfg.data_factor,
                              normalize=cfg.normalize_world_space,
-                             test_every=cfg.test_every, load_instance_masks=load_masks)
-        self.trainset = Dataset(self.parser, "train", patch_size=cfg.patch_size)
+                             test_every=cfg.test_every, load_instance_masks=load_masks,
+                             load_normals=cfg.load_normals)
+        self.trainset = Dataset(self.parser, "train", patch_size=cfg.patch_size,
+                                load_depths=cfg.depth_loss)
         self.valset = Dataset(self.parser, "val")
+        if cfg.data_prefetch:
+            self.trainset.enable_prefetch()
         self.scene_scale = (self.parser.scene_scale * 1.1 * cfg.init_extent / 3.0
                             * cfg.global_scale)
 
@@ -294,20 +313,30 @@ class Runner:
         if use_seg or use_spatial:
             seg_grads, seg_terms, cq = self._seg_step(params, batch, sh_degree, use_seg,
                                                       use_spatial, seg_quality)
+        terms, depth = {}, None
         if cfg.model_type == "2dgs":
             loss, meta = self._loss_2dgs(params, batch, step, sh_degree, tap, abs_tap,
                                          backgrounds)
         else:
+            render_mode = "RGB+ED" if (cfg.depth_loss or cfg.depth_normal_loss) else "RGB"
             img, _, meta = self.rasterize_splats(
                 params, batch["viewmat"], batch["K"], W, H, sh_degree,
-                means2d_offset=tap, means2d_abs_tap=abs_tap, backgrounds=backgrounds)
+                means2d_offset=tap, means2d_abs_tap=abs_tap, backgrounds=backgrounds,
+                render_mode=render_mode)
             if "mask" in batch:
                 img = img * batch["mask"][..., None]
-            loss = L.d_ssim_l1_loss(img[..., :3], images, cfg.ssim_lambda)
+            loss = terms["rgbloss"] = L.d_ssim_l1_loss(img[..., :3], images, cfg.ssim_lambda)
+            for k, v in self._depth_normal_terms(params, batch, step, img, meta).items():
+                loss = loss + v
+                terms[k] = v
+            if cfg.save_depth_normal_vis and img.shape[-1] > 3:
+                depth = img[..., 3:].detach()
         if cfg.opacity_reg > 0:
-            loss = loss + cfg.opacity_reg * torch.sigmoid(params["opacities"]).abs().mean()
+            terms["opacityreg"] = cfg.opacity_reg * torch.sigmoid(params["opacities"]).abs().mean()
+            loss = loss + terms["opacityreg"]
         if cfg.scale_reg > 0:
-            loss = loss + cfg.scale_reg * torch.exp(params["scales"]).abs().mean()
+            terms["scalereg"] = cfg.scale_reg * torch.exp(params["scales"]).abs().mean()
+            loss = loss + terms["scalereg"]
 
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names] + taps,
@@ -337,7 +366,56 @@ class Runner:
         return loss, {"radii": radii, "visibility": visibility,
                       "v_means2d": v_means2d, "lr_means": lr_dict["means"],
                       "n_dropped": meta["n_dropped"], "seg_terms": seg_terms,
-                      "cluster_quality": cq}
+                      "cluster_quality": cq, "depth": depth,
+                      "loss_terms": {k: v.detach() for k, v in terms.items()}}
+
+    def _depth_normal_terms(self, params, batch, step, img, meta):
+        """The 3DGS step's depth and normal terms (``tdgs/training/
+        trainer.py:782-858``) on the render ``img`` [B, H, W, 4] ("RGB+ED"),
+        each weighted by its lambda: ``depthloss`` (dense against
+        ``batch["depth_map"]``, else sparse at ``batch["points"]``),
+        ``normalloss`` (the monocular normals, from
+        ``start_normal_loss_step``) and ``depthsmooth`` with
+        ``normalconsist`` (after ``depth_normal_start_step``). A term before
+        its start step is left out: the JAX package multiplies it by 0."""
+        cfg = self.cfg
+        images = batch["image"]
+        B = images.shape[0]
+        terms = {}
+        if cfg.depth_loss:
+            if "depth_map" in batch:
+                terms["depthloss"] = cfg.depth_lambda * L.depth_loss_dense(
+                    img[..., 3:], batch["depth_map"], self.scene_scale)
+            else:
+                terms["depthloss"] = cfg.depth_lambda * L.depth_loss_sparse(
+                    img[..., 3:], batch["points"], batch["depths"],
+                    valid=batch.get("points_valid"))
+        if cfg.load_normals and "normal" in batch and step >= cfg.start_normal_loss_step:
+            # each gaussian's normal against the map at its projected centre,
+            # over the gaussians the view sees; the sample's gradient
+            # reaches the centres through meta["means2d"]
+            g_norm, _ = NL.calculate_gaussian_splat_normal_differentiable(
+                params["quats"], torch.exp(params["scales"]),
+                torch.sigmoid(params["opacities"]))
+            m2d = meta["means2d"].reshape(B, -1, 2)
+            rad = meta["radii"].reshape(B, -1, 2)
+            nl = sum(NL.masked_progressive_normal_loss(
+                g_norm, NL.sample_normals_from_map(batch["normal"][b], m2d[b]),
+                (rad[b] > 0).all(-1)) for b in range(B))
+            terms["normalloss"] = cfg.mono_normal_lambda * nl / B
+        if cfg.depth_normal_loss and step > cfg.depth_normal_start_step:
+            # edge-aware depth smoothness and the total variation of the
+            # depth map's normals
+            depth = img[..., 3:]
+            c2w = torch.linalg.inv(batch["viewmat"])
+            sm = tv = 0.0
+            for b in range(B):
+                sm = sm + NL.depth_smoothness_loss(depth[b], images[b])
+                dn = depth_to_normal(depth[b], c2w[b], batch["K"][b])
+                tv = tv + NL.normal_total_variation(dn)
+            terms["depthsmooth"] = cfg.lambda_depth_smooth * sm / B
+            terms["normalconsist"] = cfg.lambda_normal_consistency * tv / B
+        return terms
 
     def _seg_step(self, params, batch, sh_degree, use_seg, use_spatial, quality):
         """The segmentation losses on the pre-update ``params`` (port of
@@ -430,7 +508,36 @@ class Runner:
         if all("instance_mask" in it for it in items):
             batch["instance_mask"] = torch.as_tensor(
                 np.stack([it["instance_mask"] for it in items]).astype(np.int64), device=dev)
+        cfg = self.cfg
+        if cfg.load_normals and all("normal" in it for it in items):
+            batch["normal"] = torch.as_tensor(np.stack([it["normal"] for it in items]),
+                                              dtype=torch.float32, device=dev)
+        if cfg.depth_loss:
+            if cfg.use_precomputed_depths and all("refined_depth" in it for it in items):
+                batch["depth_map"] = torch.as_tensor(
+                    np.stack([it["refined_depth"] for it in items]), dtype=torch.float32,
+                    device=dev)
+            else:
+                batch.update({k: torch.as_tensor(v, device=dev)
+                              for k, v in self._depth_fields(items).items()})
         return batch
+
+    @staticmethod
+    def _depth_fields(items) -> Dict[str, np.ndarray]:
+        """Each image's sparse depth points padded to the batch's longest
+        list (at least 1): ``points`` [B, M, 2], ``depths`` [B, M] and
+        ``points_valid`` [B, M] (1 on real points)."""
+        m = max(len(it.get("points", [])) for it in items) or 1
+        pts = np.zeros((len(items), m, 2), np.float32)
+        dep = np.zeros((len(items), m), np.float32)
+        val = np.zeros((len(items), m), np.float32)
+        for i, it in enumerate(items):
+            k = len(it.get("points", []))
+            if k:
+                pts[i, :k] = it["points"]
+                dep[i, :k] = it["depths"]
+                val[i, :k] = 1.0
+        return {"points": pts, "depths": dep, "points_valid": val}
 
     def train(self, start_step: int = 0) -> Dict[str, Any]:
         """Run the training loop from ``start_step`` (after
@@ -450,6 +557,8 @@ class Runner:
                 cursor = 0
             idx = order[cursor:cursor + cfg.batch_size]
             cursor += cfg.batch_size
+            # decode-ahead: the next steps' images decode while this one runs
+            self.trainset.prefetch(order[cursor:cursor + 4 * cfg.batch_size])
             batch = self._batch(idx)
             H, W = batch["image"].shape[1:3]
             sh_degree = min(step // cfg.sh_degree_interval, cfg.sh_degree)
@@ -499,12 +608,15 @@ class Runner:
                     "train/visible_GS": int(aux["visibility"].sum()),
                     "train/sh_degree": sh_degree,
                 }
+                scalars.update({f"train/{k}": float(v) for k, v in aux["loss_terms"].items()})
                 scalars.update({f"train/{k}": float(v) for k, v in aux["seg_terms"].items()})
                 if aux["cluster_quality"] is not None:
                     intra, inter = aux["cluster_quality"]
                     scalars["train/cluster_intra"] = float(intra)
                     scalars["train/cluster_inter"] = float(inter)
                 self.logger.log(step, scalars)
+                if cfg.save_depth_normal_vis and aux["depth"] is not None:
+                    self._save_depth_normal_vis(step, aux["depth"][0], batch)
             if step in cfg.eval_steps:
                 self.eval(step)
             if step in cfg.save_steps:
@@ -513,13 +625,36 @@ class Runner:
                 self.export_ply(step)
         return {"history": history, "wall_time_s": time.time() - t0}
 
+    @torch.no_grad()
+    def _save_depth_normal_vis(self, step: int, depth: torch.Tensor, batch) -> None:
+        """vis/depth_{step}.png (turbo colours) and vis/normal_{step}.png
+        (the depth map's world normals as (n + 1)/2) of the batch's first
+        image; ``depth`` [H, W, 1]."""
+        from tdgs_torch.utils.viz import apply_depth_colormap, save_image
+
+        vis_dir = os.path.join(self.cfg.result_dir, "vis")
+        save_image(apply_depth_colormap(depth.cpu().numpy()),
+                   os.path.join(vis_dir, f"depth_{step:05d}.png"))
+        n = depth_to_normal(depth, torch.linalg.inv(batch["viewmat"][0]), batch["K"][0])
+        save_image(((n + 1.0) / 2.0).cpu().numpy(),
+                   os.path.join(vis_dir, f"normal_{step:05d}.png"))
+
+    def close(self) -> None:
+        """Stop the training set's decode-ahead threads."""
+        self.trainset.close()
+
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def eval(self, step: int, stage: str = "val") -> Dict[str, float]:
-        """PSNR and SSIM over the test views, rendered by the forward-only
-        ``packed_inference`` rasterizer; writes stats/{stage}_step{step}.json."""
+    def eval(self, step: int, stage: str = "val") -> Dict[str, Any]:
+        """PSNR, SSIM and LPIPS over the test views, rendered by the
+        forward-only ``packed_inference`` rasterizer; writes
+        stats/{stage}_step{step}.json. LPIPS is learned with local weights
+        (key ``lpips``), else the random-filter proxy (``lpips_proxy``, not
+        comparable to learned values); ``lpips_impl`` names it."""
         cfg = self.cfg
         metrics = defaultdict(list)
+        impl = lpips_impl(cfg.lpips_net)
+        lpips_key = "lpips" if impl.startswith("learned") else "lpips_proxy"
         t0 = time.time()
         bg = (torch.tensor(cfg.background_color, dtype=torch.float32,
                            device=self.device)[None]
@@ -537,6 +672,7 @@ class Runner:
             gt = torch.as_tensor(d["image"], device=self.device)
             metrics["psnr"].append(float(L.psnr(pred, gt)))
             metrics["ssim"].append(float(L.ssim(pred[None], gt[None])))
+            metrics[lpips_key].append(float(lpips(pred[None], gt[None], net=cfg.lpips_net)[0]))
             if cfg.tb_save_image:
                 from tdgs_torch.utils.png import write_png
 
@@ -544,11 +680,73 @@ class Runner:
                 write_png(os.path.join(self.stats_dir, f"{stage}_step{step}_{i:04d}.png"),
                           (np.clip(both, 0, 1) * 255).astype(np.uint8))
         out = {k: float(np.mean(v)) for k, v in metrics.items()}
+        out["lpips_impl"] = impl
+        if lpips_key == "lpips_proxy":
+            out["lpips_note"] = ("no LPIPS weights on disk: lpips_proxy is a fixed-seed "
+                                 "random-filter perceptual distance, not comparable to "
+                                 "learned LPIPS values")
         out["ellipse_time"] = (time.time() - t0) / max(len(self.valset), 1)
         out["num_GS"] = int(G.alive_mask(self.splats).sum())
         with open(os.path.join(self.stats_dir, f"{stage}_step{step}.json"), "w") as f:
             json.dump(out, f)
         self.logger.log(step, {f"{stage}/{k}": v for k, v in out.items()})
+        return out
+
+    def render_traj(self, step: int, n_frames: int = 60, traj_path: str = "interp") -> str:
+        """Render a camera path (``traj_frames``) and write it:
+        ``traj_{step}.gif`` where PIL imports, else the frames as
+        ``traj_{step}/frame_{i:04d}.png``. Returns that path."""
+        return self.write_traj(step, self.traj_frames(n_frames, traj_path))
+
+    @torch.no_grad()
+    def traj_frames(self, n_frames: int = 60, traj_path: str = "interp"):
+        """The uint8 RGB frames [H, W, 3] of a camera path ("interp": a
+        spline through every sixth training camera; "ellipse"; "spiral")
+        rendered in "RGB+ED" through the forward-only ``packed_inference``
+        rasterizer."""
+        from tdgs_torch.datasets import traj as T
+
+        c2w = self.parser.camtoworlds[:, :3, :]
+        if traj_path == "ellipse":
+            path = T.generate_ellipse_path_z(c2w, n_frames=n_frames)
+        elif traj_path == "spiral":
+            path = T.generate_spiral_path(c2w, n_frames=n_frames)
+        else:
+            keyframes = c2w[::max(len(c2w) // 6, 1)]
+            path = T.generate_interpolated_path(
+                keyframes, n_interp=max(n_frames // max(len(keyframes) - 1, 1), 1))
+        cam = self.parser.camera_ids[0]
+        K = torch.as_tensor(self.parser.Ks_dict[cam], dtype=torch.float32,
+                            device=self.device)[None]
+        W, H = self.parser.imsize_dict[cam]
+        frames = []
+        for c in path:
+            c2w4 = np.eye(4, dtype=np.float32)
+            c2w4[:3] = c
+            viewmat = torch.as_tensor(np.linalg.inv(c2w4).astype(np.float32),
+                                      device=self.device)[None]
+            img, _, _ = self.rasterize_splats(self.splats, viewmat, K, W, H,
+                                              self.cfg.sh_degree, render_mode="RGB+ED",
+                                              rasterizer="packed_inference")
+            frames.append((torch.clamp(img[0, ..., :3], 0, 1) * 255).to(torch.uint8))
+        return [f.cpu().numpy() for f in frames]
+
+    def write_traj(self, step: int, frames) -> str:
+        """``traj_{step}.gif`` of the frames where PIL imports, else
+        ``traj_{step}/frame_{i:04d}.png``; returns the path."""
+        try:
+            from PIL import Image
+        except ImportError:
+            from tdgs_torch.utils.png import write_png
+
+            out = os.path.join(self.cfg.result_dir, f"traj_{step}")
+            os.makedirs(out, exist_ok=True)
+            for i, f in enumerate(frames):
+                write_png(os.path.join(out, f"frame_{i:04d}.png"), f)
+            return out
+        out = os.path.join(self.cfg.result_dir, f"traj_{step}.gif")
+        imgs = [Image.fromarray(f) for f in frames]
+        imgs[0].save(out, save_all=True, append_images=imgs[1:], duration=33, loop=0)
         return out
 
     # ------------------------------------------------------------------

@@ -12,7 +12,9 @@ Same seeds, same draws, same arrays as the JAX package:
 - ``make_colmap_test_scene`` (:307) and ``make_rich_scene`` (:380): COLMAP
   scenes for training, whose ground-truth images are rendered here by the
   port's own ``packed_inference`` rasterizer and written as PNG with the
-  standard library; the COLMAP files are written with ``struct``.
+  standard library; the COLMAP files are written with ``struct``. With
+  tracks (``make_colmap_test_scene(tracks=True)``, ``tracked_copy``) each
+  image observes the SfM points it sees, for the sparse depth loss.
 """
 
 from __future__ import annotations
@@ -169,10 +171,34 @@ def _rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
     return (q / np.linalg.norm(q)).astype(np.float64)
 
 
-def _write_colmap_sparse(sparse, width, height, f, viewmats, image_names, pts, cols):
+def visible_tracks(pts, viewmats, f, width, height):
+    """Per image, the SfM rows that project inside it (in front of the
+    camera, within the pixel bounds of the shared PINHOLE camera) and their
+    pixel coordinates: a list of (rows [M] int64, xys [M, 2])."""
+    out = []
+    for vm in viewmats:
+        cam = pts @ vm[:3, :3].T + vm[:3, 3]
+        z = cam[:, 2]
+        uv = f * cam[:, :2] / np.where(z > 0, z, 1.0)[:, None] + [width / 2, height / 2]
+        sel = ((z > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < width)
+               & (uv[:, 1] >= 0) & (uv[:, 1] < height))
+        rows = np.nonzero(sel)[0]
+        out.append((rows, uv[rows]))
+    return out
+
+
+def _write_colmap_sparse(sparse, width, height, f, viewmats, image_names, pts, cols,
+                         tracks=None):
     """Minimal cameras.bin / images.bin / points3D.bin: one PINHOLE camera
-    shared by all images, the orbit rotations as qvecs."""
+    shared by all images, the orbit rotations as qvecs. ``tracks`` (per
+    image, (rows, xys) as ``visible_tracks`` gives them) become each
+    image's 2D points and each 3D point's track; without them no image
+    observes any point."""
     os.makedirs(sparse, exist_ok=True)
+    observed = [[] for _ in range(len(pts))]  # per point: (image id, 2D index)
+    for i, (rows, _) in enumerate(tracks or ()):
+        for j, r in enumerate(rows):
+            observed[r].append((i + 1, j))
     with open(os.path.join(sparse, "cameras.bin"), "wb") as fd:
         fd.write(struct.pack("<Q", 1))
         fd.write(struct.pack("<iiQQ", 1, 1, width, height))
@@ -184,7 +210,9 @@ def _write_colmap_sparse(sparse, width, height, f, viewmats, image_names, pts, c
             fd.write(struct.pack("<3d", *pts[i]))
             fd.write(struct.pack("<3B", *(np.clip(cols[i], 0, 1) * 255).astype(np.uint8)))
             fd.write(struct.pack("<d", 0.5))
-            fd.write(struct.pack("<Q", 0))
+            fd.write(struct.pack("<Q", len(observed[i])))
+            for image_id, k in observed[i]:
+                fd.write(struct.pack("<ii", image_id, k))
     with open(os.path.join(sparse, "images.bin"), "wb") as fd:
         fd.write(struct.pack("<Q", len(viewmats)))
         for i, vm in enumerate(viewmats):
@@ -193,7 +221,37 @@ def _write_colmap_sparse(sparse, width, height, f, viewmats, image_names, pts, c
             fd.write(struct.pack("<3d", *vm[:3, 3]))
             fd.write(struct.pack("<i", 1))
             fd.write(image_names[i].encode() + b"\x00")
-            fd.write(struct.pack("<Q", 0))
+            if tracks is None:
+                fd.write(struct.pack("<Q", 0))
+                continue
+            rows, xys = tracks[i]
+            fd.write(struct.pack("<Q", len(rows)))
+            for r, (x, y) in zip(rows, xys):
+                fd.write(struct.pack("<ddq", x, y, int(r) + 1))
+
+
+def tracked_copy(src_root, dst_root) -> None:
+    """A copy of a scene these functions wrote (one PINHOLE camera) whose
+    images track the SfM points they see (``visible_tracks``): the sparse
+    model is written anew under ``dst_root``, the images directory is
+    linked."""
+    from tdgs_torch.datasets.colmap_io import load_colmap_model, qvec_to_rotmat
+
+    model = load_colmap_model(os.path.join(src_root, "sparse", "0"))
+    (cam,) = model.cameras.values()
+    images = [model.images[k] for k in sorted(model.images)]
+    viewmats = np.tile(np.eye(4), (len(images), 1, 1))
+    for i, im in enumerate(images):
+        viewmats[i, :3, :3] = qvec_to_rotmat(im.qvec)
+        viewmats[i, :3, 3] = im.tvec
+    tracks = visible_tracks(model.points, viewmats, cam.params[0], cam.width, cam.height)
+    # colours round-trip: (c + 0.5) / 255 writes back as c
+    cols = (model.point_colors.astype(np.float64) + 0.5) / 255.0
+    _write_colmap_sparse(os.path.join(dst_root, "sparse", "0"), cam.width, cam.height,
+                         cam.params[0], viewmats, [im.name for im in images],
+                         model.points, cols, tracks=tracks)
+    os.symlink(os.path.abspath(os.path.join(src_root, "images")),
+               os.path.join(dst_root, "images"))
 
 
 def _render_gt(means, quats, scales, opac, cols, viewmats, Ks, width, height,
@@ -272,9 +330,10 @@ def make_domino_scene(
 
 
 def make_colmap_test_scene(root, n_images=8, width=64, height=48, n_pts=120,
-                           seed=7, device: DeviceLike = None):
+                           seed=7, device: DeviceLike = None, tracks: bool = False):
     """A synthetic COLMAP scene (sparse/0 bin files + PNG images) whose
-    images are 3DGS renders: trainable end to end in a few dozen steps."""
+    images are 3DGS renders: trainable end to end in a few dozen steps.
+    ``tracks``: each image tracks the points it sees (``visible_tracks``)."""
     rng = np.random.default_rng(seed)
     sparse = os.path.join(root, "sparse", "0")
     os.makedirs(sparse, exist_ok=True)
@@ -303,7 +362,9 @@ def make_colmap_test_scene(root, n_images=8, width=64, height=48, n_pts=120,
     names = [f"img_{i:03d}.png" for i in range(n_images)]
     for i in range(n_images):
         write_png(os.path.join(root, "images", names[i]), (img[i] * 255).astype(np.uint8))
-    _write_colmap_sparse(sparse, width, height, f, viewmats, names, pts, cols)
+    _write_colmap_sparse(sparse, width, height, f, viewmats, names, pts, cols,
+                         tracks=(visible_tracks(pts, viewmats, f, width, height)
+                                 if tracks else None))
     return {"means": pts, "colors": cols, "viewmats": viewmats, "K": K, "images": img}
 
 

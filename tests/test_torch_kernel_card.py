@@ -1693,3 +1693,80 @@ def test_kernels_4_5_cull_layouts_on_card(cuda_device, layout):
     if nan_tiles:
         assert bool(nan_tile.any())
         assert float(train[2][nan_tile].max()) <= 1.001e-3
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1 (training call) and 2 at the depth path's D = 4 ("RGB+ED"): the
+# fourth channel is the expected depth, live, with its own cotangent
+# ---------------------------------------------------------------------------
+
+DEPTH_LAYOUTS = ["few_entries", "many_entries", "cut_entries", "dead_entries"]
+
+
+def _depth_layout_args(name, tile_size, rng):
+    """Kernel 1 and 2's operands at D = 4 on the LW x LH frame cut into
+    tiles of ``tile_size``: one gaussian per entry, in stream order tile by
+    tile; colours in [0, 1] and a depth channel in [1, 10]. Returns (args,
+    tile capacity)."""
+    tw, th = LW // tile_size, LH // tile_size
+    s = tile_size / 16.0
+
+    def entries(t, n, size=(1.0, 6.0), op=(0.05, 0.95)):
+        ox, oy = tile_size * (t % tw), tile_size * (t // tw)
+        return np.stack([ox + rng.uniform(-4 * s, 20 * s, n), oy + rng.uniform(-4 * s, 20 * s, n),
+                         s * rng.uniform(*size, n), rng.uniform(*op, n)], -1)
+
+    tc = 1024
+    if name == "few_entries":  # 0, 1, 2 or 3 a tile
+        tiles = [entries(t, t % 4) for t in range(tw * th)]
+    elif name == "many_entries":
+        tiles = [entries(t, 150) for t in range(tw * th)]
+    elif name == "cut_entries":  # 300 faint entries cut at 128
+        tiles = [entries(t, 300 if t == 1 else 12, op=(0.02, 0.1)) for t in range(tw * th)]
+        tc = 128
+    elif name == "dead_entries":
+        # small faint entries on the first pixel row of tile 1: the warps of
+        # the other rows walk them all and include none
+        tiles = [np.zeros((0, 4))] * (tw * th)
+        e = entries(1, 40, size=(0.2, 0.3), op=(0.05, 0.15))
+        e[:, 1] = 0.5
+        tiles[1] = e
+        tiles[3] = entries(3, 5)
+    else:
+        raise ValueError(name)
+    ent, offsets, L = _layout_stream(tiles)
+    args = list(_layout_args_packed(ent, offsets, L, 4, rng))
+    args[2][..., 3] = torch.from_numpy(rng.uniform(1, 10, len(ent)).astype(np.float32))
+    args[6] = tile_size
+    return tuple(args), tc
+
+
+@pytest.mark.cuda
+# D = 4 at 16-pixel tiles is kernel 2's HALF_ROWS build (4 + D = 8 values a
+# half-warp, each half-warp one pixel row); at 8-pixel tiles its CMAX = 4
+# build over whole warps
+@pytest.mark.parametrize("tile_size", [16, 8])
+@pytest.mark.parametrize("layout", DEPTH_LAYOUTS)
+def test_kernels_1_2_at_the_depth_path_d4_on_card(cuda_device, layout, tile_size):
+    """Kernel 1's training call and kernel 2 on "RGB+ED" rows (D = 4, the
+    fourth channel a depth in [1, 10] with its own random cotangent), on
+    tiles of few, many, cut and dead entries: the forward within ATOL, each
+    gradient group and the depth column within 1e-3 of the plain version,
+    kernel 2 bitwise repeatable, the padding zero."""
+    rng = np.random.default_rng(400 + 10 * DEPTH_LAYOUTS.index(layout) + tile_size)
+    args, tc = _depth_layout_args(layout, tile_size, rng)
+    args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args)
+    img, trans = rasterize_packed_train_fwd(*args, tile_capacity=tc)
+    img_p, trans_p = rasterize_packed_train_fwd_plain(*args, tile_capacity=tc)
+    torch.testing.assert_close(img, img_p, rtol=0, atol=ATOL)
+    torch.testing.assert_close(trans, trans_p, rtol=0, atol=ATOL)
+    if layout != "dead_entries":
+        assert float(img[..., 3].max()) > 1.0  # the depth lane is live
+    first, second, want = _bwd_packed(args, tc, 500 + tile_size)
+    _assert_rows(first, second, want, dict(GROUPS, depth=slice(9, 10)),
+                 int(args[7][-1]))
+    if layout != "dead_entries":
+        assert float(first[:, 9].abs().max()) > 0
+    if layout == "cut_entries":
+        start = int(args[7][1])
+        assert float(first[start + 128:start + 300].abs().max()) == 0.0

@@ -143,6 +143,8 @@ import tdgs_torch.utils.depth, tdgs_torch.ops.rasterize_jax
 import tdgs_torch.ops.rasterize_pallas, tdgs_torch.image_fitting
 import tdgs_torch.segmentation, tdgs_torch.segmentation.head
 import tdgs_torch.segmentation.losses, tdgs_torch.rally_e2e, tdgs_torch.utils.golden
+import tdgs_torch.training.metrics, tdgs_torch.training.normal_losses
+import tdgs_torch.datasets.prefetch, tdgs_torch.datasets.traj, tdgs_torch.utils.viz
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "tdgs"
              or m.startswith("tdgs.") or m == "optax" or m.startswith("optax."))

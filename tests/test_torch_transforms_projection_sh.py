@@ -164,14 +164,26 @@ def test_fully_fused_projection_matches(antialiased, with_opacities, with_covars
 
 
 @pytest.mark.parametrize("camera_model", ["ortho", "fisheye"])
-def test_projection_unported_camera_models_raise(camera_model):
+def test_projection_ortho_fisheye_match(camera_model):
+    """The ortho and fisheye EWA projections give JAX's outputs (float32
+    rounding of the same expressions: rtol 1e-5, atol 1e-6) and radii."""
     rng = np.random.default_rng(202)
-    means, quats, scales, _, viewmats, Ks = _scene(rng, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tproj.fully_fused_projection(
-            _t(means), _t(quats), _t(scales), _t(viewmats), _t(Ks), 64, 48,
-            camera_model=camera_model,
-        )
+    means, quats, scales, opac, viewmats, Ks = _scene(rng, 96)
+    if camera_model == "ortho":
+        # pixels per world unit that frame the scene
+        Ks = Ks.copy()
+        Ks[:, 0, 0] = Ks[:, 1, 1] = 20.0
+    args = (means, quats, scales, viewmats, Ks)
+    want = jproj.fully_fused_projection(*map(jnp.asarray, args), 64, 48,
+                                        opacities=jnp.asarray(opac), camera_model=camera_model)
+    got = tproj.fully_fused_projection(*map(_t, args), 64, 48, opacities=_t(opac),
+                                       camera_model=camera_model)
+    radii_w, radii_g = np.asarray(want[0]), got[0].numpy()
+    live = (radii_w > 0).all(-1)
+    assert live.sum() > 20
+    np.testing.assert_array_equal(radii_g, radii_w)
+    for g, w in zip(got[1:4], want[1:4]):
+        np.testing.assert_allclose(g.numpy()[live], np.asarray(w)[live], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
