@@ -17,8 +17,13 @@ refined depths and normal maps rendered through kernel 1, the Runner with
 the dense depth, depth-normal and monocular-normal terms and LPIPS, with
 and without the decode-ahead, kernels 1-3 held and timed at its D = 4,
 the trajectory render, the sparse depth loss on a tracked copy) and the
-ortho and fisheye cameras at the bench scale, and print one JSON line per
-phase.
+ortho and fisheye cameras at the bench scale, then the trainer's optional
+modules on the rich scene (the pose corrector behind a fixed pose noise,
+the appearance module and the bilateral grids with the colour-corrected
+eval and the PNG compression's round trip; the pose corrector under
+3DGUT), the dense plain-tensor rasterizers (eval3d and 2DGS "jax") against
+kernels 5-8 on a window of the bench view, and the surfel image fit, and
+print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -75,6 +80,7 @@ from tdgs_torch.physics import (
 from tdgs_torch.physics.bodies import BodyState, RigidBodies
 from tdgs_torch.rendering import _colors_per_camera
 from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
+from tdgs_torch.training.bilateral_grid import init_bilateral_grid
 from tdgs_torch.training.config import Config
 from tdgs_torch.ops.tiling import derive_isect_capacity
 from tdgs_torch.training.trainer import Runner
@@ -2120,12 +2126,12 @@ def phase_depth_scene(root, gt):
     return seconds
 
 
-def depth_config(root, name, n_steps, **extra):
+def cell_config(root, name, n_steps, strategy=None, **extra):
     """The trainer cell's configuration (packed, SH 3, DefaultStrategy
-    refining at 40 and 80) with the depth path's options, logging every 10
-    steps."""
-    strategy = DefaultStrategy(refine_start_iter=20, refine_every=40,
-                               refine_stop_iter=1000, reset_every=10_000)
+    refining at 40 and 80, or ``strategy``) with ``extra`` options, logging
+    every 10 steps."""
+    strategy = strategy or DefaultStrategy(refine_start_iter=20, refine_every=40,
+                                           refine_stop_iter=1000, reset_every=10_000)
     return Config(data_dir=root, result_dir=f"{root}/results_{name}", data_factor=1,
                   max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
                   sh_degree_interval=20, rasterizer="packed", tb_every=10,
@@ -2171,7 +2177,7 @@ def phase_trainer_depth(root, n_steps=100):
     runs = {}
     for prefetch in (False, True):
         name = f"trainer_depth{'' if prefetch else '_no_prefetch'}"
-        runner = Runner(depth_config(root, name, n_steps, data_prefetch=prefetch,
+        runner = Runner(cell_config(root, name, n_steps, data_prefetch=prefetch,
                                      **DEPTH_TERMS), device=DEVICE)
         _build.reset_launches()
         steps_per_s, data_ms, hist = train_timed(runner, n_steps)
@@ -2275,7 +2281,7 @@ def phase_trainer_depth_sparse(root, n_steps=20):
     root_t = os.path.join(root, "tracked")
     os.makedirs(root_t)
     tracked_copy(root, root_t)
-    runner = Runner(depth_config(root_t, "trainer_depth_sparse", n_steps, depth_loss=True),
+    runner = Runner(cell_config(root_t, "trainer_depth_sparse", n_steps, depth_loss=True),
                     device=DEVICE)
     names = [runner.parser.image_names[i] for i in runner.trainset.indices]
     counts = [len(runner.parser.point_indices[n]) for n in names]
@@ -2372,6 +2378,319 @@ def phase_camera_models(bench, n_frames=20):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# the trainer's optional modules (pose corrector and noise, appearance,
+# bilateral grids, PNG compression) on the rich scene, the dense reference
+# rasterizers against kernels 5-8, and the surfel image fit
+# ---------------------------------------------------------------------------
+
+AUX_TERMS = ("rgbloss", "tvloss", "posereg", "appreg", "opacityreg", "scalereg")
+
+
+def means_roundtrip_steps(splats, compress_dir):
+    """How far the decompressed means lie from the compressed ones, in
+    16-bit steps of their log-space span (the codec's quantum): the alive
+    splats cropped and ordered as ``PngCompression.compress`` does."""
+    from tdgs_torch.compression import PngCompression
+    from tdgs_torch.models.gaussians import alive_mask
+    from tdgs_torch.utils.ply import morton_sort_centers
+
+    keep = alive_mask(splats)
+    means = splats["means"][keep].detach().cpu().numpy()
+    op = splats["opacities"][keep].detach().cpu().numpy()
+    n = means.shape[0]
+    side = int(np.floor(np.sqrt(n)))
+    means = means[np.argsort(op)[n - side * side:]]
+    means = means[morton_sort_centers(means)]
+    dec = PngCompression(device=DEVICE).decompress(compress_dir)["means"]
+
+    def log(x):
+        return np.sign(x) * np.log1p(np.abs(x))
+
+    step = (log(means).max(0) - log(means).min(0)) / 65535
+    return float((np.abs(log(dec) - log(means)) / step).max())
+
+
+def aux_config(root, name, model_type, n_steps, **extra):
+    """The trainer cell's configuration (``"3dgs"``) or the trainer_3dgut
+    cell's (``"3dgut"``: the mcmc preset, cap_max 160k, UT and eval3d) with
+    ``extra``: (config, the kernels of its path)."""
+    if model_type == "3dgut":
+        strategy = MCMCStrategy(cap_max=160_000, refine_start_iter=20, refine_every=40,
+                                refine_stop_iter=1000)
+        return cell_config(root, name, n_steps, strategy=strategy, with_ut=True,
+                           with_eval3d=True, init_opa=0.5, init_scale=0.1, opacity_reg=0.01,
+                           scale_reg=0.01, **extra), (E.KERNEL_FWD, E.KERNEL_BWD, S.KERNEL)
+    return cell_config(root, name, n_steps, **extra), KERNELS
+
+
+AUX_MODULES = dict(pose_opt=True, pose_noise=1e-3, app_opt=True, use_bilateral_grid=True)
+
+
+def phase_trainer_aux_pose_lr(root, pose_opt_lr=1e-3, n_steps=100):
+    """The trainer_aux configuration with the pose corrector at
+    ``pose_opt_lr``, 100 steps, then eval; no gate. The aux Adam (the JAX
+    Runner's: no bias correction, every row every step) moves an image's
+    pose on every step after a visit, by 3.16·lr at first and 0.9 times
+    less each step, about 32·lr in all: at 1e-3, 0.03 a visit, thirty times
+    the pose noise it should undo."""
+    cfg, _ = aux_config(root, "trainer_aux_pose_lr", "3dgs", n_steps,
+                        **dict(AUX_MODULES, pose_opt_lr=pose_opt_lr))
+    runner = Runner(cfg, device=DEVICE)
+    steps_per_s, _, _ = train_timed(runner, n_steps)
+    stats = runner.eval(n_steps)
+    emit("trainer_aux_pose_lr", pose_opt_lr=pose_opt_lr, steps=n_steps,
+         steps_per_s=steps_per_s,
+         rgbloss=[r["train/rgbloss"] for r in train_records(cfg.result_dir)],
+         corrector_max_abs=float(runner.camera_opt.embeds.detach().abs().max()),
+         eval_psnr=stats["psnr"], eval_cc_psnr=stats["cc_psnr"])
+    runner.close()
+
+
+def phase_trainer_aux(root, scene_s, model_type="3dgs", n_steps=100):
+    """The Runner with the optional modules on the rich scene, 100 steps,
+    then eval, the pose corrector at its default lr (1e-5) behind a fixed
+    pose noise of 1e-3 (``phase_trainer_aux_pose_lr`` shows why not 1e-3).
+    ``"3dgs"`` (phase ``trainer_aux``): the trainer cell with the pose
+    corrector, the appearance module (feature_dim 32, embed_dim 16) and the
+    bilateral grids (16, 16, 8), then ``run_compression``. ``"3dgut"``
+    (phase ``trainer_3dgut_pose``): the trainer_3dgut cell with the pose
+    corrector and noise. Fails on a non-finite loss term or eval, an RGB
+    loss that did not drop, a corrector that did not move or is not finite,
+    a kernel of the path launched fewer times than steps; for trainer_aux
+    also on cc_psnr below psnr − 1e-3 dB (the identity affine is in the
+    fit's family) and on decompressed means further than one 16-bit step of
+    their log-space span from the originals."""
+    if model_type == "3dgut":
+        name = "trainer_3dgut_pose"
+        cfg, kernels = aux_config(root, name, model_type, n_steps, pose_opt=True,
+                                  pose_noise=1e-3)
+    else:
+        name = "trainer_aux"
+        cfg, kernels = aux_config(root, name, model_type, n_steps, **AUX_MODULES)
+    runner = Runner(cfg, device=DEVICE)
+    _build.reset_launches()
+    steps_per_s, data_ms, hist = train_timed(runner, n_steps)
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
+    stats = runner.eval(n_steps)
+    records = train_records(cfg.result_dir)
+    terms = {k[len("train/"):]: v for k, v in records[-1].items()
+             if k[len("train/"):] in AUX_TERMS}
+    embeds = runner.camera_opt.embeds.detach()
+    moved = float(embeds.abs().max())
+    # one more step traced (it changes the splats after the eval above)
+    batch = runner._batch([0])
+    step_trace = traced(lambda: runner.train_step(batch, n_steps + 1, cfg.sh_degree))
+    fields = dict(steps=n_steps, scene_s=scene_s, train_images=len(runner.trainset),
+                  capacity=runner.capacity, steps_per_s=steps_per_s, data_ms_per_step=data_ms,
+                  loss_terms_last=terms, rgbloss_first=records[0]["train/rgbloss"],
+                  loss_first=hist[0], loss_last=hist[-1], refines=runner.refines,
+                  launches=launches, corrector_max_abs=moved,
+                  corrector_rms=float(embeds.pow(2).mean().sqrt()),
+                  pose_noise_rms=float(runner._pose_perturb.pow(2).mean().sqrt()),
+                  eval_psnr=stats["psnr"], eval_ssim=stats["ssim"],
+                  eval_num_gs=stats["num_GS"], traced_step=step_trace)
+    failures = [
+        (all(np.isfinite(v) for v in terms.values()) and "rgbloss" in terms,
+         f"loss terms {terms}"),
+        (terms.get("rgbloss", np.inf) < records[0]["train/rgbloss"], "the RGB loss did not drop"),
+        (np.isfinite(stats["psnr"]) and np.isfinite(stats["ssim"]), f"eval {stats}"),
+        (0.0 < moved < np.inf and bool(torch.isfinite(embeds).all()),
+         f"the corrector moved {moved}"),
+    ] + [(launches[k] >= n_steps, f"{k} launched {launches[k]} times") for k in kernels]
+    if model_type == "3dgs":
+        identity = init_bilateral_grid(1, 1, 1, 1, device=DEVICE).reshape(12)
+        fields.update(eval_cc_psnr=stats["cc_psnr"], eval_cc_ssim=stats["cc_ssim"],
+                      app_embeds_max_abs=float(runner.app_module.embeds.detach().abs().max()),
+                      bilagrid_max_dev=float((runner.bilagrid.detach() - identity)
+                                             .abs().max()))
+        failures.append((stats["cc_psnr"] >= stats["psnr"] - 1e-3,
+                         f"cc_psnr {stats['cc_psnr']} < psnr {stats['psnr']} - 1e-3"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp = runner.run_compression(n_steps)
+        comp_s = time.perf_counter() - t0
+        cdir = os.path.join(cfg.result_dir, "compression")
+        files = {f: os.path.getsize(os.path.join(cdir, f)) for f in sorted(os.listdir(cdir))}
+        steps_off = means_roundtrip_steps(runner.splats, cdir)
+        floats = sum(v[0].numel() for v in runner.splats.values())
+        fields.update(compression_wall_s=comp_s, compression_bytes=sum(files.values()),
+                      compression_files=files, compression_psnr=comp["psnr"],
+                      compression_ssim=comp["ssim"], compression_num_gs=comp["num_GS"],
+                      uncompressed_bytes=int(stats["num_GS"]) * floats * 4,
+                      means_max_err_16bit_steps=steps_off)
+        failures += [(np.isfinite(comp["psnr"]), f"compressed eval {comp}"),
+                     (steps_off <= 1.0, f"means {steps_off} 16-bit steps off")]
+    emit(name, **fields)
+    runner.close()
+    bad = [msg for ok, msg in failures if not ok]
+    if bad:
+        raise RuntimeError(f"{name}: {'; '.join(bad)}")
+    return launches
+
+
+def dense_window(counts_fn, max_bytes=1e9, size=(512, 288)):
+    """The largest centred window of the bench view, halved from ``size``
+    until the dense rasterizers' largest [tiles, pixels, capacity] tensor
+    fits ``max_bytes`` (autograd keeps a few dozen of them), with the
+    capacity the window's longest tile (whole 128s, so that the packed
+    kernels cut nothing either): (W, H, tile_capacity, entries, tiles).
+    ``counts_fn(W, H)`` gives the packed stream's entries a tile."""
+    W, H = size
+    while True:
+        counts = counts_fn(W, H)
+        cap = max(128, -(-int(counts.max()) // 128) * 128)
+        if counts.numel() * 256 * cap * 4 <= max_bytes or W <= 64:
+            return W, H, cap, int(counts.sum()), counts.numel()
+        W, H = W // 2, H // 2
+
+
+def _window_Ks(sc, W, H):
+    Ks = sc["Ks"].clone()
+    Ks[:, 0, 2], Ks[:, 1, 2] = W / 2, H / 2
+    return Ks
+
+
+def _dense_pair(render, inputs, n_out, reps=3):
+    """The dense route and the kernel route (``render(route, *leaves)`` →
+    outputs) on the same inputs: (outputs, gradients of a random
+    cotangent sum of the first ``n_out`` outputs, ms of forward + backward
+    by CUDA events) for each route."""
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    res = {}
+    cot = None
+    for route in ("dense", "kernel"):
+        leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+        torch.cuda.reset_peak_memory_stats()
+        out = render(route, *leaves)
+        if cot is None:
+            cot = [torch.randn(o.shape, generator=gen, device=DEVICE) for o in out[:n_out]]
+        grads = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out[:n_out], cot)),
+                                    leaves, allow_unused=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def step():
+            o = render(route, *leaves)
+            torch.autograd.grad(sum((x * c).sum() for x, c in zip(o[:n_out], cot)), leaves,
+                                allow_unused=True)
+
+        res[route] = dict(out=[o.detach() for o in out], grads=grads,
+                          ms=time_ms(step, reps), peak_gib=peak)
+    return res
+
+
+def phase_parity_dense_reference(bench):
+    """The dense plain-tensor rasterizers, independent of the kernels, as
+    references for them on the card: on a centred window of the bench view
+    sized from its stream (``dense_window``: the largest [T, P, cap] tensor
+    under 2 GB, no tile cut), the dense world-space ``"eval3d"`` against
+    ``"eval3d_packed"`` (kernels 7, 8 and 3) and the dense 2DGS ``"jax"``
+    against ``"packed"`` (kernels 5, 6 and 3), "RGB" with the gradients to
+    every input (the pose's too, for eval3d), and 2DGS "RGB+ED" with
+    distortion. Outputs within TOL (distortion DIST_RTOL, median
+    MEDIAN_SHARE), gradients within BWD_RTOL of each group's max. Times both
+    routes (forward + backward) and prints the peak memory."""
+    sc = bench
+    errs = {}
+
+    def counts_3dgs(W, H):
+        with torch.no_grad():
+            _, _, meta = tdgs_torch.rasterization(
+                sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
+                sc["viewmats"], _window_Ks(sc, W, H), W, H, sh_degree=3,
+                rasterizer="packed_inference", device=DEVICE)
+        return torch.diff(meta["isect_offsets"].long())
+
+    def counts_2dgs(W, H):
+        with torch.no_grad():
+            meta = tdgs_torch.rasterization_2dgs(
+                sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
+                sc["viewmats"], _window_Ks(sc, W, H), W, H, sh_degree=3,
+                rasterizer="packed_inference", device=DEVICE)[-1]
+        return torch.diff(meta["isect_offsets"].long())
+
+    dropped = {}
+    for fam, counts_fn in (("eval3d", counts_3dgs), ("2dgs", counts_2dgs)):
+        W, H, cap, entries, tiles = dense_window(counts_fn)
+        Ks = _window_Ks(sc, W, H)
+        isect_cap = 1 << (max(entries, 1) * 2 - 1).bit_length()
+        kw = dict(sh_degree=3, tile_capacity=cap, isect_capacity=isect_cap, device=DEVICE)
+        names = ("means", "quats", "scales", "opacities", "sh") + (
+            ("viewmats",) if fam == "eval3d" else ())
+        inputs = [sc[k] for k in names]
+        if fam == "eval3d":
+            def render(route, *x):
+                img, alp, meta = tdgs_torch.rasterization(
+                    *x[:5], x[5], Ks, W, H, with_eval3d=True,
+                    rasterizer="eval3d" if route == "dense" else "eval3d_packed", **kw)
+                dropped[route] = int(meta["n_dropped"])
+                return img, alp
+            n_out = 2
+        else:
+            def render(route, *x):
+                out = tdgs_torch.rasterization_2dgs(
+                    *x, sc["viewmats"], Ks, W, H, render_mode="RGB+ED", distloss=True,
+                    rasterizer="jax" if route == "dense" else "packed", **kw)
+                dropped[route] = int(out[-1]["n_dropped"])
+                return out[0], out[1], out[2], out[4], out[5]
+            n_out = 4  # colours, alpha, normals, distortion (the median has no gradient)
+        res = _dense_pair(render, inputs, n_out)
+        d, k = res["dense"], res["kernel"]
+        e = dict(fwd=max(_abs_err(a, b) for a, b in zip(d["out"][:3], k["out"][:3])))
+        if fam == "2dgs":
+            e["dist_rel"] = _rel(d["out"][3], k["out"][3])
+            e["median_share"] = float(((d["out"][4] - k["out"][4]).abs() > 1e-4)
+                                      .float().mean())
+        e["bwd_rel"] = {n: _rel(a, b) for n, a, b in zip(names, d["grads"], k["grads"])}
+        errs[fam] = e
+        emit(f"parity_dense_reference_{fam}", width=W, height=H, tile_capacity=cap,
+             entries=entries, tiles=tiles, largest_tpc_gb=tiles * 256 * cap * 4 / 1e9,
+             n_dropped=dropped, max_abs_err=e["fwd"],
+             distortion_max_rel_err=e.get("dist_rel"), median_differs_share=e.get("median_share"),
+             grad_max_rel_err=e["bwd_rel"], dense_ms=d["ms"], kernel_ms=k["ms"],
+             dense_peak_gib=d["peak_gib"], kernel_peak_gib=k["peak_gib"],
+             alpha_max=float(k["out"][1].max()))
+        bad = [f"outputs {e['fwd']} > {TOL}"] if e["fwd"] > TOL else []
+        bad += [f"gradient {n} {v} > {BWD_RTOL}" for n, v in e["bwd_rel"].items()
+                if not v <= BWD_RTOL]
+        if fam == "2dgs":
+            bad += [f"distortion {e['dist_rel']}"] if e["dist_rel"] > DIST_RTOL else []
+            bad += [f"median {e['median_share']}"] if e["median_share"] > MEDIAN_SHARE else []
+        if float(k["out"][1].max()) < 0.5 or any(dropped.values()):
+            bad.append(f"alpha max {float(k['out'][1].max())}, dropped {dropped}")
+        if bad:
+            raise RuntimeError(f"parity_dense_reference_{fam}: {'; '.join(bad)}")
+    return errs
+
+
+def phase_image_fitting_2dgs(min_iterations=1000):
+    """``python -m tdgs_torch.image_fitting --model-type 2dgs`` at the
+    example's defaults (128x128, 2000 surfels, 1000 Adam steps) on the card
+    in its own process, through the packed surfel path. The loss must fall
+    below 0.55 of its start and every step must launch kernels 5, 6 and 3."""
+    kernels = (R2.KERNEL_TRAIN, R2.KERNEL_BWD, S.KERNEL)
+    cmd = [sys.executable, "-m", "tdgs_torch.image_fitting", "--model-type", "2dgs"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    summary = json.loads(lines[-1]) if out.returncode == 0 and lines else {}
+    launches = {k: summary.get("launches", {}).get(k, 0) for k in kernels}
+    emit("image_fitting_2dgs", command=" ".join(cmd[1:]), rc=out.returncode,
+         process_wall_s=wall, **{k: v for k, v in summary.items() if k != "launches"},
+         launches=launches, log_tail=lines[-4:-1],
+         stderr_tail=out.stderr[-400:] if out.returncode else "")
+    if out.returncode != 0:
+        raise RuntimeError(f"image_fitting_2dgs: rc {out.returncode}, {out.stderr[-2000:]}")
+    if not summary["final_loss"] < 0.55 * summary["initial_loss"]:
+        raise RuntimeError(f"image_fitting_2dgs: loss {summary['initial_loss']} -> "
+                           f"{summary['final_loss']}")
+    for k in kernels:
+        if launches[k] < min_iterations:
+            raise RuntimeError(f"image_fitting_2dgs launched {k} {launches[k]} times")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2433,8 +2752,14 @@ def main():
         depth_runner.close()
         phase_trainer_depth_sparse(root)
         err_cameras = phase_camera_models(bench)
+
+        aux_launches = phase_trainer_aux(root, scene_s)
+        phase_trainer_aux_pose_lr(root)
+        pose_3dgut_launches = phase_trainer_aux(root, scene_s, "3dgut")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    errs_ref = phase_parity_dense_reference(bench)
+    fitting_2dgs_launches = phase_image_fitting_2dgs()
     root_e2e = tempfile.mkdtemp(prefix="tdgs_rally_e2e_")
     try:
         e2e, e2e_launches = phase_rally_e2e(root_e2e)
@@ -2473,6 +2798,26 @@ def main():
     e2e_fields[S.KERNEL].update(depth_d4_max_rel_err=errs_depth["seg_rel"],
                                 depth_d4_library_ms=k_depth[S.KERNEL]["library_ms"],
                                 depth_d4_library_graph_ms=k_depth[S.KERNEL]["library_graph_ms"])
+    # the optional modules' paths (trainer_aux: kernels 1-3; trainer_3dgut_pose:
+    # 7, 8, 3; image_fitting_2dgs: 5, 6, 3) and the dense references of 5-8
+    for name in KERNELS:
+        e2e_fields[name]["trainer_aux_launches"] = aux_launches[name]
+    e2e_fields[S.KERNEL].update(
+        trainer_3dgut_pose_launches=pose_3dgut_launches[S.KERNEL],
+        image_fitting_2dgs_launches=fitting_2dgs_launches[S.KERNEL])
+    ref_e3, ref_2d = errs_ref["eval3d"], errs_ref["2dgs"]
+    new_fields = {
+        E.KERNEL_FWD: dict(trainer_3dgut_pose_launches=pose_3dgut_launches[E.KERNEL_FWD],
+                           dense_reference_max_abs_err=ref_e3["fwd"]),
+        E.KERNEL_BWD: dict(trainer_3dgut_pose_launches=pose_3dgut_launches[E.KERNEL_BWD],
+                           dense_reference_max_rel_err=max(ref_e3["bwd_rel"].values()),
+                           dense_reference_viewmats_rel_err=ref_e3["bwd_rel"]["viewmats"]),
+        R2.KERNEL_TRAIN: dict(image_fitting_2dgs_launches=fitting_2dgs_launches[R2.KERNEL_TRAIN],
+                              dense_reference_max_abs_err=ref_2d["fwd"],
+                              dense_reference_distortion_max_rel_err=ref_2d["dist_rel"]),
+        R2.KERNEL_BWD: dict(image_fitting_2dgs_launches=fitting_2dgs_launches[R2.KERNEL_BWD],
+                            dense_reference_max_rel_err=max(ref_2d["bwd_rel"].values())),
+    }
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
@@ -2572,7 +2917,7 @@ def main():
             "replaces": replaces, "launches": launches, **errs, "ms": k["ms"],
             "device_graph_ms": k["device_graph_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"], **others,
+            "library_ms": k["library_ms"], **others, **new_fields.get(name, {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi)

@@ -15,7 +15,14 @@ segmentation the ``identity_encodings`` among the splats and the
 parameters (``means``, ``scales``, ``quats``, ``opacities``, ``colors``)
 go across with ``image_fitting_params_from_numpy`` and back with
 ``image_fitting_params_to_numpy``. LPIPS filter banks go across with
-``lpips_filters_from_numpy``. Nothing here imports JAX.
+``lpips_filters_from_numpy``. The ``Runner``'s auxiliary modules go
+across with ``aux_params_from_numpy`` / ``aux_params_to_numpy`` (the JAX
+``Runner``'s ``aux_params``: ``pose`` [n, 9], ``bilagrid``
+[n, gh, gw, gg, 12], ``app_embeds`` [n, E] and ``app_mlp`` with ``w{i}``
+[in, out], which the port's ``nn.Linear`` holds transposed) and their Adam
+moments with ``aux_opt_state_from_numpy`` / ``aux_opt_state_to_numpy``;
+the appearance mode's ``features`` and ``colors`` are splat arrays
+(``splats_from_numpy``). Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -42,9 +49,65 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
 
 def splats_from_numpy(splats: Mapping[str, Any],
                       device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Splat parameter dict (means, quats, scales, opacities, sh0, shN, ...)."""
+    """Splat parameter dict (means, quats, scales, opacities, sh0, shN, and
+    any extra per-gaussian array: ``identity_encodings``, the appearance
+    mode's ``features`` and ``colors``)."""
     dev = resolve_device(device)
     return {k: _tensor(v, dev) for k, v in splats.items()}
+
+
+# the port's parameter name in each single-tensor aux group
+_AUX_NAMES = {"pose": "embeds", "bilagrid": "grids", "app_embeds": "embeds"}
+
+
+def aux_params_to_numpy(groups: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[str, Any]:
+    """The port's ``Runner.aux_params()`` (or one part of its
+    ``aux_opt_state``) → the JAX ``Runner``'s ``aux_params`` nesting: one
+    array a group, ``app_mlp`` as {``w{i}`` [in, out], ``b{i}``}."""
+    out: Dict[str, Any] = {}
+    for group, params in groups.items():
+        if group == "app_mlp":
+            out[group] = {}
+            for name, v in params.items():
+                i, kind = name.split(".")
+                a = v.detach().cpu().numpy()
+                out[group][f"w{i}" if kind == "weight" else f"b{i}"] = (
+                    a.T.copy() if kind == "weight" else a)
+        else:
+            out[group] = params[_AUX_NAMES[group]].detach().cpu().numpy()
+    return out
+
+
+def aux_params_from_numpy(tree: Mapping[str, Any],
+                          device: DeviceLike = None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX ``Runner``'s ``aux_params`` (or one part of its
+    ``aux_opt_state``) → the port's groups of ``Runner.aux_params()``, for
+    ``Runner.load_aux_state``."""
+    dev = resolve_device(device)
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for group, v in tree.items():
+        if group == "app_mlp":
+            out[group] = {}
+            for name, a in v.items():
+                i = name[1:]
+                if name[0] == "w":
+                    out[group][f"{i}.weight"] = _tensor(np.asarray(a).T, dev)
+                else:
+                    out[group][f"{i}.bias"] = _tensor(a, dev)
+        else:
+            out[group] = {_AUX_NAMES[group]: _tensor(v, dev)}
+    return out
+
+
+def aux_opt_state_to_numpy(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The aux Adam moments {mu, nu} → the JAX ``Runner``'s
+    ``aux_opt_state``."""
+    return {part: aux_params_to_numpy(state[part]) for part in ("mu", "nu")}
+
+
+def aux_opt_state_from_numpy(state: Mapping[str, Any], device: DeviceLike = None) -> Dict:
+    """The JAX ``Runner``'s ``aux_opt_state`` → the port's moments."""
+    return {part: aux_params_from_numpy(state[part], device) for part in ("mu", "nu")}
 
 
 IMAGE_FITTING_KEYS = ("means", "scales", "quats", "opacities", "colors")

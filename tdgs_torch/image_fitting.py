@@ -10,10 +10,14 @@ eps 1e-8 outside the square root, as ``optax.adam``).
 One departure from the JAX example: ``--rasterizer`` defaults to
 ``pallas``, the tile-dense kernels 9 and 10, where the JAX example defaults
 to ``jax``, its jnp oracle, which in the port is the plain tensor form of
-the same function. ``--model-type 2dgs`` raises ``NotImplementedError``: the
-JAX example renders surfels through the dense 2DGS ``"jax"`` rasterizer,
-which is not ported. Runs on the card unless ``--device cpu``. The last
-line printed is a JSON summary with the kernel launches of the run.
+the same function. ``--model-type 2dgs`` fits surfels through
+``rasterization_2dgs`` (tile capacity 512, 64 tiles a gaussian at most):
+by default its ``packed`` rasterizer (kernels 5, 6 and 3), or with
+``--rasterizer jax`` the dense plain tensor form, which the JAX example
+always takes. Runs on the card unless ``--device cpu``. The last line
+printed is a JSON summary with the kernel launches of the run.
+
+    python -m tdgs_torch.image_fitting --model-type 2dgs
 """
 
 from __future__ import annotations
@@ -30,7 +34,10 @@ import torch
 from tdgs_torch._device import DeviceLike, resolve_device
 from tdgs_torch.convert import image_fitting_params_from_numpy
 from tdgs_torch.ops import _build
-from tdgs_torch.rendering import rasterization
+from tdgs_torch.rendering import rasterization, rasterization_2dgs
+
+RASTERIZERS = {"3dgs": ("pallas", "jax", "packed", "packed_inference"),
+               "2dgs": ("packed", "jax")}
 
 
 def make_target_image(height: int, width: int) -> np.ndarray:
@@ -80,6 +87,21 @@ def build_camera(height: int, width: int, device: DeviceLike = None):
     return viewmats, Ks
 
 
+def render(params: Mapping[str, torch.Tensor], viewmats, Ks, width: int, height: int,
+           rasterizer: str, model_type: str = "3dgs") -> torch.Tensor:
+    """The fit's image [H, W, 3] of raw ``params`` (exp scales, sigmoid
+    opacities and colours) through ``rasterization`` or, for surfels,
+    ``rasterization_2dgs``, at tile capacity 512 and 64 tiles a gaussian."""
+    args = (params["means"], params["quats"], torch.exp(params["scales"]),
+            torch.sigmoid(params["opacities"]), torch.sigmoid(params["colors"]),
+            viewmats, Ks, width, height)
+    kw = dict(rasterizer=rasterizer, tile_capacity=512, max_tiles_per_gauss=64,
+              device=viewmats.device)
+    if model_type == "2dgs":
+        return rasterization_2dgs(*args, **kw)[0][0]
+    return rasterization(*args, **kw)[0][0]
+
+
 def fit(
     height: int = 128,
     width: int = 128,
@@ -87,7 +109,7 @@ def fit(
     iterations: int = 1000,
     lr: float = 1e-2,
     seed: int = 42,
-    rasterizer: str = "pallas",
+    rasterizer: Optional[str] = None,
     log_every: int = 100,
     model_type: str = "3dgs",
     device: DeviceLike = None,
@@ -95,13 +117,14 @@ def fit(
 ) -> Tuple[float, float, np.ndarray]:
     """Returns (initial_loss, final_loss, final_render [H, W, 3]). ``init``:
     starting parameters as numpy arrays (e.g. the JAX example's
-    ``init_params``); otherwise ``init_params`` from ``seed``."""
-    if model_type == "2dgs":
-        raise NotImplementedError(
-            "model_type='2dgs' renders through the dense 2DGS 'jax' rasterizer, "
-            "which is not ported yet (ROADMAP queue 1, item 4)")
-    if model_type != "3dgs":
+    ``init_params``); otherwise ``init_params`` from ``seed``.
+    ``rasterizer`` defaults to ``"pallas"`` for 3DGS and ``"packed"`` for
+    surfels (``model_type="2dgs"``)."""
+    if model_type not in RASTERIZERS:
         raise ValueError(f"model_type {model_type!r}")
+    rasterizer = rasterizer or RASTERIZERS[model_type][0]
+    if rasterizer not in RASTERIZERS[model_type]:
+        raise ValueError(f"rasterizer {rasterizer!r} does not fit {model_type}")
     dev = resolve_device(device)
     target = torch.as_tensor(make_target_image(height, width), device=dev)
     if init is None:
@@ -112,15 +135,9 @@ def fit(
     viewmats, Ks = build_camera(height, width, dev)
     optimizer = torch.optim.Adam(list(params.values()), lr=lr, eps=1e-8)
 
-    def render(p):
-        img, _, _ = rasterization(
-            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]),
-            torch.sigmoid(p["colors"]), viewmats, Ks, width, height,
-            rasterizer=rasterizer, tile_capacity=512, max_tiles_per_gauss=64, device=dev)
-        return img[0]
-
     def loss_fn(p):
-        return torch.mean((render(p) - target) ** 2)
+        return torch.mean((render(p, viewmats, Ks, width, height, rasterizer, model_type)
+                           - target) ** 2)
 
     with torch.no_grad():
         initial_loss = float(loss_fn(params))
@@ -137,7 +154,8 @@ def fit(
     dt = time.time() - t0
     with torch.no_grad():
         final_loss = float(loss_fn(params))
-        img = render(params).cpu().numpy()
+        img = render(params, viewmats, Ks, width, height, rasterizer,
+                     model_type).cpu().numpy()
     print(f"initial {initial_loss:.6f} -> final {final_loss:.6f} "
           f"({iterations} iters, {dt:.1f}s, {iterations / max(dt, 1e-9):.1f} it/s)")
     return initial_loss, final_loss, img
@@ -151,8 +169,9 @@ def main(argv=None) -> int:
     ap.add_argument("--num-points", type=int, default=2000)
     ap.add_argument("--iterations", type=int, default=1000)
     ap.add_argument("--lr", type=float, default=1e-2)
-    ap.add_argument("--rasterizer", default="pallas",
-                    choices=["jax", "pallas", "packed", "packed_inference"])
+    ap.add_argument("--rasterizer", default=None,
+                    choices=["jax", "pallas", "packed", "packed_inference"],
+                    help="default: pallas for 3dgs, packed for 2dgs")
     ap.add_argument("--model-type", default="3dgs", choices=["3dgs", "2dgs"])
     ap.add_argument("--save", default=None, help="save final render PNG here")
     ap.add_argument("--device", type=str, default=None,
@@ -171,7 +190,9 @@ def main(argv=None) -> int:
         print("saved", args.save)
     print(json.dumps({"initial_loss": initial, "final_loss": final,
                       "iterations": args.iterations, "wall_s": wall,
-                      "rasterizer": args.rasterizer, "launches": dict(_build.LAUNCHES)}))
+                      "model_type": args.model_type,
+                      "rasterizer": args.rasterizer or RASTERIZERS[args.model_type][0],
+                      "launches": dict(_build.LAUNCHES)}))
     return 0
 
 

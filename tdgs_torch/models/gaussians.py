@@ -79,12 +79,16 @@ def create_splats(
     init_scale_mult: float = 1.0,
     n_max: Optional[int] = None,
     identity_dim: int = 0,
+    feature_dim: int = 0,
 ) -> SplatParams:
     """Splats at ``points`` (SfM init), padded with dead rows to ``n_max``:
     scales = log(mean 3-NN distance · mult), opacities = logit(init_opacity),
     quats ≈ identity + 0.1·N(0, 1), sh0 from the colours, shN zero; with
     ``identity_dim`` > 0 also ``identity_encodings`` [M, identity_dim] of
-    0.1·N(0, 1), the learnable identity vectors of segmentation."""
+    0.1·N(0, 1), the learnable identity vectors of segmentation; with
+    ``feature_dim`` > 0 (appearance optimization) also ``features``
+    [M, feature_dim] uniform in [0, 1) and ``colors`` [M, 3], the logit of
+    the colours clipped to [1e-4, 1 − 1e-4]."""
     m = points.shape[0]
     n_max = n_max or m
     if n_max < m:
@@ -110,6 +114,10 @@ def create_splats(
     if identity_dim > 0:
         params["identity_encodings"] = torch.randn(
             (m, identity_dim), generator=generator, device=dev) * 0.1
+    if feature_dim > 0:
+        params["features"] = torch.rand((m, feature_dim), generator=generator, device=dev)
+        c = torch.clamp(rgbs.to(torch.float32), 1e-4, 1 - 1e-4)
+        params["colors"] = torch.log(c / (1 - c))
     return pad_splats(params, n_max)
 
 

@@ -6,14 +6,15 @@ Two screen-space rasterizers are ported for each: ``"packed_inference"``
 (forward only) and ``"packed"`` (differentiable: the training path). 3DGS
 also has the world-space ``"eval3d_packed"`` (3DGUT, ``with_eval3d``),
 differentiable, with the unscented-transform projection for its tiling
-(``with_ut``), and the two tile-dense rasterizers over the dense tiling
-(``isect_tiles``): ``"pallas"`` (kernels 9 and 10 behind autograd) and
+(``with_ut``), and three rasterizers over the dense tiling
+(``isect_tiles``): ``"pallas"`` (kernels 9 and 10 behind autograd),
 ``"jax"`` (the same function in plain tensor ops, differentiated by
-autograd). The kernels run on the card and their plain PyTorch versions on
-the CPU. The ``meta`` dicts carry the same keys as the JAX package's; the
-packed rasterizers' ``isect_offsets`` is the packed stream's [T + 1]
-offsets, the dense ones' the JAX package's [..., C, tile_height,
-tile_width].
+autograd) and the world-space ``"eval3d"`` (plain tensor ops). 2DGS also
+has the dense ``"jax"`` (plain tensor ops). The kernels run on the card and
+their plain PyTorch versions on the CPU. The ``meta`` dicts carry the same
+keys as the JAX package's; the packed rasterizers' ``isect_offsets`` is the
+packed stream's [T + 1] offsets, the dense ones' the JAX package's [..., C,
+tile_height, tile_width].
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ from tdgs_torch.ops.camera_models import RollingShutterType
 from tdgs_torch.ops.projection import fully_fused_projection
 from tdgs_torch.ops.projection_2dgs import fully_fused_projection_2dgs
 from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut
+from tdgs_torch.ops.rasterize_2dgs_jax import rasterize_to_pixels_2dgs_jax
 from tdgs_torch.ops.rasterize_2dgs_packed import (
     rasterize_to_pixels_2dgs_packed,
     rasterize_to_pixels_2dgs_packed_inference,
 )
+from tdgs_torch.ops.rasterize_eval3d import rasterize_to_pixels_eval3d_jax
 from tdgs_torch.ops.rasterize_eval3d_packed import rasterize_to_pixels_eval3d_packed
 from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed,
@@ -45,11 +48,8 @@ from tdgs_torch.utils.depth import depth_to_normal, rotate
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
 
-# rasterizers of the JAX package that wait for a later slice of the port
-_NOT_PORTED = {
-    "eval3d": "ROADMAP queue 1, eval3d/3DGUT remainders: the dense jnp path",
-}
-_RASTERIZERS = ("packed_inference", "packed", "eval3d_packed", "jax", "pallas")
+_RASTERIZERS = ("packed_inference", "packed", "eval3d_packed", "eval3d", "jax", "pallas")
+_RASTERIZERS_2DGS = ("packed_inference", "packed", "jax")
 
 
 def default_isect_capacity(I: int, N: int) -> int:
@@ -128,8 +128,9 @@ def rasterization(
     meta).
 
     ``rasterizer="packed"`` is differentiable, and so are the tile-dense
-    ``"pallas"`` (kernels 9 and 10) and ``"jax"`` (plain tensor ops), which
-    tile with ``isect_tiles`` at ``isect_capacity`` entries (default
+    ``"pallas"`` (kernels 9 and 10), ``"jax"`` (plain tensor ops) and the
+    world-space ``"eval3d"`` (plain tensor ops), which tile with
+    ``isect_tiles`` at ``isect_capacity`` entries (default
     ``default_isect_capacity``) and ignore the ``isect_exact*``/split
     options, as the JAX package does. ``means2d_offset`` is added to the
     projected means (pass zeros: its gradient is the screen-space gradient
@@ -140,20 +141,15 @@ def rasterization(
     3DGUT: ``with_ut`` projects through the unscented transform (the camera
     model's distortion coefficients, FTheta, ``rolling_shutter`` between
     ``viewmats`` and ``viewmats_rs``); ``with_eval3d`` selects the
-    world-space ``"eval3d_packed"`` rasterizer, which evaluates each
-    gaussian along the pixels' true rays (differentiable, gradients also to
-    ``viewmats`` and ``viewmats_rs``); the projection then only feeds the
-    tiling. eval3d takes unbatched gaussians, quats and scales, and no
-    AbsGS tap."""
+    world-space ``"eval3d_packed"`` rasterizer (or its dense ``"eval3d"``
+    when that is asked for), which evaluates each gaussian along the
+    pixels' true rays (differentiable, gradients also to ``viewmats`` and
+    ``viewmats_rs``); the projection then only feeds the tiling. eval3d
+    takes unbatched gaussians, quats and scales, and no AbsGS tap."""
     if with_eval3d and not rasterizer.startswith("eval3d"):
         rasterizer = "eval3d_packed"
     if rasterizer not in _RASTERIZERS:
-        item = _NOT_PORTED.get(rasterizer)
-        if item is None:
-            raise ValueError(f"unknown rasterizer {rasterizer!r}")
-        raise NotImplementedError(
-            f"rasterizer={rasterizer!r} is not ported yet ({item})"
-        )
+        raise ValueError(f"unknown rasterizer {rasterizer!r}")
     if render_mode not in RENDER_MODES:
         raise ValueError(f"render_mode {render_mode!r} not in {RENDER_MODES}")
     if rasterize_mode not in ("classic", "antialiased"):
@@ -192,7 +188,7 @@ def rasterization(
     if viewmats.shape != batch_dims + (C, 4, 4) or Ks.shape != batch_dims + (C, 3, 3):
         raise ValueError(f"viewmats {viewmats.shape} / Ks {Ks.shape}")
 
-    if rasterizer == "eval3d_packed":
+    if rasterizer.startswith("eval3d"):
         if batch_dims:
             raise ValueError("eval3d takes unbatched [N] gaussians")
         if covars is not None:
@@ -254,7 +250,7 @@ def rasterization(
 
     tile_width = math.ceil(width / float(tile_size))
     tile_height = math.ceil(height / float(tile_size))
-    dense = rasterizer in ("jax", "pallas")
+    dense = rasterizer in ("jax", "pallas", "eval3d")
     if dense:
         # the dense tiling at a fixed capacity (tdgs/rendering.py:519-547)
         isect = isect_tiles(
@@ -297,19 +293,28 @@ def rasterization(
     )
     bg = None if backgrounds is None else backgrounds.contiguous()
     abs_dummy = None if means2d_abs_tap is None else means2d_abs_tap.reshape(I * N, 2)
-    if rasterizer == "eval3d_packed":
+    eval3d_cams = dict(
+        camera_model=camera_model, radial_coeffs=radial_coeffs,
+        tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
+        ftheta_coeffs=ftheta_coeffs, backgrounds=None if bg is None else bg.reshape(I, -1),
+        tile_capacity=tile_capacity, rolling_shutter=rolling_shutter,
+        viewmats_rs=None if viewmats_rs is None else viewmats_rs.reshape(I, 4, 4))
+    if rasterizer == "eval3d":
+        # the dense world-space oracle over the dense tiling
+        render_colors, render_alphas = rasterize_to_pixels_eval3d_jax(
+            means, quats, scales, colors_cn.reshape(I, N, -1),
+            opacities_cn.reshape(I, N), viewmats.reshape(I, 4, 4), Ks.reshape(I, 3, 3),
+            width, height, tile_size, offsets, isect.flatten_ids, isect.n_isects,
+            **eval3d_cams)
+        render_colors = render_colors.reshape((C, height, width, -1))
+        render_alphas = render_alphas.reshape((C, height, width, 1))
+    elif rasterizer == "eval3d_packed":
         # the projection only tiled: the response is taken along the rays
         render_colors, render_alphas = rasterize_to_pixels_eval3d_packed(
             means, quats, scales, colors_cn.reshape(I, N, -1).contiguous(),
             opacities_cn.reshape(I, N).contiguous(), viewmats.reshape(I, 4, 4),
             Ks.reshape(I, 3, 3), width, height, tile_size, isect.offsets,
-            isect.flatten_ids, camera_model=camera_model, radial_coeffs=radial_coeffs,
-            tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
-            ftheta_coeffs=ftheta_coeffs,
-            backgrounds=None if bg is None else bg.reshape(I, -1),
-            tile_capacity=tile_capacity, rolling_shutter=rolling_shutter,
-            viewmats_rs=None if viewmats_rs is None else viewmats_rs.reshape(I, 4, 4),
-        )
+            isect.flatten_ids, **eval3d_cams)
         render_colors = render_colors.reshape((C, height, width, -1))
         render_alphas = render_alphas.reshape((C, height, width, 1))
     elif rasterizer == "pallas":
@@ -336,12 +341,6 @@ def rasterization(
             dim=-1,
         )
     return render_colors, render_alphas, meta
-
-
-# the 2DGS rasterizers of the JAX package that wait for a later slice
-_NOT_PORTED_2DGS = {
-    "jax": "ROADMAP queue 1, 2DGS family: rasterize_2dgs_jax.py",
-}
 
 
 def rasterization_2dgs(
@@ -381,23 +380,23 @@ def rasterization_2dgs(
     render_median, meta).
 
     ``rasterizer``: ``"packed"`` (differentiable: kernels 5 and 6 behind
-    autograd, all outputs; median depth is not differentiable) or
+    autograd, all outputs; median depth is not differentiable),
     ``"packed_inference"`` (forward only, kernel 4; distortion and median
-    are zeros). A depth channel is appended to the colours when
+    are zeros) or the dense ``"jax"`` (plain tensor ops over
+    ``isect_tiles`` at ``isect_capacity`` entries, default
+    ``default_isect_capacity``; differentiable by autograd, all outputs).
+    A depth channel is appended to the colours when
     ``distloss`` is set or the render mode asks for depth; "ED" modes divide
     it by alpha after the render, and "RGB+ED"/"RGB+D" also return the
     normals of that depth map (``depth_mode="median"``: of the median
     depth). ``means2d_offset`` and ``means2d_abs_tap`` are the screen-space
     taps of :func:`rasterization`."""
-    if rasterizer not in ("packed_inference", "packed"):
-        item = _NOT_PORTED_2DGS.get(rasterizer)
-        if item is None:
-            raise ValueError(f"unknown rasterizer {rasterizer!r}")
-        raise NotImplementedError(f"rasterizer={rasterizer!r} is not ported yet ({item})")
+    if rasterizer not in _RASTERIZERS_2DGS:
+        raise ValueError(f"unknown rasterizer {rasterizer!r}")
     if render_mode not in RENDER_MODES:
         raise ValueError(f"render_mode {render_mode!r} not in {RENDER_MODES}")
-    if means2d_abs_tap is not None and rasterizer != "packed":
-        raise ValueError("means2d_abs_tap requires the differentiable 'packed' rasterizer")
+    if means2d_abs_tap is not None and rasterizer == "packed_inference":
+        raise ValueError("means2d_abs_tap requires a differentiable rasterizer")
     dev = resolve_device(device)
     means, quats, scales, opacities, colors, viewmats, Ks = (
         as_float(x, dev) for x in (means, quats, scales, opacities, colors, viewmats, Ks))
@@ -441,25 +440,44 @@ def rasterization_2dgs(
 
     tile_width = math.ceil(width / float(tile_size))
     tile_height = math.ceil(height / float(tile_size))
-    isect = isect_tiles_packed(
-        means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
-        max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
-        exact=isect_exact, exact_depth=isect_exact_depth,
-        split_k=isect_split_k, big_capacity=isect_big_capacity,
-    )
+    tiles_per_gauss = None
+    if rasterizer == "jax":
+        # the dense tiling at a fixed capacity (tdgs/rendering.py:767-782)
+        isect = isect_tiles(
+            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
+            capacity=(default_isect_capacity(I, N) if isect_capacity is None
+                      else isect_capacity),
+            max_tiles_per_gauss=max_tiles_per_gauss,
+        )
+        offsets = isect_offset_encode(isect.isect_keys, I, tile_width, tile_height)
+        tiles_per_gauss = isect.tiles_per_gauss
+        meta_offsets = offsets.reshape(batch_dims + (C, tile_height, tile_width))
+    else:
+        isect = isect_tiles_packed(
+            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
+            max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
+            exact=isect_exact, exact_depth=isect_exact_depth,
+            split_k=isect_split_k, big_capacity=isect_big_capacity,
+        )
+        offsets = meta_offsets = isect.offsets
     raster_args = (
         means2d.contiguous(), ray_transforms.contiguous(), colors_cn.contiguous(),
         normals.contiguous(), opacities_cn.contiguous(), width, height, tile_size,
-        isect.offsets, isect.flatten_ids,
+        offsets, isect.flatten_ids,
     )
     bg = None if backgrounds is None else backgrounds.contiguous()
-    if rasterizer == "packed":
+    abs_dummy = None if means2d_abs_tap is None else means2d_abs_tap.reshape(I * N, 2)
+    if rasterizer == "jax":
+        (render_colors, render_alphas, render_normals_cam, render_distort,
+         render_median) = rasterize_to_pixels_2dgs_jax(
+            *raster_args, isect.n_isects, backgrounds=bg, tile_capacity=tile_capacity,
+            compute_distort=distloss or need_depth, absgrad_dummy=abs_dummy)
+    elif rasterizer == "packed":
         (render_colors, render_alphas, render_normals_cam, render_distort,
          render_median) = rasterize_to_pixels_2dgs_packed(
             *raster_args, backgrounds=bg, tile_capacity=tile_capacity,
             has_depth=need_depth, compute_distort=distloss or need_depth,
-            absgrad_dummy=(None if means2d_abs_tap is None
-                           else means2d_abs_tap.reshape(I * N, 2)),
+            absgrad_dummy=abs_dummy,
         )
     else:
         render_colors, render_alphas, render_normals_cam = (
@@ -490,10 +508,10 @@ def rasterization_2dgs(
         "normals": normals,
         "tile_width": tile_width,
         "tile_height": tile_height,
-        "tiles_per_gauss": None,
+        "tiles_per_gauss": tiles_per_gauss,
         "isect_ids": isect.isect_keys,
         "flatten_ids": isect.flatten_ids,
-        "isect_offsets": isect.offsets,
+        "isect_offsets": meta_offsets,
         "n_isects": isect.n_isects,
         "n_dropped": isect.n_dropped,
         "width": width,

@@ -22,7 +22,10 @@ The ``mcmc`` preset is the MCMC strategy with ``init_opa=0.5``,
 ``init_scale=0.1``, ``opacity_reg=0.01`` and ``scale_reg=0.01``. Depth and
 normal supervision come with ``--depth-loss`` (``--use-precomputed-depths``
 for refined depth maps), ``--depth-normal-loss`` and ``--load-normals``.
-After training it renders the camera trajectory (``--render-traj-path``:
+With ``--pose-opt`` (and ``--pose-noise``), ``--app-opt`` and
+``--use-bilateral-grid`` the trainer's optional modules train beside the
+splats; ``--compression png`` compresses the trained splats and scores the
+round trip. After training it renders the camera trajectory (``--render-traj-path``:
 ``traj_<step>.gif`` where PIL is installed, else PNG frames under
 ``traj_<step>/``) unless ``--disable-video`` is given.
 """
@@ -116,6 +119,9 @@ def main(argv=None) -> int:
         out = runner.train()
         print(json.dumps(out["history"][-3:]))
         print(json.dumps(runner.eval(cfg.max_steps)))
+        if cfg.compression:
+            # the PNG compression's round trip, scored as stage "compress"
+            print(json.dumps(runner.run_compression(cfg.max_steps)))
         if not cfg.disable_video:
             # the camera-trajectory render at the end of training
             print(runner.render_traj(cfg.max_steps, traj_path=cfg.render_traj_path))

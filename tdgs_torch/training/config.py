@@ -191,11 +191,6 @@ class Config:
             raise ValueError("with_eval3d is a 3DGS render path")
         unported = [
             (self.sharded, "sharded", "parallel/"),
-            (self.pose_opt or self.pose_noise > 0.0, "pose_opt/pose_noise",
-             "eval3d/3DGUT remainders: training/modules.py"),
-            (self.app_opt, "app_opt", "eval3d/3DGUT remainders: training/modules.py"),
-            (self.use_bilateral_grid, "use_bilateral_grid", "remaining modules"),
-            (self.compression is not None, "compression", "remaining modules"),
             (not self.disable_viewer, "the viewer", "remaining modules"),
             # orbax imports JAX: the sharded torch-native container comes
             # with the sharded state

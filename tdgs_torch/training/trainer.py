@@ -32,6 +32,18 @@ points' depths, the monocular-normal loss (``load_normals``: each
 gaussian's differentiable normal against the normal map sampled at its
 projected centre), and the edge-aware depth smoothness with the total
 variation of the depth map's normals (``depth_normal_loss``).
+The optional modules (``Config.pose_opt``, ``pose_noise``, ``app_opt``,
+``use_bilateral_grid``) carry the JAX ``Runner``'s auxiliary state: a
+learnable per-image pose corrector (``training/modules.py``
+``CameraOptModule``, right-multiplied onto each training camera's
+camera-to-world pose, after the fixed ``pose_noise`` perturbation), an
+appearance module whose MLP colours each (camera, gaussian) from its
+``features`` and ``colors`` in place of SH, and per-image bilateral grids
+applied to the rendered RGB (``training/bilateral_grid.py``, with a total
+variation term); they train with their own Adam (β 0.9/0.999, eps 1e-15,
+no bias correction, no visibility mask). Eval with the grids also reports
+the colour-corrected ``cc_*`` metrics, and ``run_compression`` scores the
+PNG compression's round trip (``compression/``).
 Gaussian state is the JAX package's fixed-capacity layout (dead rows
 padded), and capacity may double between steps (``maybe_grow_capacity``).
 Everything runs eagerly in PyTorch on the runner's device; random draws
@@ -65,7 +77,9 @@ from tdgs_torch.segmentation import head as seg_head_mod
 from tdgs_torch.segmentation import losses as seg_losses
 from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
 from tdgs_torch.strategy.ops import pad_rows, tree_map
+from tdgs_torch.training import bilateral_grid as BG
 from tdgs_torch.training import losses as L
+from tdgs_torch.training import modules as M
 from tdgs_torch.training import normal_losses as NL
 from tdgs_torch.training.config import Config
 from tdgs_torch.training.metrics import lpips, lpips_impl
@@ -184,6 +198,7 @@ class Runner:
             self.seg_head = seg_head_mod.init_segmentation_head(
                 self.generator, cfg.identity_dim, 64, cfg.identity_dim, device=self.device)
             self.seg_opt_state = self._zero_head_moments()
+        self._init_aux(len(self.trainset))
         self.strategy = cfg.strategy
         self.strategy.check_sanity(self.splats)
         if isinstance(self.strategy, MCMCStrategy):
@@ -220,7 +235,80 @@ class Runner:
             init_opacity=cfg.init_opa, init_scale_mult=cfg.init_scale,
             n_max=max(capacity, n_init),
             identity_dim=cfg.identity_dim if cfg.with_segmentation else 0,
+            feature_dim=cfg.feature_dim if cfg.app_opt else 0,
         )
+
+    def _init_aux(self, n_images: int) -> None:
+        """The auxiliary modules of ``tdgs/training/trainer.py:196-244``:
+        the pose corrector at zero (lr ``pose_opt_lr``), the fixed pose
+        perturbation N(0, ``pose_noise``²) that never trains, the bilateral
+        grids at identity (lr 2e-3) and the appearance module (embeddings
+        at ``app_opt_lr``·√B·10, the MLP at ``app_opt_lr``·√B), with zero
+        Adam moments."""
+        cfg, dev = self.cfg, self.device
+        self.camera_opt = self.app_module = self.bilagrid = self._pose_perturb = None
+        self.aux_lrs: Dict[str, float] = {}
+        if cfg.pose_opt:
+            self.camera_opt = M.CameraOptModule(n_images, device=dev)
+            self.aux_lrs["pose"] = cfg.pose_opt_lr
+        if cfg.pose_noise > 0.0:
+            self._pose_perturb = M.CameraOptModule(
+                n_images, std=cfg.pose_noise, generator=self.generator,
+                device=dev).embeds.detach()
+        if cfg.use_bilateral_grid:
+            gw, gh, gg = cfg.bilateral_grid_shape
+            self.bilagrid = torch.nn.Parameter(
+                BG.init_bilateral_grid(n_images, gw, gh, gg, device=dev))
+            self.aux_lrs["bilagrid"] = 2e-3
+        if cfg.app_opt:
+            self.app_module = M.AppearanceOptModule(
+                n_images, cfg.feature_dim, embed_dim=cfg.app_embed_dim,
+                sh_degree=cfg.sh_degree, generator=self.generator, device=dev)
+            bs_scale = math.sqrt(cfg.batch_size)
+            self.aux_lrs["app_embeds"] = cfg.app_opt_lr * bs_scale * 10.0
+            self.aux_lrs["app_mlp"] = cfg.app_opt_lr * bs_scale
+        self.aux_opt_state = {part: tree_map(torch.zeros_like, self.aux_params())
+                              for part in ("mu", "nu")}
+
+    def aux_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The auxiliary parameters by Adam group, under the JAX Runner's
+        ``aux_params`` keys: ``pose`` {embeds}, ``bilagrid`` {grids},
+        ``app_embeds`` {embeds}, ``app_mlp`` {the MLP's layers}."""
+        groups = {}
+        if self.camera_opt is not None:
+            groups["pose"] = {"embeds": self.camera_opt.embeds}
+        if self.bilagrid is not None:
+            groups["bilagrid"] = {"grids": self.bilagrid}
+        if self.app_module is not None:
+            groups["app_embeds"] = {"embeds": self.app_module.embeds}
+            groups["app_mlp"] = dict(self.app_module.linears.named_parameters())
+        return groups
+
+    @torch.no_grad()
+    def load_aux_state(self, params: Dict[str, Dict[str, torch.Tensor]],
+                       opt_state: Optional[Dict] = None) -> None:
+        """Set the auxiliary parameters (and their Adam moments) from groups
+        shaped as ``aux_params()`` (``convert.aux_params_from_numpy``)."""
+        for group, ps in self.aux_params().items():
+            for name, p in ps.items():
+                p.copy_(params[group][name])
+        if opt_state is not None:
+            self.aux_opt_state = tree_map(lambda x: x.to(self.device).clone(), opt_state)
+
+    @torch.no_grad()
+    def _aux_update(self, grads: Dict[str, Dict[str, Optional[torch.Tensor]]]) -> None:
+        """The aux Adam of ``tdgs/training/trainer.py:919-939``: β 0.9/0.999,
+        ``p − lr·m/(√v + 1e-15)``, no bias correction, every row."""
+        mu, nu = self.aux_opt_state["mu"], self.aux_opt_state["nu"]
+        for group, params in self.aux_params().items():
+            lr = self.aux_lrs[group]
+            for name, p in params.items():
+                g = grads[group][name]
+                if g is None:
+                    g = torch.zeros_like(p)
+                mu[group][name] = 0.9 * mu[group][name] + 0.1 * g
+                nu[group][name] = 0.999 * nu[group][name] + 0.001 * g * g
+                p.sub_(lr * mu[group][name] / (torch.sqrt(nu[group][name]) + 1e-15))
 
     def _zero_head_moments(self):
         params = self.seg_head.params()
@@ -231,26 +319,37 @@ class Runner:
     def rasterize_splats(self, params, viewmats, Ks, width, height, sh_degree,
                          means2d_offset=None, means2d_abs_tap=None,
                          backgrounds=None, render_mode="RGB",
-                         rasterizer: Optional[str] = None, override_features=None):
+                         rasterizer: Optional[str] = None, override_features=None,
+                         image_ids=None):
         """Render ``params`` to the cameras; ``rasterizer`` defaults to the
         config's (``"auto"`` is the differentiable ``"packed"``). With
         ``with_eval3d`` every render is ``"eval3d_packed"``, and the
         screen-space taps are dropped: that render never reads means2d.
         ``override_features`` [N, D] are rendered in place of the SH colours
         (the identity render), through the 3DGS rasterization for every
-        model type."""
+        model type. With ``app_opt`` the colours are the appearance
+        module's per camera, sigmoid(MLP + ``colors``) [C, N, 3], with the
+        view directions from the camera centres −Rᵀt and the embeddings of
+        ``image_ids`` (None: zero embeddings, as eval renders)."""
         cfg = self.cfg
         means, quats, scales, opacities, sh = G.splat_activations(params)
         colors, sh_deg = sh, sh_degree
         if override_features is not None:
             colors, sh_deg = override_features, None
+        elif self.app_module is not None:
+            R, t = viewmats[..., :3, :3], viewmats[..., :3, 3]
+            campos = -torch.einsum("...kj,...k->...j", R, t).reshape(-1, 3)
+            dirs = means[None, :, :] - campos[:, None, :]  # [C, N, 3]
+            colors = self.app_module(params["features"], image_ids, dirs, sh_degree)
+            colors = torch.sigmoid(colors + params["colors"][None])
+            sh_deg = None
         if rasterizer is None:
             rasterizer = "packed" if cfg.rasterizer == "auto" else cfg.rasterizer
         if cfg.model_type == "2dgs" and override_features is None:
             # eval and render only: the 2DGS train step renders in _loss_2dgs
             out = rasterization_2dgs(
-                means, quats, scales, opacities, sh, viewmats, Ks, width, height,
-                sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+                means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+                sh_degree=sh_deg, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
                 render_mode=render_mode, backgrounds=backgrounds,
                 tile_capacity=cfg.tile_capacity, isect_capacity=cfg.isect_capacity,
                 max_tiles_per_gauss=cfg.max_tiles_per_gauss, isect_exact=cfg.isect_exact,
@@ -283,7 +382,13 @@ class Runner:
         step's CGC loss (``batch["instance_mask"]``) and spatial
         regularizer (see ``_seg_step``); the loss returned includes their
         terms, which aux["seg_terms"] holds, and with ``seg_quality``
-        aux["cluster_quality"] the (intra, inter) of the first image."""
+        aux["cluster_quality"] the (intra, inter) of the first image.
+        With the auxiliary modules the cameras of ``batch["image_id"]`` are
+        perturbed and corrected before the render (``c2w = inv(viewmat)``,
+        the fixed perturbation, the corrector, ``inv`` back), the render's
+        RGB goes through the bilateral grids, the loss adds ``tvloss``,
+        ``posereg`` and ``appreg`` (3DGS), and the aux Adam updates the
+        modules."""
         cfg = self.cfg
         images = batch["image"]
         B, H, W = images.shape[:3]
@@ -313,6 +418,16 @@ class Runner:
         if use_seg or use_spatial:
             seg_grads, seg_terms, cq = self._seg_step(params, batch, sh_degree, use_seg,
                                                       use_spatial, seg_quality)
+        aux_groups = self.aux_params()
+        image_ids = batch.get("image_id")
+        if self._pose_perturb is not None or self.camera_opt is not None:
+            # tdgs/training/trainer.py:625-642
+            c2w = torch.linalg.inv(batch["viewmat"])
+            if self._pose_perturb is not None:
+                c2w = M.apply_camera_opt(self._pose_perturb, c2w, image_ids)
+            if self.camera_opt is not None:
+                c2w = self.camera_opt(c2w, image_ids)
+            batch = dict(batch, viewmat=torch.linalg.inv(c2w))
         terms, depth = {}, None
         if cfg.model_type == "2dgs":
             loss, meta = self._loss_2dgs(params, batch, step, sh_degree, tap, abs_tap,
@@ -322,13 +437,22 @@ class Runner:
             img, _, meta = self.rasterize_splats(
                 params, batch["viewmat"], batch["K"], W, H, sh_degree,
                 means2d_offset=tap, means2d_abs_tap=abs_tap, backgrounds=backgrounds,
-                render_mode=render_mode)
+                render_mode=render_mode, image_ids=image_ids)
             if "mask" in batch:
                 img = img * batch["mask"][..., None]
-            loss = terms["rgbloss"] = L.d_ssim_l1_loss(img[..., :3], images, cfg.ssim_lambda)
+            rgb = img[..., :3]
+            if self.bilagrid is not None:
+                rgb = BG.bilateral_grid_slice(self.bilagrid, image_ids, rgb)
+            terms["rgbloss"] = L.d_ssim_l1_loss(rgb, images, cfg.ssim_lambda)
+            if self.bilagrid is not None:
+                terms["tvloss"] = 10.0 * BG.total_variation_loss(self.bilagrid)
+            if self.camera_opt is not None:
+                terms["posereg"] = cfg.pose_opt_reg * M.camera_opt_reg(self.camera_opt.embeds)
+            if self.app_module is not None:
+                terms["appreg"] = cfg.app_opt_reg * (self.app_module.embeds ** 2).mean()
             for k, v in self._depth_normal_terms(params, batch, step, img, meta).items():
-                loss = loss + v
                 terms[k] = v
+            loss = sum(terms.values())
             if cfg.save_depth_normal_vis and img.shape[-1] > 3:
                 depth = img[..., 3:].detach()
         if cfg.opacity_reg > 0:
@@ -339,14 +463,21 @@ class Runner:
             loss = loss + terms["scalereg"]
 
         names = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in names] + taps,
-                                    allow_unused=True)
+        aux_leaves = [(group, name, p) for group, ps in aux_groups.items()
+                      for name, p in ps.items()]
+        grads = torch.autograd.grad(
+            loss, [params[k] for k in names] + taps + [p for _, _, p in aux_leaves],
+            allow_unused=True)
         g_params = {k: (g if g is not None else torch.zeros_like(params[k]))
                     for k, g in zip(names, grads)}
         for k, g in seg_grads.items():
             # summed before the one Adam update: the fused loss's gradient
             g_params[k] = g_params[k] + g
-        g_taps = grads[len(names):]
+        g_taps = grads[len(names):len(names) + len(taps)]
+        g_aux = {group: {} for group in aux_groups}
+        for (group, name, _), g in zip(aux_leaves, grads[len(names) + len(taps):]):
+            g_aux[group][name] = g
+        self._aux_update(g_aux)
 
         radii = meta["radii"]
         visibility = (radii > 0).all(-1).any(dim=tuple(range(radii.dim() - 2)))
@@ -502,6 +633,8 @@ class Runner:
                                device=dev)
             for k, src in (("image", "image"), ("viewmat", "viewmat"), ("K", "K"))
         }
+        # the training set's indices: the rows of the per-image modules
+        batch["image_id"] = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
         if all("mask" in it for it in items):
             batch["mask"] = torch.as_tensor(np.stack([it["mask"] for it in items]),
                                             dtype=torch.float32, device=dev)
@@ -647,10 +780,14 @@ class Runner:
     @torch.no_grad()
     def eval(self, step: int, stage: str = "val") -> Dict[str, Any]:
         """PSNR, SSIM and LPIPS over the test views, rendered by the
-        forward-only ``packed_inference`` rasterizer; writes
+        forward-only ``packed_inference`` rasterizer (the appearance
+        module's colours with zero embeddings); writes
         stats/{stage}_step{step}.json. LPIPS is learned with local weights
         (key ``lpips``), else the random-filter proxy (``lpips_proxy``, not
-        comparable to learned values); ``lpips_impl`` names it."""
+        comparable to learned values); ``lpips_impl`` names it. With the
+        bilateral grids also ``cc_psnr``, ``cc_ssim`` and ``cc_`` + the
+        LPIPS key, scored after the least-squares colour correction
+        (``bilateral_grid.color_correct``)."""
         cfg = self.cfg
         metrics = defaultdict(list)
         impl = lpips_impl(cfg.lpips_net)
@@ -673,6 +810,12 @@ class Runner:
             metrics["psnr"].append(float(L.psnr(pred, gt)))
             metrics["ssim"].append(float(L.ssim(pred[None], gt[None])))
             metrics[lpips_key].append(float(lpips(pred[None], gt[None], net=cfg.lpips_net)[0]))
+            if cfg.use_bilateral_grid:
+                cc = BG.color_correct(pred, gt)
+                metrics["cc_psnr"].append(float(L.psnr(cc, gt)))
+                metrics["cc_ssim"].append(float(L.ssim(cc[None], gt[None])))
+                metrics[f"cc_{lpips_key}"].append(
+                    float(lpips(cc[None], gt[None], net=cfg.lpips_net)[0]))
             if cfg.tb_save_image:
                 from tdgs_torch.utils.png import write_png
 
@@ -824,6 +967,27 @@ class Runner:
         out = os.path.join(ply_dir, f"point_cloud_{step}.ply")
         save_ply(out, *(s[k] for k in main), extra=extra or None)
         return out
+
+    def run_compression(self, step: int) -> Dict[str, Any]:
+        """Compress the alive splats (``compression.PngCompression``, its
+        K-means on the runner's device) into result_dir/compression,
+        decompress them and eval the round trip as stage ``compress``
+        (stats/compress_step{step}.json); the splats are left as they
+        were."""
+        from tdgs_torch.compression import PngCompression
+
+        compress_dir = os.path.join(self.cfg.result_dir, "compression")
+        keep = G.alive_mask(self.splats)
+        method = PngCompression(device=self.device)
+        method.compress(compress_dir, {k: v[keep].detach().cpu().numpy()
+                                       for k, v in self.splats.items()})
+        orig = self.splats
+        try:
+            self.splats = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                           for k, v in method.decompress(compress_dir).items()}
+            return self.eval(step, stage="compress")
+        finally:
+            self.splats = orig
 
     def maybe_grow_capacity(self) -> bool:
         """Double the capacity (up to ``max_capacity``) when the alive share

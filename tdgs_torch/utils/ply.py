@@ -1,5 +1,6 @@
 """Gaussian-splat PLY I/O (numpy copy of ``tdgs/utils/ply.py`` save_ply /
-load_ply, so the port never imports the JAX package).
+load_ply and ``morton_sort_centers``, so the port never imports the JAX
+package).
 
 Binary little-endian PLY in the standard 3DGS layout:
 x y z nx ny nz f_dc_0..2 f_rest_* opacity scale_0..2 rot_0..3, raw
@@ -11,6 +12,27 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+
+
+def morton_sort_centers(means: np.ndarray) -> np.ndarray:
+    """The order of ``means`` [N, 3] along a Morton (Z-order) curve over
+    their bounding box at 10 bits an axis: indices, numpy's ``argsort`` of
+    the codes, as the JAX package takes it."""
+    lo = means.min(axis=0)
+    hi = means.max(axis=0)
+    q = ((means - lo) / np.maximum(hi - lo, 1e-12) * 1023).astype(np.uint32)
+
+    def spread(x):
+        x = x.astype(np.uint64)
+        x = (x | (x << 16)) & np.uint64(0x030000FF)
+        x = (x | (x << 8)) & np.uint64(0x0300F00F)
+        x = (x | (x << 4)) & np.uint64(0x030C30C3)
+        x = (x | (x << 2)) & np.uint64(0x09249249)
+        return x
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) | (
+        spread(q[:, 2]) << np.uint64(2))
+    return np.argsort(code)
 
 
 def save_ply(

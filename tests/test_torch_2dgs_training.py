@@ -158,10 +158,15 @@ def test_reference_differs_without_the_fix():
 
 
 def test_unported_2dgs_rasterizer_raises():
+    """The dense "jax" is ported (tests/test_torch_dense_rasterizers.py holds
+    it against the JAX package): it renders; a name the JAX package does not
+    have raises, and so does the AbsGS tap on the forward-only path."""
     s = _scene(603, N=4, C=1)
     args = [s[k] for k in LEAVES + ("viewmats", "Ks")]
-    with pytest.raises(NotImplementedError, match="rasterize_2dgs_jax"):
-        t_render(*args, 48, 32, rasterizer="jax", device="cpu")
+    out = t_render(*args, 48, 32, rasterizer="jax", device="cpu", **KW)
+    assert out[0].shape == (1, 32, 48, 3) and bool(torch.isfinite(out[0]).all())
+    with pytest.raises(ValueError, match="unknown rasterizer"):
+        t_render(*args, 48, 32, rasterizer="pallas", device="cpu")
     with pytest.raises(ValueError):
         t_render(*args, 48, 32, rasterizer="packed_inference", device="cpu",
                  means2d_abs_tap=torch.zeros((1, 4, 2)))

@@ -305,6 +305,13 @@ def test_image_fitting_cli_and_unported_2dgs(tmp_path, capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["rasterizer"] == "pallas" and not any(summary["launches"].values())
     assert os.path.getsize(out) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+    # surfels (tests/test_torch_dense_rasterizers.py holds them against the
+    # JAX example): the packed path by default, the dense "jax" on request
+    assert t_fit.main(["--height", "32", "--width", "32", "--num-points", "64",
+                       "--iterations", "3", "--device", "cpu", "--model-type", "2dgs"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["rasterizer"] == "packed" and summary["model_type"] == "2dgs"
+    assert summary["final_loss"] < summary["initial_loss"]
+    with pytest.raises(ValueError, match="does not fit 2dgs"):
         t_fit.fit(height=32, width=32, num_points=8, iterations=1, model_type="2dgs",
-                  device="cpu")
+                  rasterizer="pallas", device="cpu")

@@ -145,6 +145,9 @@ import tdgs_torch.segmentation, tdgs_torch.segmentation.head
 import tdgs_torch.segmentation.losses, tdgs_torch.rally_e2e, tdgs_torch.utils.golden
 import tdgs_torch.training.metrics, tdgs_torch.training.normal_losses
 import tdgs_torch.datasets.prefetch, tdgs_torch.datasets.traj, tdgs_torch.utils.viz
+import tdgs_torch.training.modules, tdgs_torch.training.bilateral_grid
+import tdgs_torch.compression, tdgs_torch.compression.png_compression
+import tdgs_torch.ops.rasterize_eval3d, tdgs_torch.ops.rasterize_2dgs_jax
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "tdgs"
              or m.startswith("tdgs.") or m == "optax" or m.startswith("optax."))

@@ -90,14 +90,18 @@ def test_rasterization_depth_only_and_batched_cameras():
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), atol=5 * ATOL)
 
 
-# "packed", "eval3d_packed", "jax" and "pallas" are ported; the dense jnp
-# "eval3d" is not
+# every rasterizer of the JAX package is ported, the dense jnp "eval3d" last:
+# it renders, and a name the JAX package does not have raises
 @pytest.mark.parametrize("rasterizer", ["eval3d"])
 def test_unported_rasterizers_raise(rasterizer):
     means, quats, scales, opac, sh, viewmats, Ks = _scene(502, N=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    img, alpha, meta = tdgs_torch.rasterization(means, quats, scales, opac, sh[:, 0],
+                                                viewmats, Ks, 64, 48, rasterizer=rasterizer,
+                                                device="cpu")
+    assert img.shape[-3:] == (48, 64, 3) and bool(torch.isfinite(img).all())
+    with pytest.raises(ValueError, match="unknown rasterizer"):
         tdgs_torch.rasterization(means, quats, scales, opac, sh[:, 0], viewmats,
-                                 Ks, 64, 48, rasterizer=rasterizer, device="cpu")
+                                 Ks, 64, 48, rasterizer=rasterizer + "_dense", device="cpu")
 
 
 def test_entry_point_defaults_to_cuda():

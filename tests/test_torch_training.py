@@ -426,9 +426,11 @@ def test_runner_config_raises_for_unported_features(tmp_path):
     base = Config(data_dir=str(tmp_path), result_dir=str(tmp_path / "r"))
     base.check_ported()
     dataclasses.replace(base, model_type="2dgs", normal_loss=True, dist_loss=True).check_ported()
-    for change in (dict(model_type="2dgs", sharded=True), dict(pose_opt=True),
-                   dict(app_opt=True), dict(sharded=True), dict(compression="png"),
-                   dict(use_bilateral_grid=True), dict(disable_viewer=False)):
+    for change in (dict(pose_opt=True, pose_noise=1e-3), dict(app_opt=True),
+                   dict(compression="png"), dict(use_bilateral_grid=True)):
+        dataclasses.replace(base, **change).check_ported()
+    for change in (dict(model_type="2dgs", sharded=True), dict(sharded=True),
+                   dict(disable_viewer=False)):
         with pytest.raises(NotImplementedError):
             dataclasses.replace(base, **change).check_ported()
     with pytest.raises(NotImplementedError, match="item 7"):
