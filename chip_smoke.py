@@ -22,8 +22,13 @@ modules on the rich scene (the pose corrector behind a fixed pose noise,
 the appearance module and the bilateral grids with the colour-corrected
 eval and the PNG compression's round trip; the pose corrector under
 3DGUT), the dense plain-tensor rasterizers (eval3d and 2DGS "jax") against
-kernels 5-8 on a window of the bench view, and the surfel image fit, and
-print one JSON line per phase.
+kernels 5-8 on a window of the bench view, and the surfel image fit, then
+the gaussian-sharded path of ``tdgs_torch.parallel`` (the trainer cell
+trained by two ranks sharing the card through ``torch.distributed.run``,
+its first loss against the single-rank Runner's and its sharded checkpoint
+read back; the bench scene seen by two cameras on a world of 2 ranks over
+gloo, kernels 1-10 through the exchange against the single-rank render,
+and on a world of 1 over NCCL), and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -1952,9 +1957,12 @@ def phase_rally_e2e(root, **chain_kw):
     """The chain at the JAX example's defaults (6 dominoes, 32 views of
     480x360, capacity 24k, 2000 steps, identity_dim 16; 90 frames at
     1920x1080, 240 Hz, 8 substeps), written under ``root``, no GIF. Fails
-    unless it finds one cluster and one body per domino, its kernel-vs-
-    float64 golden reaches 40 dB, the bodies move, the validation PSNR is
-    finite and each of kernels 1, 2 and 3 launched."""
+    unless it finds one cluster and one body per domino, each cluster of at
+    least a seventh of the gaussians the scene draws a domino with (100 of
+    700: a cluster of a few live rows is a domino lost to a neighbour's
+    cluster, not a body), its kernel-vs-float64 golden reaches 40 dB,
+    the bodies move, the validation PSNR is finite and each of kernels 1, 2
+    and 3 launched."""
     from tdgs_torch.rally_e2e import run_chain
 
     torch.cuda.synchronize()
@@ -1965,10 +1973,13 @@ def phase_rally_e2e(root, **chain_kw):
     launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
     emit("rally_e2e", launches=launches, **summary)
     n = summary["n_dominoes"]
+    min_cluster = chain_kw.get("gauss_per_domino", 700) // 7
     failures = [
         (summary["clusters_found"] == summary["clusters_expected"] == n,
          f"clusters {summary['clusters_found']} of {n}"),
         (summary["n_bodies"] == n, f"bodies {summary['n_bodies']} of {n}"),
+        (min(summary["cluster_sizes"], default=0) >= min_cluster,
+         f"cluster sizes {summary['cluster_sizes']}, a domino needs {min_cluster}"),
         (summary["kernel_vs_oracle_psnr"] >= 40.0,
          f"golden {summary['kernel_vs_oracle_psnr']} dB < 40"),
         (summary["max_body_displacement"] > 0.0, "no body moved"),
@@ -2691,7 +2702,350 @@ def phase_image_fitting_2dgs(min_iterations=1000):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sharded path (parallel/): worlds of ranks on the card
+# ---------------------------------------------------------------------------
+
+# name → (family, rasterizer, render mode, with the backward, its kernels)
+SHARDED_CASES = {
+    "3dgs_packed": ("3dgs", "packed", "RGB", True, KERNELS),
+    "3dgs_packed_inference": ("3dgs", "packed_inference", "RGB", False, (KERNEL,)),
+    "2dgs_packed": ("2dgs", "packed", "RGB+ED", True, (R2.KERNEL_TRAIN, R2.KERNEL_BWD, S.KERNEL)),
+    "2dgs_packed_inference": ("2dgs", "packed_inference", "RGB", False, (R2.KERNEL_FWD,)),
+    "eval3d": ("eval3d", None, "RGB", True, (E.KERNEL_FWD, E.KERNEL_BWD, S.KERNEL)),
+    "pallas": ("3dgs", "pallas", "RGB", True, DENSE_KERNELS),
+}
+
+
+def sharded_scene(n, width, height):
+    """The bench scene seen by two cameras 0.3 apart along x."""
+    sc = bench_scene(n=n)
+    f = 1400.0
+    viewmats = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    viewmats[1, 0, 3] = 0.3
+    sc["viewmats"] = viewmats
+    sc["Ks"] = np.tile(np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]],
+                                np.float32), (2, 1, 1))
+    return sc
+
+
+def _sharded_outputs(kind, out):
+    """(the outputs a loss reads, meta) of a sharded render."""
+    if kind == "2dgs":
+        return out[:4], out[-1]
+    return out[:2], out[-1]
+
+
+def sharded_parity_rank(names, caps, setup, n_steps):
+    """One rank of ``parity_sharded``: each case's sharded render of this
+    rank's cameras from its block of the bench scene (forward, and the
+    backward of the outputs' means where the case trains), timed by CUDA
+    events over ``n_steps`` with its kernels' launches and the bytes it
+    hands to collectives; then the single-rank render of the same cameras
+    from every gaussian, whose gradients summed over the ranks are held
+    against the sharded ones."""
+    from tdgs_torch.parallel import comm, make_mesh
+    from tdgs_torch.parallel import sharded_render as SR
+    from tdgs_torch.utils.depth import rotate
+
+    device, W, H = setup["device"], setup["width"], setup["height"]
+    mesh = make_mesh(device=device)
+    D, r = mesh.world, mesh.rank
+    sc = {k: torch.as_tensor(v, device=mesh.device)
+          for k, v in sharded_scene(setup["n"], W, H).items()}
+    C, N = sc["viewmats"].shape[0], sc["means"].shape[0]
+    c, n = C // D, N // D
+    cams, rows = slice(r * c, (r + 1) * c), slice(r * n, (r + 1) * n)
+    vm, Ks = sc["viewmats"][cams], sc["Ks"][cams]
+    names_in = ("means", "quats", "scales", "opacities", "sh")
+    out = {"rank": r, "world": D, "backend": mesh.backend, "cases": {}}
+    for name in names:
+        kind, rasterizer, mode, train, kernels = SHARDED_CASES[name]
+        kw = dict(sh_degree=3, tile_capacity=1024, max_tiles_per_gauss=16, render_mode=mode,
+                  isect_capacity=caps.get(name))
+        if kind != "eval3d":
+            kw["rasterizer"] = rasterizer
+        if kind == "2dgs":
+            kw["distloss"] = train  # kernel 5's distortion, on both sides
+        local = [sc[k][rows].clone().requires_grad_(train) for k in names_in]
+        fn = {"3dgs": SR.rasterization_sharded, "2dgs": SR.rasterization_2dgs_sharded,
+              "eval3d": SR.rasterization_eval3d_sharded}[kind]
+
+        def step():
+            with torch.set_grad_enabled(train):
+                outs, meta = _sharded_outputs(kind, fn(*local, vm, Ks, W, H, mesh, **kw))
+                grads = (torch.autograd.grad(sum(o.mean() for o in outs), local)
+                         if train else None)
+            return outs, meta, grads
+
+        step()  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        comm.reset_exchanged()
+        ev = []
+        for _ in range(n_steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            outs, meta, grads = step()
+            e1.record()
+            ev.append((e0, e1))
+        torch.cuda.synchronize()
+        launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
+        exchanged = comm.EXCHANGED["bytes"] / n_steps
+        calls = comm.EXCHANGED["calls"] / n_steps
+        step_ms = [a.elapsed_time(b) for a, b in ev]
+
+        # the single-rank render of the same cameras, from every gaussian
+        full = [sc[k].clone().requires_grad_(train) for k in names_in]
+        skw = dict(kw, device=mesh.device)
+        with torch.set_grad_enabled(train):
+            if kind == "2dgs":
+                o = tdgs_torch.rasterization_2dgs(*full, vm, Ks, W, H, **skw)
+                souts, smeta = (o[0], o[1], rotate(vm[:, :3, :3], o[2]), o[4]), o[6]
+            else:
+                o = tdgs_torch.rasterization(*full, vm, Ks, W, H,
+                                             with_eval3d=kind == "eval3d", **skw)
+                souts, smeta = o[:2], o[2]
+            sgrads = (torch.autograd.grad(sum(x.mean() for x in souts), full)
+                      if train else None)
+        fwd = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(outs, souts))
+        finite = all(bool(torch.isfinite(a).all()) for a in outs)
+        bwd_rel = {}
+        if train:
+            for k, g, sg in zip(names_in, grads, sgrads):
+                want = comm.all_reduce_sum(sg)[rows]
+                finite = finite and bool(torch.isfinite(g).all())
+                bwd_rel[k] = float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        out["cases"][name] = dict(
+            step_ms=step_ms, step_ms_mean=float(np.mean(step_ms)), launches=launches,
+            exchanged_bytes_per_step=exchanged, collectives_per_step=calls,
+            max_abs_err=fwd, max_rel_err=bwd_rel, finite=finite,
+            n_dropped=int(meta["n_dropped"].sum()), single_n_dropped=int(smeta["n_dropped"]),
+            alpha_mean=float(outs[1].detach().mean()))
+    return out
+
+
+def phase_parity_sharded(n=200_000, n_steps=5):
+    """The sharded render (``parallel.sharded_render``) of the bench scene
+    (200k gaussians, SH 3, 1920x1080) seen by two cameras, on a world of 2
+    ranks sharing the card (gloo, by ``mesh.choose_backend``): 3DGS
+    "packed" (forward and backward) and "packed_inference", 2DGS "packed"
+    RGB+ED (forward and backward) and "packed_inference", eval3d (forward
+    and backward) and "pallas" (forward and backward), so that kernels 1-10
+    run through the exchange; each rank held against the single-rank render
+    of its camera (TOL, BWD_RTOL, n_dropped equal). Then 3DGS "packed" on a
+    world of 1 rank, whose backend is NCCL. Two ranks on one card measure
+    the exchange's cost, not scaling."""
+    from tdgs_torch.parallel import launch
+    from tdgs_torch.parallel.mesh import choose_backend
+
+    t0 = time.perf_counter()
+    setup = dict(device=DEVICE, width=WIDTH, height=HEIGHT, n=n)
+    sc = to_card(sharded_scene(n, WIDTH, HEIGHT))
+    caps = {"pallas": dense_capacity(sc)}
+    worlds = {}
+    for world, names in ((2, list(SHARDED_CASES)), (1, ["3dgs_packed"])):
+        ranks = launch.run(sharded_parity_rank, world, names, caps, setup, n_steps,
+                           device=DEVICE, timeout_s=600)
+        worlds[world] = ranks
+    wall = time.perf_counter() - t0
+    launches = {k: 0 for k in KERNELS + DENSE_KERNELS + (R2.KERNEL_FWD, R2.KERNEL_TRAIN,
+                                                         R2.KERNEL_BWD, E.KERNEL_FWD,
+                                                         E.KERNEL_BWD)}
+    errs = {k: {"fwd": 0.0, "bwd_rel": 0.0} for k in launches}
+    summary = {}
+    for world, ranks in worlds.items():
+        backend = ranks[0]["backend"]
+        want_backend = choose_backend(DEVICE, world)
+        for name in ranks[0]["cases"]:
+            kind, rasterizer, mode, train, kernels = SHARDED_CASES[name]
+            per_rank = [rk["cases"][name] for rk in ranks]
+            summary[f"w{world}/{name}"] = dict(
+                backend=backend, step_ms=[c["step_ms_mean"] for c in per_rank],
+                exchanged_bytes_per_step=[c["exchanged_bytes_per_step"] for c in per_rank],
+                collectives_per_step=per_rank[0]["collectives_per_step"],
+                max_abs_err=max(c["max_abs_err"] for c in per_rank),
+                max_rel_err=max([max(c["max_rel_err"].values(), default=0.0)
+                                 for c in per_rank]),
+                n_dropped=[c["n_dropped"] for c in per_rank],
+                single_n_dropped=[c["single_n_dropped"] for c in per_rank],
+                alpha_mean=[c["alpha_mean"] for c in per_rank],
+                launches=[c["launches"] for c in per_rank])
+            for c in per_rank:
+                if not c["finite"]:
+                    raise RuntimeError(f"parity_sharded {name}: non-finite output or gradient")
+                if c["n_dropped"] != c["single_n_dropped"]:
+                    raise RuntimeError(f"parity_sharded {name}: n_dropped {c['n_dropped']} "
+                                       f"!= single-rank {c['single_n_dropped']}")
+                if not c["max_abs_err"] <= TOL:
+                    raise RuntimeError(f"parity_sharded {name}: max abs err "
+                                       f"{c['max_abs_err']} > {TOL}")
+                worst = max(c["max_rel_err"].values(), default=0.0)
+                if not worst <= BWD_RTOL:
+                    raise RuntimeError(f"parity_sharded {name}: max rel err {worst} > "
+                                       f"{BWD_RTOL} ({c['max_rel_err']})")
+                for k in kernels:
+                    if c["launches"][k] < n_steps:
+                        raise RuntimeError(f"parity_sharded {name} launched {k} "
+                                           f"{c['launches'][k]} < {n_steps} times")
+                    launches[k] += c["launches"][k]
+                    errs[k]["fwd"] = max(errs[k]["fwd"], c["max_abs_err"])
+                    errs[k]["bwd_rel"] = max(errs[k]["bwd_rel"], worst)
+            if backend != want_backend:
+                raise RuntimeError(f"parity_sharded: world of {world} chose {backend}, "
+                                   f"the rule says {want_backend}")
+    emit("parity_sharded", width=WIDTH, height=HEIGHT, n_gaussians=n, cameras=2,
+         steps=n_steps, wall_s=wall, tol=TOL, bwd_rtol=BWD_RTOL, cases=summary,
+         launches=launches)
+    return launches, errs
+
+
+def trainer_sharded_config(root, n_steps, sharded, batch_size=2):
+    """The trainer cell's Runner (DefaultStrategy refining at 40 and 80) at
+    batch 2, sharded or on one device, the sharded checkpoint container."""
+    strategy = DefaultStrategy(refine_start_iter=20, refine_every=40,
+                               refine_stop_iter=1000, reset_every=10_000)
+    return Config(data_dir=root, result_dir=f"{root}/results_trainer_sharded_{int(sharded)}",
+                  data_factor=1, max_steps=n_steps, eval_steps=[], save_steps=[], sh_degree=3,
+                  sh_degree_interval=20, rasterizer="packed", tb_every=1, strategy=strategy,
+                  batch_size=batch_size, sharded=sharded, ckpt_format="orbax")
+
+
+def trees_equal(a, b) -> bool:
+    """Nested dicts of arrays and builtins equal bit for bit."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    return a == b
+
+
+def trainer_sharded_rank(args):
+    """One rank of ``trainer_sharded``, started by torch.distributed.run:
+    the sharded Runner trains, evaluates, saves the sharded checkpoint, and
+    a fresh sharded Runner loads it; writes rank{r}.json to args["out"]."""
+    from tdgs_torch.parallel import comm
+    from tdgs_torch.parallel.mesh import initialize_multihost
+
+    device = args["device"]
+    backend = initialize_multihost(device)
+    cfg = trainer_sharded_config(args["root"], args["n_steps"], True)
+    runner = Runner(cfg, device=device)
+    rank = runner.mesh.rank
+    sync = torch.cuda.synchronize if runner.device.type == "cuda" else (lambda: None)
+    _build.reset_launches()
+    comm.reset_exchanged()
+    sync()
+    t0 = time.perf_counter()
+    out = runner.train()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    exchanged = comm.EXCHANGED["bytes"] / args["n_steps"]
+    rgb = [json.loads(line)["train/rgbloss"]
+           for line in open(os.path.join(cfg.result_dir, "metrics.jsonl"))] if rank == 0 else []
+    _build.reset_launches()
+    stats = runner.eval(args["n_steps"])
+    eval_launches = _build.LAUNCHES.get(KERNEL, 0)
+    t1 = time.perf_counter()
+    path = runner.save_checkpoint(args["n_steps"])
+    save_s = time.perf_counter() - t1
+    saved = runner.state_numpy(args["n_steps"])
+    runner.trainset.close()
+    fresh = Runner(cfg, device=device)
+    step = fresh.load_checkpoint(path)
+    loaded = fresh.state_numpy(args["n_steps"])
+    fresh.trainset.close()
+    same = step == args["n_steps"] and trees_equal(saved, loaded)
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(path) for f in fs)
+    rec = dict(rank=rank, world=runner.mesh.world, backend=backend, wall_s=wall,
+               steps_per_s=args["n_steps"] / wall, history=out["history"], rgbloss=rgb,
+               launches=launches, exchanged_bytes_per_step=exchanged,
+               eval_psnr=stats["psnr"], eval_ssim=stats["ssim"], eval_num_gs=stats["num_GS"],
+               eval_launches=eval_launches, refines=runner.refines, capacity=runner.capacity,
+               ckpt_path=path, ckpt_bytes=ckpt_bytes, ckpt_save_s=save_s,
+               ckpt_roundtrip_bitwise=bool(same),
+               all_finite=all(bool(torch.isfinite(v).all()) for v in runner.splats.values()))
+    with open(os.path.join(args["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_trainer_sharded(root, n_steps=100):
+    """The trainer cell's rich scene (1236x822, 40k SfM points, capacity
+    160k) trained gaussian-sharded (``Config.sharded``) at batch 2 for
+    ``n_steps`` on two ranks sharing the card, started through
+    ``python -m torch.distributed.run --nproc-per-node 2``; the first
+    step's loss against the single-rank Runner at batch 2 (|Δ| ≤ 2e-4, the
+    JAX package's bound for its sharded step), the RGB loss dropping, a
+    finite eval, and the sharded checkpoint saved and read back bitwise by
+    a new sharded Runner. The single-rank Runner trains the same
+    ``n_steps`` first, for its steps/s and eval beside the sharded ones."""
+    single = Runner(trainer_sharded_config(root, n_steps, False), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist_single = single.train()["history"]
+    torch.cuda.synchronize()
+    wall_single = time.perf_counter() - t0
+    stats_single = single.eval(n_steps)
+    single.close()
+    loss_single = hist_single[0]["loss"]
+    out_dir = tempfile.mkdtemp(prefix="tdgs_trainer_sharded_")
+    args = dict(root=root, n_steps=n_steps, device=DEVICE, out=out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "2", os.path.abspath(__file__), "--trainer-sharded-rank", json.dumps(args)],
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"trainer_sharded: torch.distributed.run exited {proc.returncode}:"
+                           f"\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    hist, rgb = r0["history"], r0["rgbloss"]
+    launches = {k: sum(rk["launches"][k] for rk in ranks) for k in KERNELS}
+    delta = abs(hist[0]["loss"] - loss_single)
+    emit("trainer_sharded", ranks=2, backend=r0["backend"], steps=n_steps,
+         wall_s_with_launch=wall, steps_per_s=r0["steps_per_s"],
+         steps_per_s_ranks=[rk["steps_per_s"] for rk in ranks], capacity=r0["capacity"],
+         loss_first=hist[0], loss_first_single_rank=loss_single, loss_first_delta=delta,
+         loss_last=hist[-1], rgbloss_first=rgb[0], rgbloss_last=rgb[-1],
+         single_rank=dict(steps_per_s=n_steps / wall_single, loss_last=hist_single[-1],
+                          eval_psnr=stats_single["psnr"], eval_ssim=stats_single["ssim"],
+                          eval_num_gs=stats_single["num_GS"]),
+         refines=r0["refines"], launches=launches,
+         exchanged_bytes_per_step=[rk["exchanged_bytes_per_step"] for rk in ranks],
+         eval_psnr=r0["eval_psnr"], eval_ssim=r0["eval_ssim"], eval_num_gs=r0["eval_num_gs"],
+         eval_launches=[rk["eval_launches"] for rk in ranks], ckpt_bytes=r0["ckpt_bytes"],
+         ckpt_save_s=r0["ckpt_save_s"],
+         ckpt_roundtrip_bitwise=[rk["ckpt_roundtrip_bitwise"] for rk in ranks],
+         all_finite=all(rk["all_finite"] for rk in ranks))
+    if not delta <= 2e-4:
+        raise RuntimeError(f"trainer_sharded: first-step loss {hist[0]['loss']} vs single-rank "
+                           f"{loss_single}: |Δ| {delta} > 2e-4")
+    if not rgb[-1] < rgb[0]:
+        raise RuntimeError(f"trainer_sharded: RGB loss did not drop {rgb[0]} -> {rgb[-1]}")
+    if not (np.isfinite(r0["eval_psnr"]) and all(rk["all_finite"] for rk in ranks)):
+        raise RuntimeError("trainer_sharded: non-finite eval or params")
+    if not all(rk["ckpt_roundtrip_bitwise"] for rk in ranks):
+        raise RuntimeError("trainer_sharded: the sharded checkpoint did not read back bitwise")
+    refined = [r["step"] for r in r0["refines"]]
+    if 40 not in refined or 80 not in refined:
+        raise RuntimeError(f"trainer_sharded: the strategy refined at {refined}, not 40 and 80")
+    for k in KERNELS:
+        if launches[k] < n_steps:
+            raise RuntimeError(f"trainer_sharded launched {k} {launches[k]} < {n_steps} times")
+    return launches
+
+
 def main():
+    if sys.argv[1:2] == ["--trainer-sharded-rank"]:
+        # one rank of phase_trainer_sharded, under torch.distributed.run
+        return trainer_sharded_rank(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2756,8 +3110,10 @@ def main():
         aux_launches = phase_trainer_aux(root, scene_s)
         phase_trainer_aux_pose_lr(root)
         pose_3dgut_launches = phase_trainer_aux(root, scene_s, "3dgut")
+        trainer_sharded_launches = phase_trainer_sharded(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    sharded_launches, sharded_errs = phase_parity_sharded()
     errs_ref = phase_parity_dense_reference(bench)
     fitting_2dgs_launches = phase_image_fitting_2dgs()
     root_e2e = tempfile.mkdtemp(prefix="tdgs_rally_e2e_")
@@ -2818,6 +3174,17 @@ def main():
         R2.KERNEL_BWD: dict(image_fitting_2dgs_launches=fitting_2dgs_launches[R2.KERNEL_BWD],
                             dense_reference_max_rel_err=max(ref_2d["bwd_rel"].values())),
     }
+
+    # the sharded path (parity_sharded: every kernel through the exchange;
+    # trainer_sharded: kernels 1-3), held against the single-rank render
+    for name, n in sharded_launches.items():
+        fields = new_fields.setdefault(name, {})
+        fields.update(parity_sharded_launches=n,
+                      parity_sharded_max_abs_err=sharded_errs[name]["fwd"])
+        if sharded_errs[name]["bwd_rel"]:
+            fields["parity_sharded_max_rel_err"] = sharded_errs[name]["bwd_rel"]
+    for name in KERNELS:
+        new_fields[name]["trainer_sharded_launches"] = trainer_sharded_launches[name]
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7

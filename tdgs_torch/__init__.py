@@ -2,8 +2,8 @@
 
 The JAX package ``tdgs`` stays the reference; this package mirrors its
 layout (``ops/``, ``physics/``, ``models/``, ``strategy/``, ``training/``,
-``datasets/``, ``utils/``, ``rendering.py``, ``pipeline.py``) and never
-imports it or JAX. Plain tensor code is
+``datasets/``, ``utils/``, ``parallel/``, ``rendering.py``, ``pipeline.py``)
+and never imports it or JAX. Plain tensor code is
 PyTorch; each Pallas kernel of the JAX package becomes a hand-written CUDA
 kernel under ``csrc/``, built by ``nvcc`` on first use.
 

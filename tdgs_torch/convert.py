@@ -15,7 +15,9 @@ segmentation the ``identity_encodings`` among the splats and the
 parameters (``means``, ``scales``, ``quats``, ``opacities``, ``colors``)
 go across with ``image_fitting_params_from_numpy`` and back with
 ``image_fitting_params_to_numpy``. LPIPS filter banks go across with
-``lpips_filters_from_numpy``. The ``Runner``'s auxiliary modules go
+``lpips_filters_from_numpy``. ``shard_rows`` cuts any such tree to one
+rank's block of the gaussian rows, for the sharded ``Runner``. The
+``Runner``'s auxiliary modules go
 across with ``aux_params_from_numpy`` / ``aux_params_to_numpy`` (the JAX
 ``Runner``'s ``aux_params``: ``pose`` [n, 9], ``bilagrid``
 [n, gh, gw, gg, 12], ``app_embeds`` [n, E] and ``app_mlp`` with ``w{i}``
@@ -205,6 +207,24 @@ def runner_state_to_numpy(state: Mapping[str, Any]) -> Dict:
     out = {k: tree_to_numpy(dict(state[k])) for k in _STATE_KEYS if k in state}
     out["step"] = int(state["step"])
     return out
+
+
+def shard_rows(tree: Any, rank: int, world: int, capacity: int) -> Any:
+    """One rank's block of a tree of arrays (the JAX package's parameters,
+    Adam moments or strategy state, as numpy): every array whose leading
+    axis is ``capacity`` cut to rows ``[rank·n, (rank + 1)·n)``, n =
+    capacity / world, as ``NamedSharding(P("gauss"))`` lays them out;
+    anything else whole."""
+    if capacity % world:
+        raise ValueError(f"capacity {capacity} does not divide over {world} ranks")
+    n = capacity // world
+
+    def cut(x):
+        if getattr(x, "ndim", 0) >= 1 and x.shape[0] == capacity:
+            return x[rank * n:(rank + 1) * n]
+        return x
+
+    return tree_map(cut, tree)
 
 
 def adam_state_from_numpy(state: Any, device: DeviceLike = None) -> SelectiveAdamState:

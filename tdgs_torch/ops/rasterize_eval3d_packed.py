@@ -421,9 +421,32 @@ def rasterize_to_pixels_eval3d_packed(
         I, tw, th, tile_size, image_width, image_height, viewmats, Ks, camera_model,
         radial_coeffs, tangential_coeffs, thin_prism_coeffs, ftheta_coeffs,
         rolling_shutter, viewmats_rs)
+    feats = feature_rows(means, quats, scales, opacities, colors, o_ref)
+    return rasterize_feature_rows(feats, d, o, offsets, flatten_ids, I, D, image_width,
+                                  image_height, tile_size, backgrounds, tile_capacity)
+
+
+def rasterize_feature_rows(
+    feats: torch.Tensor,  # [I·N, 13 + D] (feature_rows)
+    d: torch.Tensor,  # [T, P, 3] (tile_rays_world)
+    o: Optional[torch.Tensor],  # [T, P, 3] or None
+    offsets: torch.Tensor,  # [T + 1] int32
+    flatten_ids: torch.Tensor,  # [L] int32 → indices into I·N
+    n_images: int,
+    D: int,
+    image_width: int,
+    image_height: int,
+    tile_size: int,
+    backgrounds: Optional[torch.Tensor] = None,  # [I, D]
+    tile_capacity: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The world-space rasterization of per-gaussian feature rows already
+    built (``rasterize_to_pixels_eval3d_packed`` after ``feature_rows``;
+    the sharded path builds the rows before its exchange) → (colors
+    [I, H, W, D], alphas [I, H, W, 1])."""
+    I = n_images
     d = d.contiguous()
     o = None if o is None else o.contiguous()
-    feats = feature_rows(means, quats, scales, opacities, colors, o_ref)
     bg = None if backgrounds is None else backgrounds.reshape(I, D).contiguous()
     grads = torch.is_grad_enabled() and (
         feats.requires_grad or d.requires_grad or (o is not None and o.requires_grad))

@@ -3,7 +3,8 @@
 
   procedural multi-view domino dataset (COLMAP + instance masks)
     → 3DGS training with identity-vector segmentation (MCMC, "packed")
-    → K-means clustering of the identity encodings (anchor-initialized)
+    → K-means clustering of the live rows' identity encodings
+      (anchor-initialized)
     → PLY export/import round trip
     → rigid-body extraction, settled on the ground, the first domino pushed
     → the physics/render rally at 1920x1080 on a tiling plan derived from
@@ -13,8 +14,9 @@
 and prints one JSON summary with the JAX example's keys (the reference
 oracle's ``reference_chain_psnr`` is left out: that oracle loads an
 upstream checkout this repository does not have) plus the port's own:
-``stage_s``, ``train_steps_per_s``, ``seg_steps``, ``isect_plan``,
-``exact_coverage_fallback``, ``device``.
+``stage_s``, ``train_steps_per_s``, ``seg_steps``, ``cluster_sizes``,
+``isect_plan``, ``exact_coverage_fallback``, ``device``. Unlike the
+example, the K-means sees only the live rows (``cluster_live_rows``).
 
     python -m tdgs_torch.rally_e2e --json rally.json
 
@@ -113,6 +115,44 @@ def golden_psnr(splats, sh, sh_degree, viewmat, K, width, height, background, pl
         meta["tile_height"], background=np.full((3,), background),
         n_isects=meta["n_isects"])
     return psnr_np(np.clip(host(img[0]), 0, 1), np.clip(oracle, 0, 1))
+
+
+def clustering_inputs(runner: Runner):
+    """What the chain clusters, from a trained ``runner``: the identity
+    maps and instance masks of four spread training views stacked
+    (one view can hide the rear dominoes behind the front ones and starve
+    their anchors of pixels), the head's features of every row and every
+    row's opacity → (identity map, instance mask, features, opacities)."""
+    n_views = len(runner.trainset)
+    view_ids = sorted({0, n_views // 4, n_views // 2, 3 * n_views // 4})
+    identity_map = np.concatenate([runner.render_identity_map(v) for v in view_ids], axis=0)
+    instance_mask = np.concatenate(
+        [np.asarray(runner.trainset[v]["instance_mask"]) for v in view_ids], axis=0)
+    with torch.no_grad():
+        feats = apply_segmentation_head(runner.seg_head,
+                                        runner.splats["identity_encodings"])
+    opac = torch.sigmoid(runner.splats["opacities"]).cpu().numpy()
+    return identity_map, instance_mask, feats, opac
+
+
+def cluster_live_rows(identity_map, instance_mask, feats, opacities,
+                      min_opacity: float = 0.05, device: DeviceLike = None) -> Dict[str, Any]:
+    """``kmeans_identity_encodings_background`` over the rows whose opacity
+    reaches ``min_opacity``; every other row is background (label −1).
+
+    The JAX example clusters every row and drops the faint ones after. Its
+    capacity's unused MCMC rows (about two thirds of the chain's 24k) share
+    one encoding, so they pull one anchor's centroid onto it, and that
+    domino's gaussians join a neighbour's cluster: the chain then finds a
+    "cluster" of a few live rows where a domino should be."""
+    live = np.flatnonzero(np.asarray(opacities) >= min_opacity)
+    if isinstance(feats, torch.Tensor):
+        feats = feats.detach().cpu().numpy()
+    res = kmeans_identity_encodings_background(identity_map, instance_mask, feats[live],
+                                               device=device)
+    labels = np.full(len(opacities), -1, res["labels"].dtype)
+    labels[live] = res["labels"]
+    return {**res, "labels": labels}
 
 
 def chain_config(data_dir: str, out_dir: str, steps: int = 2000, capacity: int = 24_000,
@@ -219,29 +259,16 @@ def run_chain(
     # ---- 3. cluster identity encodings (anchor K-means + bg outliers) ----
     t0 = time.perf_counter()
     print("[3/5] clustering identity encodings", flush=True)
-    # several spread views: one view can hide the rear dominoes behind the
-    # front ones and starve their anchors of pixels
-    n_views = len(runner.trainset)
-    view_ids = sorted({0, n_views // 4, n_views // 2, 3 * n_views // 4})
-    identity_map = np.concatenate([runner.render_identity_map(v) for v in view_ids], axis=0)
-    instance_mask = np.concatenate(
-        [np.asarray(runner.trainset[v]["instance_mask"]) for v in view_ids], axis=0)
-    with torch.no_grad():
-        feats = apply_segmentation_head(runner.seg_head,
-                                        runner.splats["identity_encodings"])
-    res = kmeans_identity_encodings_background(identity_map, instance_mask, feats,
-                                               device=dev)
-    # dead MCMC rows carry no geometry: keep them out of the bodies
-    opac = torch.sigmoid(runner.splats["opacities"]).cpu().numpy()
-    labels = res["labels"].copy()
-    labels[opac < 0.05] = -1
-    res["labels"] = labels
+    identity_map, instance_mask, feats, opac = clustering_inputs(runner)
+    res = cluster_live_rows(identity_map, instance_mask, feats, opac, device=dev)
+    labels = res["labels"]
     clusters_path = os.path.join(out_dir, "cluster_groups.npz")
     save_cluster_groups(clusters_path, res)
-    n_found = len([k for k in np.unique(labels) if k >= 0])
-    print(f"      {n_found} clusters (expected {n_dominoes}); "
+    sizes = [int((labels == k).sum()) for k in np.unique(labels) if k >= 0]
+    print(f"      {len(sizes)} clusters (expected {n_dominoes}) of {sizes} gaussians; "
           f"{(labels < 0).mean() * 100:.1f}% background", flush=True)
-    summary["clusters_found"] = n_found
+    summary["clusters_found"] = len(sizes)
+    summary["cluster_sizes"] = sizes
     summary["clusters_expected"] = n_dominoes
     stage_s["cluster"] = time.perf_counter() - t0
 

@@ -79,6 +79,130 @@ def _colors_per_camera(colors, sh_degree, means, viewmats, radii):
     return torch.clamp(spherical_harmonics(sh_degree, dirs, shs, masks=masks) + 0.5, min=0.0)
 
 
+def with_depth_channel(colors_cn, depths, backgrounds, render_mode: str):
+    """The colours and backgrounds a render mode rasterizes: "RGB+D" and
+    "RGB+ED" append the depth channel (background 0 on it), "D" and "ED"
+    render the depth alone (background 0)."""
+    if render_mode in ("RGB+D", "RGB+ED"):
+        colors_cn = torch.cat([colors_cn, depths[..., None]], dim=-1)
+        if backgrounds is not None:
+            backgrounds = torch.cat(
+                [backgrounds, backgrounds.new_zeros(backgrounds.shape[:-1] + (1,))], dim=-1)
+    elif render_mode in ("D", "ED"):
+        colors_cn = depths[..., None]
+        if backgrounds is not None:
+            backgrounds = backgrounds.new_zeros(backgrounds.shape[:-1] + (1,))
+    return colors_cn, backgrounds
+
+
+def tile_stream(means2d, radii, depths, tile_size: int, width: int, height: int,
+                dense: bool, isect_capacity: Optional[int], max_tiles_per_gauss: int,
+                isect_exact: bool = False, isect_exact_depth: bool = False,
+                isect_split_k: Optional[int] = None,
+                isect_big_capacity: Optional[int] = None):
+    """The sorted intersection stream of projected gaussians [..., I, N]:
+    the dense tiling at ``isect_capacity`` entries (``dense``) or the packed
+    one. Returns (isect, the offsets the rasterizer takes, meta fields)."""
+    image_dims = tuple(means2d.shape[:-2])
+    I = math.prod(image_dims) if image_dims else 1
+    tile_width = math.ceil(width / float(tile_size))
+    tile_height = math.ceil(height / float(tile_size))
+    if dense:
+        isect = isect_tiles(
+            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
+            capacity=isect_capacity, max_tiles_per_gauss=max_tiles_per_gauss,
+        )
+        offsets = isect_offset_encode(isect.isect_keys, I, tile_width, tile_height)
+        fields = {
+            "tiles_per_gauss": isect.tiles_per_gauss,
+            "isect_depths": isect.isect_depths,
+            "isect_offsets": offsets.reshape(image_dims + (tile_height, tile_width)),
+        }
+    else:
+        isect = isect_tiles_packed(
+            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
+            max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
+            exact=isect_exact, exact_depth=isect_exact_depth,
+            split_k=isect_split_k, big_capacity=isect_big_capacity,
+        )
+        offsets = isect.offsets
+        fields = {"isect_offsets": offsets}
+    fields.update({
+        "tile_width": tile_width,
+        "tile_height": tile_height,
+        "isect_ids": isect.isect_keys,
+        "flatten_ids": isect.flatten_ids,
+        "n_isects": isect.n_isects,
+        "n_dropped": isect.n_dropped,
+    })
+    return isect, offsets, fields
+
+
+def rasterize_screen(rasterizer: str, means2d, conics, colors_cn, opacities_cn, width: int,
+                     height: int, tile_size: int, offsets, isect, backgrounds,
+                     tile_capacity: int, abs_dummy=None):
+    """Composite the stream with a screen-space rasterizer ("packed",
+    "packed_inference", "pallas" or "jax") → (colors, alphas)."""
+    raster_args = (
+        means2d.contiguous(), conics.contiguous(), colors_cn.contiguous(),
+        opacities_cn.contiguous(), width, height, tile_size, offsets, isect.flatten_ids,
+    )
+    if rasterizer == "pallas":
+        return rasterize_to_pixels_pallas(
+            *raster_args, isect.n_isects, backgrounds=backgrounds,
+            tile_capacity=tile_capacity)
+    if rasterizer == "jax":
+        return rasterize_to_pixels_jax(
+            *raster_args, isect.n_isects, backgrounds=backgrounds,
+            tile_capacity=tile_capacity, absgrad_dummy=abs_dummy)
+    if rasterizer == "packed":
+        return rasterize_to_pixels_packed(
+            *raster_args, backgrounds=backgrounds, tile_capacity=tile_capacity,
+            absgrad_dummy=abs_dummy)
+    return rasterize_to_pixels_packed_inference(
+        *raster_args, backgrounds=backgrounds, tile_capacity=tile_capacity)
+
+
+def rasterize_surfels(rasterizer: str, means2d, ray_transforms, colors_cn, normals,
+                      opacities_cn, width: int, height: int, tile_size: int, offsets, isect,
+                      backgrounds, tile_capacity: int, has_depth: bool,
+                      compute_distort: bool, abs_dummy=None):
+    """Composite a surfel stream with a 2DGS rasterizer ("packed",
+    "packed_inference" or "jax") → (colors, alphas, camera-frame normals,
+    distortion, median depth); the forward-only rasterizer gives zeros for
+    the last two."""
+    raster_args = (
+        means2d.contiguous(), ray_transforms.contiguous(), colors_cn.contiguous(),
+        normals.contiguous(), opacities_cn.contiguous(), width, height, tile_size,
+        offsets, isect.flatten_ids,
+    )
+    bg = None if backgrounds is None else backgrounds.contiguous()
+    if rasterizer == "jax":
+        return rasterize_to_pixels_2dgs_jax(
+            *raster_args, isect.n_isects, backgrounds=bg, tile_capacity=tile_capacity,
+            compute_distort=compute_distort, absgrad_dummy=abs_dummy)
+    if rasterizer == "packed":
+        return rasterize_to_pixels_2dgs_packed(
+            *raster_args, backgrounds=bg, tile_capacity=tile_capacity,
+            has_depth=has_depth, compute_distort=compute_distort, absgrad_dummy=abs_dummy)
+    render_colors, render_alphas, render_normals_cam = (
+        rasterize_to_pixels_2dgs_packed_inference(
+            *raster_args, backgrounds=bg, tile_capacity=tile_capacity))
+    return (render_colors, render_alphas, render_normals_cam,
+            torch.zeros_like(render_alphas), torch.zeros_like(render_alphas))
+
+
+def expected_depth(render_colors, render_alphas, render_mode: str):
+    """"ED" modes: the accumulated depth channel divided by alpha."""
+    if render_mode not in ("ED", "RGB+ED"):
+        return render_colors
+    return torch.cat(
+        [render_colors[..., :-1],
+         render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)],
+        dim=-1,
+    )
+
+
 def rasterization(
     means,  # [..., N, 3]
     quats,  # [..., N, 4] or None with covars
@@ -235,62 +359,22 @@ def rasterization(
     })
 
     colors_cn = _colors_per_camera(colors, sh_degree, means, viewmats, radii)
+    colors_cn, backgrounds = with_depth_channel(colors_cn, depths, backgrounds, render_mode)
 
-    # depth channels per render mode
-    if render_mode in ("RGB+D", "RGB+ED"):
-        colors_cn = torch.cat([colors_cn, depths[..., None]], dim=-1)
-        if backgrounds is not None:
-            backgrounds = torch.cat(
-                [backgrounds, backgrounds.new_zeros(batch_dims + (C, 1))], dim=-1
-            )
-    elif render_mode in ("D", "ED"):
-        colors_cn = depths[..., None]
-        if backgrounds is not None:
-            backgrounds = backgrounds.new_zeros(batch_dims + (C, 1))
-
-    tile_width = math.ceil(width / float(tile_size))
-    tile_height = math.ceil(height / float(tile_size))
     dense = rasterizer in ("jax", "pallas", "eval3d")
-    if dense:
-        # the dense tiling at a fixed capacity (tdgs/rendering.py:519-547)
-        isect = isect_tiles(
-            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
-            capacity=(default_isect_capacity(I, N) if isect_capacity is None
-                      else isect_capacity),
-            max_tiles_per_gauss=max_tiles_per_gauss,
-        )
-        offsets = isect_offset_encode(isect.isect_keys, I, tile_width, tile_height)
-        meta.update({
-            "tiles_per_gauss": isect.tiles_per_gauss,
-            "isect_depths": isect.isect_depths,
-            "isect_offsets": offsets.reshape(batch_dims + (C, tile_height, tile_width)),
-        })
-    else:
-        isect = isect_tiles_packed(
-            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
-            max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
-            exact=isect_exact, exact_depth=isect_exact_depth,
-            split_k=isect_split_k, big_capacity=isect_big_capacity,
-        )
-        offsets = isect.offsets
-        meta["isect_offsets"] = offsets
+    isect, offsets, tile_meta = tile_stream(
+        means2d, radii, depths, tile_size, width, height, dense,
+        default_isect_capacity(I, N) if dense and isect_capacity is None else isect_capacity,
+        max_tiles_per_gauss, isect_exact=isect_exact, isect_exact_depth=isect_exact_depth,
+        isect_split_k=isect_split_k, isect_big_capacity=isect_big_capacity)
+    meta.update(tile_meta)
     meta.update({
-        "tile_width": tile_width,
-        "tile_height": tile_height,
-        "isect_ids": isect.isect_keys,
-        "flatten_ids": isect.flatten_ids,
-        "n_isects": isect.n_isects,
-        "n_dropped": isect.n_dropped,
         "width": width,
         "height": height,
         "tile_size": tile_size,
         "n_batches": B,
         "n_cameras": C,
     })
-    raster_args = (
-        means2d.contiguous(), conics.contiguous(), colors_cn.contiguous(),
-        opacities_cn.contiguous(), width, height, tile_size, offsets, isect.flatten_ids,
-    )
     bg = None if backgrounds is None else backgrounds.contiguous()
     abs_dummy = None if means2d_abs_tap is None else means2d_abs_tap.reshape(I * N, 2)
     eval3d_cams = dict(
@@ -317,29 +401,11 @@ def rasterization(
             isect.flatten_ids, **eval3d_cams)
         render_colors = render_colors.reshape((C, height, width, -1))
         render_alphas = render_alphas.reshape((C, height, width, 1))
-    elif rasterizer == "pallas":
-        render_colors, render_alphas = rasterize_to_pixels_pallas(
-            *raster_args, isect.n_isects, backgrounds=bg, tile_capacity=tile_capacity)
-    elif rasterizer == "jax":
-        render_colors, render_alphas = rasterize_to_pixels_jax(
-            *raster_args, isect.n_isects, backgrounds=bg, tile_capacity=tile_capacity,
-            absgrad_dummy=abs_dummy)
-    elif rasterizer == "packed":
-        render_colors, render_alphas = rasterize_to_pixels_packed(
-            *raster_args, backgrounds=bg, tile_capacity=tile_capacity,
-            absgrad_dummy=abs_dummy)
     else:
-        render_colors, render_alphas = rasterize_to_pixels_packed_inference(
-            *raster_args, backgrounds=bg, tile_capacity=tile_capacity,
-        )
-    if render_mode in ("ED", "RGB+ED"):
-        render_colors = torch.cat(
-            [
-                render_colors[..., :-1],
-                render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10),
-            ],
-            dim=-1,
-        )
+        render_colors, render_alphas = rasterize_screen(
+            rasterizer, means2d, conics, colors_cn, opacities_cn, width, height, tile_size,
+            offsets, isect, bg, tile_capacity, abs_dummy)
+    render_colors = expected_depth(render_colors, render_alphas, render_mode)
     return render_colors, render_alphas, meta
 
 
@@ -428,70 +494,24 @@ def rasterization_2dgs(
 
     # the depth channel, when asked for (it also feeds distortion and median)
     need_depth = distloss or render_mode in ("D", "ED", "RGB+D", "RGB+ED")
-    if render_mode in ("D", "ED"):
-        colors_cn = depths[..., None]
-        if backgrounds is not None:
-            backgrounds = backgrounds.new_zeros(batch_dims + (C, 1))
-    elif need_depth:
-        colors_cn = torch.cat([colors_cn, depths[..., None]], dim=-1)
-        if backgrounds is not None:
-            backgrounds = torch.cat(
-                [backgrounds, backgrounds.new_zeros(batch_dims + (C, 1))], dim=-1)
-
-    tile_width = math.ceil(width / float(tile_size))
-    tile_height = math.ceil(height / float(tile_size))
-    tiles_per_gauss = None
-    if rasterizer == "jax":
-        # the dense tiling at a fixed capacity (tdgs/rendering.py:767-782)
-        isect = isect_tiles(
-            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
-            capacity=(default_isect_capacity(I, N) if isect_capacity is None
-                      else isect_capacity),
-            max_tiles_per_gauss=max_tiles_per_gauss,
-        )
-        offsets = isect_offset_encode(isect.isect_keys, I, tile_width, tile_height)
-        tiles_per_gauss = isect.tiles_per_gauss
-        meta_offsets = offsets.reshape(batch_dims + (C, tile_height, tile_width))
+    if need_depth and render_mode not in ("D", "ED"):
+        colors_cn, backgrounds = with_depth_channel(colors_cn, depths, backgrounds, "RGB+D")
     else:
-        isect = isect_tiles_packed(
-            means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
-            max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
-            exact=isect_exact, exact_depth=isect_exact_depth,
-            split_k=isect_split_k, big_capacity=isect_big_capacity,
-        )
-        offsets = meta_offsets = isect.offsets
-    raster_args = (
-        means2d.contiguous(), ray_transforms.contiguous(), colors_cn.contiguous(),
-        normals.contiguous(), opacities_cn.contiguous(), width, height, tile_size,
-        offsets, isect.flatten_ids,
-    )
-    bg = None if backgrounds is None else backgrounds.contiguous()
+        colors_cn, backgrounds = with_depth_channel(colors_cn, depths, backgrounds, render_mode)
+
+    dense = rasterizer == "jax"
+    isect, offsets, tile_meta = tile_stream(
+        means2d, radii, depths, tile_size, width, height, dense,
+        default_isect_capacity(I, N) if dense and isect_capacity is None else isect_capacity,
+        max_tiles_per_gauss, isect_exact=isect_exact, isect_exact_depth=isect_exact_depth,
+        isect_split_k=isect_split_k, isect_big_capacity=isect_big_capacity)
     abs_dummy = None if means2d_abs_tap is None else means2d_abs_tap.reshape(I * N, 2)
-    if rasterizer == "jax":
-        (render_colors, render_alphas, render_normals_cam, render_distort,
-         render_median) = rasterize_to_pixels_2dgs_jax(
-            *raster_args, isect.n_isects, backgrounds=bg, tile_capacity=tile_capacity,
-            compute_distort=distloss or need_depth, absgrad_dummy=abs_dummy)
-    elif rasterizer == "packed":
-        (render_colors, render_alphas, render_normals_cam, render_distort,
-         render_median) = rasterize_to_pixels_2dgs_packed(
-            *raster_args, backgrounds=bg, tile_capacity=tile_capacity,
-            has_depth=need_depth, compute_distort=distloss or need_depth,
-            absgrad_dummy=abs_dummy,
-        )
-    else:
-        render_colors, render_alphas, render_normals_cam = (
-            rasterize_to_pixels_2dgs_packed_inference(
-                *raster_args, backgrounds=bg, tile_capacity=tile_capacity))
-        render_distort = torch.zeros_like(render_alphas)
-        render_median = torch.zeros_like(render_alphas)
-
-    if render_mode in ("ED", "RGB+ED"):
-        render_colors = torch.cat(
-            [render_colors[..., :-1],
-             render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)],
-            dim=-1,
-        )
+    (render_colors, render_alphas, render_normals_cam, render_distort,
+     render_median) = rasterize_surfels(
+        rasterizer, means2d, ray_transforms, colors_cn, normals, opacities_cn, width,
+        height, tile_size, offsets, isect, backgrounds, tile_capacity, need_depth,
+        distloss or need_depth, abs_dummy)
+    render_colors = expected_depth(render_colors, render_alphas, render_mode)
     camtoworlds = torch.linalg.inv(viewmats)
     render_normals_from_depth = None
     if render_mode in ("RGB+ED", "RGB+D"):
@@ -506,12 +526,12 @@ def rasterization_2dgs(
         "ray_transforms": ray_transforms,
         "opacities": opacities_cn,
         "normals": normals,
-        "tile_width": tile_width,
-        "tile_height": tile_height,
-        "tiles_per_gauss": tiles_per_gauss,
+        "tile_width": tile_meta["tile_width"],
+        "tile_height": tile_meta["tile_height"],
+        "tiles_per_gauss": tile_meta.get("tiles_per_gauss"),
         "isect_ids": isect.isect_keys,
         "flatten_ids": isect.flatten_ids,
-        "isect_offsets": meta_offsets,
+        "isect_offsets": tile_meta["isect_offsets"],
         "n_isects": isect.n_isects,
         "n_dropped": isect.n_dropped,
         "width": width,

@@ -28,6 +28,13 @@ splats; ``--compression png`` compresses the trained splats and scores the
 round trip. After training it renders the camera trajectory (``--render-traj-path``:
 ``traj_<step>.gif`` where PIL is installed, else PNG frames under
 ``traj_<step>/``) unless ``--disable-video`` is given.
+
+With ``--sharded`` it trains gaussian-sharded, one process a rank, under
+PyTorch's launcher (each rank on its card, or on the CPU with
+``--device cpu``; ``--batch-size`` and the capacity divide over the ranks):
+
+    python -m torch.distributed.run --nproc-per-node 2 -m tdgs_torch.simple_trainer \
+        default --sharded --batch-size 2 --data-dir <colmap scene> [--device cpu]
 """
 
 from __future__ import annotations
@@ -111,20 +118,25 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     runner = Runner(cfg, device=args.device)
+
+    def report(x):
+        if runner.is_main:  # under --sharded every rank computes, rank 0 prints
+            print(x if isinstance(x, str) else json.dumps(x), flush=True)
+
     try:
         if args.ckpt:
             step = runner.load_checkpoint(args.ckpt)
-            print(json.dumps(runner.eval(step)))
+            report(runner.eval(step))
             return 0
         out = runner.train()
-        print(json.dumps(out["history"][-3:]))
-        print(json.dumps(runner.eval(cfg.max_steps)))
+        report(out["history"][-3:])
+        report(runner.eval(cfg.max_steps))
         if cfg.compression:
             # the PNG compression's round trip, scored as stage "compress"
-            print(json.dumps(runner.run_compression(cfg.max_steps)))
+            report(runner.run_compression(cfg.max_steps))
         if not cfg.disable_video:
             # the camera-trajectory render at the end of training
-            print(runner.render_traj(cfg.max_steps, traj_path=cfg.render_traj_path))
+            report(runner.render_traj(cfg.max_steps, traj_path=cfg.render_traj_path))
     finally:
         runner.close()
     return 0

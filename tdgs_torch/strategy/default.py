@@ -77,14 +77,7 @@ class DefaultStrategy(Strategy):
         lr: float = 0.0,
     ) -> Tuple[SplatParams, Any, Dict]:
         del lr
-        if (
-            self.refine_start_iter < step < self.refine_stop_iter
-            and step % self.refine_every == 0
-            and (
-                self.pause_refine_after_reset == 0
-                or step % self.reset_every >= self.pause_refine_after_reset
-            )
-        ):
+        if self._refines(step):
             use_scale2d = 0 < self.refine_scale2d_stop_iter and (
                 step < self.refine_scale2d_stop_iter
             )
@@ -112,6 +105,24 @@ class DefaultStrategy(Strategy):
                 radii_norm=torch.zeros((C,), device=dev),
             )
 
-        if step % self.reset_every == 0 and step > 0:
+        if self._resets(step):
             params, opt_state = reset_opacities(params, opt_state, value=2.0 * self.prune_opa)
         return params, opt_state, state
+
+    def _refines(self, step: int) -> bool:
+        return (
+            self.refine_start_iter < step < self.refine_stop_iter
+            and step % self.refine_every == 0
+            and (
+                self.pause_refine_after_reset == 0
+                or step % self.reset_every >= self.pause_refine_after_reset
+            )
+        )
+
+    def _resets(self, step: int) -> bool:
+        return step % self.reset_every == 0 and step > 0
+
+    def acts_at(self, step: int) -> bool:
+        """Does ``step_post_backward`` change anything at ``step`` (a refine
+        or an opacity reset)? The sharded trainer gathers the rows then."""
+        return self._refines(step) or self._resets(step)

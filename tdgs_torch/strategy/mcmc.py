@@ -64,8 +64,7 @@ class MCMCStrategy(Strategy):
         lr: float = 0.0,
     ) -> Tuple[SplatParams, Any, Dict]:
         C = params["means"].shape[0]
-        if (self.refine_start_iter < step < self.refine_stop_iter
-                and step % self.refine_every == 0):
+        if self.refines_at(step):
             n_before = int(state["n_alive"])
             n_target = min(C, int(1.05 * n_before))
             sampled = mcmc_sample_sources(params, generator, n_before, self.min_opacity)
@@ -84,3 +83,9 @@ class MCMCStrategy(Strategy):
         params = inject_noise_to_position(params, position_noise(params, generator),
                                           lr * self.noise_lr, active_mask=active)
         return params, opt_state, state
+
+    def refines_at(self, step: int) -> bool:
+        """Does ``step`` relocate and grow? The position noise comes every
+        step."""
+        return (self.refine_start_iter < step < self.refine_stop_iter
+                and step % self.refine_every == 0)

@@ -182,25 +182,20 @@ class Config:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for a feature set here that the
-        port does not have yet, naming its ROADMAP queue, and ``ValueError``
-        for a 3DGUT combination the trainer refuses (as the JAX Runner
-        asserts: with_ut needs with_eval3d, eval3d is 3DGS)."""
+        port does not have yet (the viewer), naming its ROADMAP queue, and
+        ``ValueError`` for a 3DGUT combination the trainer refuses (as the
+        JAX Runner asserts: with_ut needs with_eval3d, eval3d is 3DGS) or
+        an unknown checkpoint container."""
         if self.with_ut and not self.with_eval3d:
             raise ValueError("training with with_ut requires with_eval3d")
         if self.with_eval3d and self.model_type != "3dgs":
             raise ValueError("with_eval3d is a 3DGS render path")
-        unported = [
-            (self.sharded, "sharded", "parallel/"),
-            (not self.disable_viewer, "the viewer", "remaining modules"),
-            # orbax imports JAX: the sharded torch-native container comes
-            # with the sharded state
-            (self.ckpt_format != "pickle", f"ckpt_format={self.ckpt_format!r}",
-             "item 7, parallel/"),
-        ]
-        for is_set, what, item in unported:
-            if is_set:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP queue 1: {item})")
+        if not self.disable_viewer:
+            raise NotImplementedError(
+                "the viewer is not ported yet (ROADMAP queue 1: item 6, remaining modules)")
+        if self.ckpt_format not in ("pickle", "orbax"):
+            raise ValueError(f"ckpt_format {self.ckpt_format!r}: 'pickle' or 'orbax' "
+                             "(the port's sharded directory, parallel/checkpoint.py)")
         if self.rasterizer == "packed_inference":
             raise ValueError("rasterizer='packed_inference' is forward-only; "
                              "training needs 'packed' (or 'auto')")

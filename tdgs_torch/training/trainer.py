@@ -47,8 +47,25 @@ PNG compression's round trip (``compression/``).
 Gaussian state is the JAX package's fixed-capacity layout (dead rows
 padded), and capacity may double between steps (``maybe_grow_capacity``).
 Everything runs eagerly in PyTorch on the runner's device; random draws
-come from one ``torch.Generator``. With ``data_prefetch`` the training
-images decode on a thread pool a few steps ahead. Eval renders the test
+come from one ``torch.Generator``.
+With ``Config.sharded`` the runner is one rank of a ``torch.distributed``
+world (``parallel.launch``, or ``python -m torch.distributed.run
+--nproc-per-node W -m tdgs_torch.simple_trainer ... --sharded``): it holds
+its block of ``capacity / W`` gaussian rows (splats, Adam moments, strategy
+rows) and its ``batch_size / W`` cameras of each step's batch, and renders
+through ``parallel.sharded_render`` (the JAX ``Runner``'s mesh path,
+``tdgs/training/trainer.py:148-178``, :465-500, :654-663). Every rank makes
+the same global init, draws and batch order from the same seeds. Each loss
+term is this rank's share of the global mean; per-gaussian gradients reach
+their owners through the exchange, and the replicated modules' gradients
+(pose corrector, appearance module, bilateral grids, segmentation head) are
+summed over the ranks. Refines, resets and capacity growth run on the rows
+gathered whole, exactly as on one device, and each rank keeps its block;
+eval, the trajectory and the identity map render the gathered splats.
+Files are written by rank 0; the sharded checkpoint
+(``ckpt_format="orbax"``, ``parallel/checkpoint.py``) by every rank. Which
+arrays are rows is ``parallel/rows.py``'s rule. With ``data_prefetch`` the
+training images decode on a thread pool a few steps ahead. Eval renders the test
 views through the forward-only ``packed_inference`` rasterizer (kernel 7's
 forward-only call under eval3d) and reports PSNR, SSIM and LPIPS (learned
 with local weights, else the random-filter proxy, ``lpips_proxy``);
@@ -72,18 +89,25 @@ from tdgs_torch._device import DeviceLike, resolve_device
 from tdgs_torch.datasets import Dataset, Parser
 from tdgs_torch.models import gaussians as G
 from tdgs_torch.ops.adam import adam_moments
+from tdgs_torch.parallel import comm, rows
+from tdgs_torch.parallel.mesh import initialize_multihost, make_mesh
+from tdgs_torch.parallel.sharded_render import (
+    rasterization_2dgs_sharded,
+    rasterization_eval3d_sharded,
+    rasterization_sharded,
+)
 from tdgs_torch.rendering import rasterization, rasterization_2dgs
 from tdgs_torch.segmentation import head as seg_head_mod
 from tdgs_torch.segmentation import losses as seg_losses
 from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
-from tdgs_torch.strategy.ops import pad_rows, tree_map
+from tdgs_torch.strategy.ops import inject_noise_to_position, pad_rows, tree_map
 from tdgs_torch.training import bilateral_grid as BG
 from tdgs_torch.training import losses as L
 from tdgs_torch.training import modules as M
 from tdgs_torch.training import normal_losses as NL
 from tdgs_torch.training.config import Config
 from tdgs_torch.training.metrics import lpips, lpips_impl
-from tdgs_torch.utils.depth import depth_to_normal
+from tdgs_torch.utils.depth import depth_to_normal, rotate
 
 
 def make_lr_schedules(cfg: Config, scene_scale: float, max_steps: int):
@@ -144,10 +168,13 @@ class SplatOptimizer:
 class _MetricsLog:
     """Append-only JSONL scalar log (``metrics.jsonl``)."""
 
-    def __init__(self, result_dir: str):
+    def __init__(self, result_dir: str, enabled: bool = True):
         self.path = os.path.join(result_dir, "metrics.jsonl")
+        self.enabled = enabled
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()
                     if isinstance(v, (int, float, np.generic, torch.Tensor))})
@@ -156,20 +183,32 @@ class _MetricsLog:
 
 
 class Runner:
-    """Training runner for single-device 3DGS (screen-space or 3DGUT) or
-    2DGS, with the DefaultStrategy or the MCMCStrategy."""
+    """Training runner for 3DGS (screen-space or 3DGUT) or 2DGS, with the
+    DefaultStrategy or the MCMCStrategy, on one device or (``Config.sharded``)
+    as one rank of a gaussian-sharded world."""
 
     def __init__(self, cfg: Config, device: DeviceLike = None):
         cfg = cfg.adjusted()
         cfg.check_ported()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # Config.sharded: this process is one rank (tdgs/training/trainer.py:148-178)
+        self.mesh = None
+        self._owns_world = False
+        if cfg.sharded:
+            self._owns_world = not torch.distributed.is_initialized()
+            initialize_multihost(device)
+            self.mesh = make_mesh(device=device)
+            if cfg.batch_size % self.mesh.world:
+                raise ValueError(f"sharded: batch_size {cfg.batch_size} must divide over "
+                                 f"{self.mesh.world} ranks (each renders batch/W cameras)")
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         os.makedirs(cfg.result_dir, exist_ok=True)
         self.stats_dir = os.path.join(cfg.result_dir, "stats")
         self.ckpt_dir = os.path.join(cfg.result_dir, "ckpts")
         os.makedirs(self.stats_dir, exist_ok=True)
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        self.logger = _MetricsLog(cfg.result_dir)
+        self.logger = _MetricsLog(cfg.result_dir, enabled=self.is_main)
 
         load_masks = (cfg.load_instance_masks if cfg.load_instance_masks is not None
                       else cfg.with_segmentation)
@@ -207,6 +246,64 @@ class Runner:
         else:
             self.strategy_state = self.strategy.initialize_state(
                 self.splats, scene_scale=self.scene_scale)
+        if self.mesh is not None:
+            # every rank made the same global state: keep this rank's block
+            if self.capacity % self.mesh.world:
+                raise ValueError(f"sharded: capacity {self.capacity} must divide over "
+                                 f"{self.mesh.world} ranks")
+            self._set_trees(self._shard(self._trees()))
+
+    # ------------------------------------------------------------------
+    # Config.sharded: each rank holds a block of the gaussian rows
+    def _trees(self) -> Dict[str, Any]:
+        """The state that holds per-gaussian rows, under the checkpoint's
+        keys (``parallel.rows.TREES``)."""
+        return {"splats": self.splats, "opt_state": self.opt_state,
+                "strategy_state": self.strategy_state}
+
+    def _set_trees(self, trees: Dict[str, Any]) -> None:
+        self.splats, self.opt_state, self.strategy_state = (trees[k] for k in rows.TREES)
+
+    def _shard(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's block of every per-gaussian array of ``state`` (the
+        JAX ``Runner._shard_gauss``, :310; ``parallel.rows``); the rest
+        whole."""
+        n = self.capacity // self.mesh.world
+        lo = self.mesh.rank * n
+
+        def cut(x):
+            if x.shape[0] != self.capacity:
+                raise ValueError(f"{x.shape[0]} rows, not the capacity {self.capacity}")
+            return x[lo:lo + n].clone()
+
+        return rows.map_rows(cut, state)
+
+    @torch.no_grad()
+    def _gather(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """Every per-gaussian array of ``state``, held in blocks of rows,
+        whole again; a collective call on every rank."""
+        return rows.map_rows(comm.all_gather, state)
+
+    def _blocked(self, params) -> bool:
+        """Do ``params`` hold this rank's block (a sharded render), rather
+        than every row?"""
+        return self.mesh is not None and params["means"].shape[0] != self.capacity
+
+    def _replicated_splats(self) -> G.SplatParams:
+        """The splats whole on every rank (the JAX ``Runner.
+        _replicated_splats``, :330), for the renders of single cameras:
+        eval, the trajectory, the identity map. Collective under sharding."""
+        if not self._blocked(self.splats):
+            return self.splats
+        return self._gather({"splats": self.splats})["splats"]
+
+    def _world_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks (itself on one device), detached."""
+        x = x.detach()
+        return comm.all_reduce_sum(x) if self.mesh is not None else x
+
+    def _alive_count(self) -> int:
+        return int(self._world_sum(G.alive_mask(self.splats).sum()))
 
     # ------------------------------------------------------------------
     def _init_splats(self) -> G.SplatParams:
@@ -330,14 +427,26 @@ class Runner:
         model type. With ``app_opt`` the colours are the appearance
         module's per camera, sigmoid(MLP + ``colors``) [C, N, 3], with the
         view directions from the camera centres −Rᵀt and the embeddings of
-        ``image_ids`` (None: zero embeddings, as eval renders)."""
+        ``image_ids`` (None: zero embeddings, as eval renders).
+        ``params`` holding this rank's block of the rows (``Config.sharded``)
+        render this rank's cameras through ``parallel.sharded_render``
+        (3DGS and eval3d; 2DGS trains through ``_loss_2dgs``); the
+        appearance colours are then those of every camera of the batch
+        against the block, and the taps [batch, block, 2]."""
         cfg = self.cfg
+        blocked = self._blocked(params)
         means, quats, scales, opacities, sh = G.splat_activations(params)
         colors, sh_deg = sh, sh_degree
         if override_features is not None:
             colors, sh_deg = override_features, None
         elif self.app_module is not None:
-            R, t = viewmats[..., :3, :3], viewmats[..., :3, 3]
+            if blocked:
+                # the colours of every camera of the batch, for this block
+                viewmats_all = comm.all_gather(viewmats)
+                image_ids = comm.all_gather(image_ids)
+            else:
+                viewmats_all = viewmats
+            R, t = viewmats_all[..., :3, :3], viewmats_all[..., :3, 3]
             campos = -torch.einsum("...kj,...k->...j", R, t).reshape(-1, 3)
             dirs = means[None, :, :] - campos[:, None, :]  # [C, N, 3]
             colors = self.app_module(params["features"], image_ids, dirs, sh_degree)
@@ -345,6 +454,22 @@ class Runner:
             sh_deg = None
         if rasterizer is None:
             rasterizer = "packed" if cfg.rasterizer == "auto" else cfg.rasterizer
+        if blocked:
+            common = dict(sh_degree=sh_deg, near_plane=cfg.near_plane,
+                          far_plane=cfg.far_plane, tile_capacity=cfg.tile_capacity,
+                          isect_capacity=cfg.isect_capacity,
+                          max_tiles_per_gauss=cfg.max_tiles_per_gauss,
+                          backgrounds=backgrounds, camera_model=cfg.camera_model,
+                          render_mode=render_mode)
+            if cfg.with_eval3d:
+                return rasterization_eval3d_sharded(
+                    means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+                    self.mesh, with_ut=cfg.with_ut, **common)
+            return rasterization_sharded(
+                means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+                self.mesh, rasterize_mode="antialiased" if cfg.antialiased else "classic",
+                rasterizer=rasterizer, means2d_offset=means2d_offset,
+                means2d_abs_tap=means2d_abs_tap, **common)
         if cfg.model_type == "2dgs" and override_features is None:
             # eval and render only: the 2DGS train step renders in _loss_2dgs
             out = rasterization_2dgs(
@@ -388,13 +513,23 @@ class Runner:
         the fixed perturbation, the corrector, ``inv`` back), the render's
         RGB goes through the bilateral grids, the loss adds ``tvloss``,
         ``posereg`` and ``appreg`` (3DGS), and the aux Adam updates the
-        modules."""
+        modules.
+        Under ``Config.sharded`` the batch holds this rank's cameras, the
+        loss is this rank's share of the global mean (the returned loss and
+        terms are summed over the ranks), the taps are [global batch,
+        block, 2] and aux["visibility"] covers the block."""
         cfg = self.cfg
         images = batch["image"]
         B, H, W = images.shape[:3]
         dev = self.device
+        blocked = self._blocked(self.splats)
+        world = self.mesh.world if blocked else 1
+        # this rank's cameras of the global batch
+        cams = slice(self.mesh.rank * B, (self.mesh.rank + 1) * B) if blocked else slice(0, B)
         if cfg.random_bkgd:
-            backgrounds = torch.rand((B, 3), generator=self.generator, device=dev)
+            # every rank draws the whole batch's: the generators stay in step
+            backgrounds = torch.rand((B * world, 3), generator=self.generator,
+                                     device=dev)[cams]
         elif cfg.background_color is not None:
             backgrounds = torch.tensor(cfg.background_color, dtype=torch.float32,
                                        device=dev).expand(B, 3)
@@ -405,14 +540,14 @@ class Runner:
         use_absgrad = use_tap and self.strategy.absgrad
 
         params = {k: v.detach().requires_grad_(True) for k, v in self.splats.items()}
-        C = self.capacity
+        n_rows = params["means"].shape[0]
         taps = []
         tap = abs_tap = None
         if use_tap:
-            tap = torch.zeros((B, C, 2), device=dev, requires_grad=True)
+            tap = torch.zeros((B * world, n_rows, 2), device=dev, requires_grad=True)
             taps.append(tap)
         if use_absgrad:
-            abs_tap = torch.zeros((B, C, 2), device=dev, requires_grad=True)
+            abs_tap = torch.zeros((B * world, n_rows, 2), device=dev, requires_grad=True)
             taps.append(abs_tap)
         seg_grads, seg_terms, cq = {}, {}, None
         if use_seg or use_spatial:
@@ -452,14 +587,21 @@ class Runner:
                 terms["appreg"] = cfg.app_opt_reg * (self.app_module.embeds ** 2).mean()
             for k, v in self._depth_normal_terms(params, batch, step, img, meta).items():
                 terms[k] = v
-            loss = sum(terms.values())
             if cfg.save_depth_normal_vis and img.shape[-1] > 3:
                 depth = img[..., 3:].detach()
+        # every term above is a mean over the batch's images (or of the
+        # replicated modules): this rank's share of it is 1/W
+        terms = {k: v / world for k, v in terms.items()}
+        if cfg.model_type == "2dgs":
+            loss = loss / world
+        else:
+            loss = sum(terms.values())
         if cfg.opacity_reg > 0:
-            terms["opacityreg"] = cfg.opacity_reg * torch.sigmoid(params["opacities"]).abs().mean()
+            terms["opacityreg"] = cfg.opacity_reg * self._row_mean(
+                torch.sigmoid(params["opacities"]).abs())
             loss = loss + terms["opacityreg"]
         if cfg.scale_reg > 0:
-            terms["scalereg"] = cfg.scale_reg * torch.exp(params["scales"]).abs().mean()
+            terms["scalereg"] = cfg.scale_reg * self._row_mean(torch.exp(params["scales"]).abs())
             loss = loss + terms["scalereg"]
 
         names = list(params)
@@ -475,7 +617,10 @@ class Runner:
             g_params[k] = g_params[k] + g
         g_taps = grads[len(names):len(names) + len(taps)]
         g_aux = {group: {} for group in aux_groups}
-        for (group, name, _), g in zip(aux_leaves, grads[len(names) + len(taps):]):
+        for (group, name, p), g in zip(aux_leaves, grads[len(names) + len(taps):]):
+            if blocked:
+                # replicated modules: the gradient of the global loss
+                g = self._world_sum(torch.zeros_like(p) if g is None else g)
             g_aux[group][name] = g
         self._aux_update(g_aux)
 
@@ -494,11 +639,38 @@ class Runner:
         loss = loss.detach()
         for v in seg_terms.values():
             loss = loss + v
+        if blocked:
+            # the global loss and terms: every rank's share summed
+            named = [("loss", loss)] + [(("t", k), v) for k, v in terms.items()] + [
+                (("s", k), v) for k, v in seg_terms.items()]
+            summed = self._world_sum(torch.stack([v.detach().reshape(()) for _, v in named]))
+            got = dict(zip([k for k, _ in named], summed))
+            loss = got["loss"]
+            terms = {k: got[("t", k)] for k in terms}
+            seg_terms = {k: got[("s", k)] for k in seg_terms}
         return loss, {"radii": radii, "visibility": visibility,
                       "v_means2d": v_means2d, "lr_means": lr_dict["means"],
                       "n_dropped": meta["n_dropped"], "seg_terms": seg_terms,
                       "cluster_quality": cq, "depth": depth,
                       "loss_terms": {k: v.detach() for k, v in terms.items()}}
+
+    def _row_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over every gaussian row of ``x`` [rows, ...]: under
+        sharding this rank's share of it (its block's sum over the whole
+        capacity's count)."""
+        if self.mesh is None or x.shape[0] == self.capacity:
+            return x.mean()
+        return x.sum() / (x.numel() * self.mesh.world)
+
+    def _masked_mean_share(self, value: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+        """A masked mean over this rank's images (``value``, normalised by
+        ``max(count, 1)``) → its share of the masked mean over the global
+        batch, times the world: the caller's 1/W share applies after."""
+        if self.mesh is None:
+            return value
+        count = count.detach().to(value.dtype)
+        total = self._world_sum(count)
+        return value * torch.clamp(count, min=1.0) / torch.clamp(total, min=1.0) * self.mesh.world
 
     def _depth_normal_terms(self, params, batch, step, img, meta):
         """The 3DGS step's depth and normal terms (``tdgs/training/
@@ -514,13 +686,18 @@ class Runner:
         B = images.shape[0]
         terms = {}
         if cfg.depth_loss:
+            # masked means: under sharding each rank's share of the global one
             if "depth_map" in batch:
-                terms["depthloss"] = cfg.depth_lambda * L.depth_loss_dense(
-                    img[..., 3:], batch["depth_map"], self.scene_scale)
+                count = ((batch["depth_map"] > 0.0) & (img[..., 3] > 0.0)).sum()
+                terms["depthloss"] = cfg.depth_lambda * self._masked_mean_share(
+                    L.depth_loss_dense(img[..., 3:], batch["depth_map"], self.scene_scale),
+                    count)
             else:
-                terms["depthloss"] = cfg.depth_lambda * L.depth_loss_sparse(
-                    img[..., 3:], batch["points"], batch["depths"],
-                    valid=batch.get("points_valid"))
+                valid = batch.get("points_valid")
+                terms["depthloss"] = cfg.depth_lambda * self._masked_mean_share(
+                    L.depth_loss_sparse(img[..., 3:], batch["points"], batch["depths"],
+                                        valid=valid),
+                    valid.sum() if valid is not None else torch.ones((), device=img.device))
         if cfg.load_normals and "normal" in batch and step >= cfg.start_normal_loss_step:
             # each gaussian's normal against the map at its projected centre,
             # over the gaussians the view sees; the sample's gradient
@@ -528,10 +705,19 @@ class Runner:
             g_norm, _ = NL.calculate_gaussian_splat_normal_differentiable(
                 params["quats"], torch.exp(params["scales"]),
                 torch.sigmoid(params["opacities"]))
-            m2d = meta["means2d"].reshape(B, -1, 2)
-            rad = meta["radii"].reshape(B, -1, 2)
+            normal_maps, m2d, rad = batch["normal"], meta["means2d"], meta["radii"]
+            if self._blocked(params):
+                # the loss over every view and gaussian, alike on each rank:
+                # the maps, the normals and the centres gathered whole
+                normal_maps = comm.all_gather(normal_maps.detach())
+                g_norm = comm.all_gather(g_norm)
+                m2d = comm.all_gather(m2d.transpose(0, 1).contiguous()).transpose(0, 1)
+                rad = comm.all_gather(rad.transpose(0, 1).contiguous()).transpose(0, 1)
+                B = normal_maps.shape[0]  # the caller's 1/W makes it the share
+            m2d = m2d.reshape(B, -1, 2)
+            rad = rad.reshape(B, -1, 2)
             nl = sum(NL.masked_progressive_normal_loss(
-                g_norm, NL.sample_normals_from_map(batch["normal"][b], m2d[b]),
+                g_norm, NL.sample_normals_from_map(normal_maps[b], m2d[b]),
                 (rad[b] > 0).all(-1)) for b in range(B))
             terms["normalloss"] = cfg.mono_normal_lambda * nl / B
         if cfg.depth_normal_loss and step > cfg.depth_normal_start_step:
@@ -558,8 +744,13 @@ class Runner:
         ``seg_spatial_weight``). Updates the head by its own Adam (lr 1e-3,
         β 0.9/0.999, no bias correction) and returns (the gradients of
         ``params``, the detached loss terms, the cluster quality of the
-        first image or None)."""
+        first image or None). Under sharding each term is this rank's share
+        (the CGC loss over its images, the regularizer on the gathered
+        features, alike on every rank, over W) and the head's gradients are
+        summed over the ranks."""
         cfg = self.cfg
+        blocked = self._blocked(params)
+        world = self.mesh.world if blocked else 1
         head = self.seg_head.params()
         feats = seg_head_mod.apply_segmentation_head(head, params["identity_encodings"])
         terms, cq = {}, None
@@ -570,14 +761,18 @@ class Runner:
             seg = sum(seg_losses.cgc_contrastive_clustering_loss(
                 fmap[b], batch["instance_mask"][b], min_cluster_size=cfg.cgc_min_cluster)
                 for b in range(B))
-            terms["segloss"] = cfg.seg_loss_weight * seg / B
+            terms["segloss"] = cfg.seg_loss_weight * seg / B / world
             if quality:
                 cq = seg_losses.cluster_quality(fmap[0].detach(), batch["instance_mask"][0])
         if use_spatial:
+            feats_all, means_all = feats, params["means"]
+            if blocked:
+                feats_all = comm.all_gather(feats)
+                means_all = comm.all_gather(params["means"].detach())
             terms["spatialreg"] = cfg.seg_spatial_weight * seg_losses.cgc_spatial_regularizer(
-                feats, params["means"], self.generator, k_near=cfg.cgc_k_near,
+                feats_all, means_all, self.generator, k_near=cfg.cgc_k_near,
                 k_far=cfg.cgc_k_far, lambda_near=cfg.cgc_lambda_near,
-                lambda_far=cfg.cgc_lambda_far)
+                lambda_far=cfg.cgc_lambda_far) / world
         names = list(params)
         head_names = list(head)
         grads = torch.autograd.grad(sum(terms.values()),
@@ -589,6 +784,8 @@ class Runner:
             for k, g in zip(head_names, grads[len(names):]):
                 if g is None:
                     g = torch.zeros_like(head[k])
+                if blocked:
+                    g = self._world_sum(g)
                 mu[k] = 0.9 * mu[k] + 0.1 * g
                 nu[k] = 0.999 * nu[k] + 0.001 * g * g
                 head[k].sub_(1e-3 * mu[k] / (torch.sqrt(nu[k]) + 1e-15))
@@ -605,14 +802,24 @@ class Runner:
         images = batch["image"]
         H, W = images.shape[1:3]
         means, quats, scales, opacities, sh = G.splat_activations(params)
-        img, alpha, normals, normals_from_depth, distort, _, meta = rasterization_2dgs(
-            means, quats, scales, opacities, sh, batch["viewmat"], batch["K"], W, H,
-            sh_degree=sh_degree, render_mode="RGB+ED", distloss=cfg.dist_loss,
-            means2d_offset=tap, means2d_abs_tap=abs_tap,
-            tile_capacity=cfg.tile_capacity, isect_capacity=cfg.isect_capacity,
-            max_tiles_per_gauss=cfg.max_tiles_per_gauss, isect_exact=cfg.isect_exact,
-            backgrounds=backgrounds, rasterizer="packed", device=self.device,
-        )
+        kw = dict(sh_degree=sh_degree, render_mode="RGB+ED", distloss=cfg.dist_loss,
+                  means2d_offset=tap, means2d_abs_tap=abs_tap,
+                  tile_capacity=cfg.tile_capacity, isect_capacity=cfg.isect_capacity,
+                  max_tiles_per_gauss=cfg.max_tiles_per_gauss, backgrounds=backgrounds,
+                  rasterizer="packed")
+        if self._blocked(params):
+            # the surfel exchange (tdgs/training/trainer.py:654-680); the
+            # normals come back in the camera frame
+            img, alpha, normals_cam, distort, _, meta = rasterization_2dgs_sharded(
+                means, quats, scales, opacities, sh, batch["viewmat"], batch["K"], W, H,
+                self.mesh, **kw)
+            c2w = torch.linalg.inv(batch["viewmat"])
+            normals = rotate(c2w[..., :3, :3], normals_cam)
+            normals_from_depth = depth_to_normal(img[..., -1:], c2w, batch["K"])
+        else:
+            img, alpha, normals, normals_from_depth, distort, _, meta = rasterization_2dgs(
+                means, quats, scales, opacities, sh, batch["viewmat"], batch["K"], W, H,
+                isect_exact=cfg.isect_exact, device=self.device, **kw)
         if "mask" in batch:
             img = img * batch["mask"][..., None]
         loss = L.d_ssim_l1_loss(img[..., :3], images, cfg.ssim_lambda)
@@ -684,14 +891,20 @@ class Runner:
         history = []
         # one record per refine: its step, counts, and alive N around it
         self.refines = []
+        # under sharding each rank takes its cameras of every global batch
+        world = self.mesh.world if self.mesh is not None else 1
+        rank = self.mesh.rank if self.mesh is not None else 0
+        per_rank = cfg.batch_size // world
         for step in range(start_step + 1, cfg.max_steps + 1):
             if cursor + cfg.batch_size > len(order):
                 order = rng.permutation(len(self.trainset))
                 cursor = 0
-            idx = order[cursor:cursor + cfg.batch_size]
-            cursor += cfg.batch_size
+            idx = order[cursor:cursor + cfg.batch_size][rank * per_rank:(rank + 1) * per_rank]
             # decode-ahead: the next steps' images decode while this one runs
-            self.trainset.prefetch(order[cursor:cursor + 4 * cfg.batch_size])
+            ahead = order[cursor + cfg.batch_size:cursor + 5 * cfg.batch_size]
+            cursor += cfg.batch_size
+            mine = np.arange(len(ahead)) % cfg.batch_size // per_rank == rank
+            self.trainset.prefetch(ahead[mine])
             batch = self._batch(idx)
             H, W = batch["image"].shape[1:3]
             sh_degree = min(step // cfg.sh_degree_interval, cfg.sh_degree)
@@ -711,16 +924,12 @@ class Runner:
                     self.strategy_state, info, aux["v_means2d"])
             refine_before = self.strategy.last_refine
             # a device scalar: read (a host sync) only when a refine ran
-            alive_before = G.alive_mask(self.splats).sum()
-            self.splats, self.opt_state, self.strategy_state = (
-                self.strategy.step_post_backward(
-                    self.splats, self.opt_state, self.strategy_state, step, info,
-                    self.generator, lr=aux["lr_means"]))
+            alive_before = self._world_sum(G.alive_mask(self.splats).sum())
+            self.strategy_post_backward(step, info, aux["lr_means"])
             if self.strategy.last_refine is not refine_before:
                 self.refines.append(dict(
                     step=step, **self.strategy.last_refine,
-                    alive_before=int(alive_before),
-                    alive_after=int(G.alive_mask(self.splats).sum())))
+                    alive_before=int(alive_before), alive_after=self._alive_count()))
             if (cfg.max_capacity and isinstance(self.strategy, DefaultStrategy)
                     and self.strategy.refine_start_iter <= step <= self.strategy.refine_stop_iter
                     and step % self.strategy.refine_every == 0):
@@ -737,8 +946,8 @@ class Runner:
                 history.append({"step": step, "loss": float(loss)})
                 scalars = {
                     "train/loss": float(loss),
-                    "train/num_GS": int(G.alive_mask(self.splats).sum()),
-                    "train/visible_GS": int(aux["visibility"].sum()),
+                    "train/num_GS": self._alive_count(),
+                    "train/visible_GS": int(self._world_sum(aux["visibility"].sum())),
                     "train/sh_degree": sh_degree,
                 }
                 scalars.update({f"train/{k}": float(v) for k, v in aux["loss_terms"].items()})
@@ -748,7 +957,7 @@ class Runner:
                     scalars["train/cluster_intra"] = float(intra)
                     scalars["train/cluster_inter"] = float(inter)
                 self.logger.log(step, scalars)
-                if cfg.save_depth_normal_vis and aux["depth"] is not None:
+                if cfg.save_depth_normal_vis and aux["depth"] is not None and self.is_main:
                     self._save_depth_normal_vis(step, aux["depth"][0], batch)
             if step in cfg.eval_steps:
                 self.eval(step)
@@ -757,6 +966,34 @@ class Runner:
             if cfg.save_ply and step in cfg.ply_steps:
                 self.export_ply(step)
         return {"history": history, "wall_time_s": time.time() - t0}
+
+    def strategy_post_backward(self, step: int, info: Dict, lr: float) -> None:
+        """The strategy's step after the update. Under sharding a refine or
+        an opacity reset runs on the rows gathered whole, with the same
+        generator on every rank (so every rank draws alike) and each keeps
+        its block; the MCMC position noise of the other steps is drawn for
+        every row and each rank applies its block's."""
+        strat = self.strategy
+        if not self._blocked(self.splats):
+            self.splats, self.opt_state, self.strategy_state = strat.step_post_backward(
+                self.splats, self.opt_state, self.strategy_state, step, info,
+                self.generator, lr=lr)
+            return
+        if isinstance(strat, MCMCStrategy) and not strat.refines_at(step):
+            n = self.capacity // self.mesh.world
+            block = slice(self.mesh.rank * n, (self.mesh.rank + 1) * n)
+            noise = torch.randn((self.capacity, 3), generator=self.generator,
+                                device=self.device)[block]
+            active = (torch.arange(self.capacity, device=self.device)
+                      < int(self.strategy_state["n_alive"]))[block]
+            self.splats = inject_noise_to_position(self.splats, noise, lr * strat.noise_lr,
+                                                   active_mask=active)
+            return
+        if isinstance(strat, DefaultStrategy) and not strat.acts_at(step):
+            return
+        whole = self._gather(self._trees()).values()
+        whole = strat.step_post_backward(*whole, step, info, self.generator, lr=lr)
+        self._set_trees(self._shard(dict(zip(rows.TREES, whole))))
 
     @torch.no_grad()
     def _save_depth_normal_vis(self, step: int, depth: torch.Tensor, batch) -> None:
@@ -773,12 +1010,15 @@ class Runner:
                    os.path.join(vis_dir, f"normal_{step:05d}.png"))
 
     def close(self) -> None:
-        """Stop the training set's decode-ahead threads."""
+        """Stop the training set's decode-ahead threads, and leave the
+        world this runner joined."""
         self.trainset.close()
+        if self._owns_world and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def eval(self, step: int, stage: str = "val") -> Dict[str, Any]:
+    def eval(self, step: int, stage: str = "val", splats=None) -> Dict[str, Any]:
         """PSNR, SSIM and LPIPS over the test views, rendered by the
         forward-only ``packed_inference`` rasterizer (the appearance
         module's colours with zero embeddings); writes
@@ -787,8 +1027,11 @@ class Runner:
         comparable to learned values); ``lpips_impl`` names it. With the
         bilateral grids also ``cc_psnr``, ``cc_ssim`` and ``cc_`` + the
         LPIPS key, scored after the least-squares colour correction
-        (``bilateral_grid.color_correct``)."""
+        (``bilateral_grid.color_correct``). ``splats`` default to the
+        runner's, whole (gathered on every rank under sharding, each rank
+        scoring every view; rank 0 writes)."""
         cfg = self.cfg
+        splats = self._replicated_splats() if splats is None else splats
         metrics = defaultdict(list)
         impl = lpips_impl(cfg.lpips_net)
         lpips_key = "lpips" if impl.startswith("learned") else "lpips_proxy"
@@ -800,7 +1043,7 @@ class Runner:
             d = self.valset[i]
             H, W = d["image"].shape[:2]
             img, _, _ = self.rasterize_splats(
-                self.splats, torch.as_tensor(d["viewmat"], device=self.device)[None],
+                splats, torch.as_tensor(d["viewmat"], device=self.device)[None],
                 torch.as_tensor(d["K"], device=self.device)[None], W, H,
                 cfg.sh_degree, backgrounds=bg, rasterizer="packed_inference")
             pred = torch.clamp(img[0], 0.0, 1.0)
@@ -816,7 +1059,7 @@ class Runner:
                 metrics["cc_ssim"].append(float(L.ssim(cc[None], gt[None])))
                 metrics[f"cc_{lpips_key}"].append(
                     float(lpips(cc[None], gt[None], net=cfg.lpips_net)[0]))
-            if cfg.tb_save_image:
+            if cfg.tb_save_image and self.is_main:
                 from tdgs_torch.utils.png import write_png
 
                 both = torch.cat([gt, pred], dim=1).cpu().numpy()
@@ -829,9 +1072,10 @@ class Runner:
                                  "random-filter perceptual distance, not comparable to "
                                  "learned LPIPS values")
         out["ellipse_time"] = (time.time() - t0) / max(len(self.valset), 1)
-        out["num_GS"] = int(G.alive_mask(self.splats).sum())
-        with open(os.path.join(self.stats_dir, f"{stage}_step{step}.json"), "w") as f:
-            json.dump(out, f)
+        out["num_GS"] = int(G.alive_mask(splats).sum())
+        if self.is_main:
+            with open(os.path.join(self.stats_dir, f"{stage}_step{step}.json"), "w") as f:
+                json.dump(out, f)
         self.logger.log(step, {f"{stage}/{k}": v for k, v in out.items()})
         return out
 
@@ -862,13 +1106,14 @@ class Runner:
         K = torch.as_tensor(self.parser.Ks_dict[cam], dtype=torch.float32,
                             device=self.device)[None]
         W, H = self.parser.imsize_dict[cam]
+        splats = self._replicated_splats()
         frames = []
         for c in path:
             c2w4 = np.eye(4, dtype=np.float32)
             c2w4[:3] = c
             viewmat = torch.as_tensor(np.linalg.inv(c2w4).astype(np.float32),
                                       device=self.device)[None]
-            img, _, _ = self.rasterize_splats(self.splats, viewmat, K, W, H,
+            img, _, _ = self.rasterize_splats(splats, viewmat, K, W, H,
                                               self.cfg.sh_degree, render_mode="RGB+ED",
                                               rasterizer="packed_inference")
             frames.append((torch.clamp(img[0, ..., :3], 0, 1) * 255).to(torch.uint8))
@@ -876,57 +1121,88 @@ class Runner:
 
     def write_traj(self, step: int, frames) -> str:
         """``traj_{step}.gif`` of the frames where PIL imports, else
-        ``traj_{step}/frame_{i:04d}.png``; returns the path."""
+        ``traj_{step}/frame_{i:04d}.png``; returns the path (rank 0
+        writes)."""
         try:
             from PIL import Image
         except ImportError:
             from tdgs_torch.utils.png import write_png
 
             out = os.path.join(self.cfg.result_dir, f"traj_{step}")
-            os.makedirs(out, exist_ok=True)
-            for i, f in enumerate(frames):
-                write_png(os.path.join(out, f"frame_{i:04d}.png"), f)
+            if self.is_main:
+                os.makedirs(out, exist_ok=True)
+                for i, f in enumerate(frames):
+                    write_png(os.path.join(out, f"frame_{i:04d}.png"), f)
             return out
         out = os.path.join(self.cfg.result_dir, f"traj_{step}.gif")
+        if not self.is_main:
+            return out
         imgs = [Image.fromarray(f) for f in frames]
         imgs[0].save(out, save_all=True, append_images=imgs[1:], duration=33, loop=0)
         return out
 
     # ------------------------------------------------------------------
+    def _state(self, step: int) -> Dict[str, Any]:
+        """The checkpoint's content as tensors, under the JAX package's keys
+        (under sharding this rank's blocks of the rows)."""
+        state = {
+            "step": int(step),
+            "splats": self.splats,
+            "opt_state": self.opt_state,
+            "strategy_state": dict(self.strategy_state),
+        }
+        if self.seg_head is not None:
+            state["segmentation_head"] = self.seg_head.params()
+        return state
+
     def state_numpy(self, step: int) -> Dict[str, Any]:
         """The checkpoint's content: the JAX package's keys, holding only
-        builtins and numpy arrays."""
+        builtins and numpy arrays, the rows whole (collective under
+        sharding)."""
         def host(x):
             return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
-        state = {
-            "step": int(step),
-            "splats": tree_map(host, self.splats),
-            "opt_state": tree_map(host, self.opt_state),
-            "strategy_state": tree_map(host, dict(self.strategy_state)),
-        }
-        if self.seg_head is not None:
-            state["segmentation_head"] = seg_head_mod.head_to_numpy(self.seg_head)
-        return state
+        state = self._state(step)
+        if self.mesh is not None:
+            state = self._gather(state)
+        return tree_map(host, state)
 
     def save_checkpoint(self, step: int) -> str:
-        """Pickle of step, splats, Adam moments and strategy state."""
+        """Step, splats, Adam moments and strategy state, in the container
+        of ``Config.ckpt_format``: a pickle (rank 0 writes the gathered
+        rows) or, for ``"orbax"``, the directory of ``parallel/
+        checkpoint.py`` (each rank writes its block)."""
+        if self.cfg.ckpt_format == "orbax":
+            from tdgs_torch.parallel import checkpoint
+
+            path = os.path.abspath(os.path.join(self.ckpt_dir, f"ckpt_{step}"))
+            return checkpoint.save(path, self._state(step), self.capacity,
+                                   self.mesh if self._blocked(self.splats) else None)
         path = os.path.join(self.ckpt_dir, f"ckpt_{step}.pkl")
-        with open(path, "wb") as f:
-            pickle.dump(self.state_numpy(step), f)
+        state = self.state_numpy(step)
+        if self.is_main:
+            with open(path, "wb") as f:
+                pickle.dump(state, f)
         return path
 
-    def load_state_numpy(self, state: Dict[str, Any]) -> int:
-        """Restore from the checkpoint's content (see ``state_numpy``). A
+    def load_state_numpy(self, state: Dict[str, Any], blocks: bool = False) -> int:
+        """Restore from the checkpoint's content (see ``state_numpy``;
+        arrays or tensors). Under sharding the rows are cut to this rank's
+        block, unless ``blocks`` says they are that block already. A
         ``segmentation_head`` replaces the head; its Adam moments restart
         at zero, as the JAX package's checkpoints do not hold them."""
         def dev(x):
-            return torch.as_tensor(x, device=self.device) if isinstance(x, np.ndarray) else x
+            if isinstance(x, (np.ndarray, torch.Tensor)):
+                return torch.as_tensor(x, device=self.device)
+            return x
 
         self.splats = tree_map(dev, state["splats"])
-        self.capacity = self.splats["means"].shape[0]
+        self.capacity = self.splats["means"].shape[0] * (
+            self.mesh.world if blocks and self.mesh is not None else 1)
         self.opt_state = tree_map(dev, state["opt_state"])
         self.strategy_state.update(tree_map(dev, state["strategy_state"]))
+        if self.mesh is not None and not blocks:
+            self._set_trees(self._shard(self._trees()))
         if "segmentation_head" in state:
             self.seg_head = seg_head_mod.head_from_numpy(state["segmentation_head"],
                                                          device=self.device)
@@ -934,6 +1210,14 @@ class Runner:
         return int(state["step"])
 
     def load_checkpoint(self, path: str) -> int:
+        """Resume from either container: a pickle file, or a directory of
+        ``parallel/checkpoint.py`` (re-blocked to this world's ranks, or
+        read whole on one device)."""
+        if os.path.isdir(path):
+            from tdgs_torch.parallel import checkpoint
+
+            return self.load_state_numpy(checkpoint.load(path, self.mesh, self.device),
+                                         blocks=self.mesh is not None)
         with open(path, "rb") as f:
             return self.load_state_numpy(pickle.load(f))
 
@@ -946,26 +1230,30 @@ class Runner:
             raise ValueError("segmentation is not enabled (Config.with_segmentation)")
         d = self.trainset[view_index]
         H, W = d["image"].shape[:2]
+        splats = self._replicated_splats()
         feats = seg_head_mod.apply_segmentation_head(self.seg_head,
-                                                     self.splats["identity_encodings"])
+                                                     splats["identity_encodings"])
         fmap, _, _ = self.rasterize_splats(
-            self.splats, torch.as_tensor(d["viewmat"], device=self.device)[None],
+            splats, torch.as_tensor(d["viewmat"], device=self.device)[None],
             torch.as_tensor(d["K"], device=self.device)[None], W, H, self.cfg.sh_degree,
             rasterizer="packed_inference", override_features=feats)
         return fmap[0].cpu().numpy()
 
     def export_ply(self, step: int) -> str:
-        """The alive splats as a standard 3DGS PLY (dead rows dropped)."""
+        """The alive splats as a standard 3DGS PLY (dead rows dropped;
+        gathered under sharding, rank 0 writes)."""
         from tdgs_torch.utils.ply import save_ply
 
-        keep = G.alive_mask(self.splats)
-        s = {k: v[keep].detach().cpu().numpy() for k, v in self.splats.items()}
+        splats = self._replicated_splats()
+        keep = G.alive_mask(splats)
+        s = {k: v[keep].detach().cpu().numpy() for k, v in splats.items()}
         main = ("means", "scales", "quats", "opacities", "sh0", "shN")
         extra = {k: v for k, v in s.items() if k not in main}
         ply_dir = os.path.join(self.cfg.result_dir, "ply")
         os.makedirs(ply_dir, exist_ok=True)
         out = os.path.join(ply_dir, f"point_cloud_{step}.ply")
-        save_ply(out, *(s[k] for k in main), extra=extra or None)
+        if self.is_main:
+            save_ply(out, *(s[k] for k in main), extra=extra or None)
         return out
 
     def run_compression(self, step: int) -> Dict[str, Any]:
@@ -973,39 +1261,49 @@ class Runner:
         K-means on the runner's device) into result_dir/compression,
         decompress them and eval the round trip as stage ``compress``
         (stats/compress_step{step}.json); the splats are left as they
-        were."""
+        were. Under sharding rank 0 compresses the gathered splats and every
+        rank scores the decompressed ones."""
         from tdgs_torch.compression import PngCompression
 
         compress_dir = os.path.join(self.cfg.result_dir, "compression")
-        keep = G.alive_mask(self.splats)
+        splats = self._replicated_splats()
+        keep = G.alive_mask(splats)
         method = PngCompression(device=self.device)
-        method.compress(compress_dir, {k: v[keep].detach().cpu().numpy()
-                                       for k, v in self.splats.items()})
-        orig = self.splats
-        try:
-            self.splats = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
-                           for k, v in method.decompress(compress_dir).items()}
-            return self.eval(step, stage="compress")
-        finally:
-            self.splats = orig
+        if self.is_main:
+            method.compress(compress_dir, {k: v[keep].detach().cpu().numpy()
+                                           for k, v in splats.items()})
+        if self.mesh is not None:
+            torch.distributed.barrier()
+        decompressed = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                        for k, v in method.decompress(compress_dir).items()}
+        return self.eval(step, stage="compress", splats=decompressed)
 
     def maybe_grow_capacity(self) -> bool:
         """Double the capacity (up to ``max_capacity``) when the alive share
         passes ``capacity_growth_at``: new rows are dead, with zero moments
-        and strategy accumulators."""
+        and strategy accumulators. Under sharding the new capacity stays a
+        multiple of the world (``tdgs/training/trainer.py:1555-1567``): the
+        rows are gathered, padded and cut into the new blocks."""
         cfg = self.cfg
         if not cfg.max_capacity or self.capacity >= cfg.max_capacity:
             return False
         thresh = getattr(self.strategy, "prune_opa", 1.0 / 255.0)
-        alive = int((torch.sigmoid(self.splats["opacities"]) > thresh).sum())
+        alive = int(self._world_sum((torch.sigmoid(self.splats["opacities"]) > thresh).sum()))
         if alive <= cfg.capacity_growth_at * self.capacity:
             return False
         old = self.capacity
-        new_cap = min(2 * old, int(cfg.max_capacity))
+        world = self.mesh.world if self.mesh is not None else 1
+        new_cap = min(2 * old, int(cfg.max_capacity)) // world * world
         if new_cap <= old:
             return False
-        self.splats = G.pad_splats(self.splats, new_cap)
-        self.opt_state = pad_rows(self.opt_state, old, new_cap)
-        self.strategy_state = pad_rows(self.strategy_state, old, new_cap)
+        trees = self._trees()
+        if self._blocked(self.splats):
+            trees = self._gather(trees)
+        splats, opt_state, strategy_state = (trees[k] for k in rows.TREES)
+        self.splats = G.pad_splats(splats, new_cap)
+        self.opt_state = pad_rows(opt_state, old, new_cap)
+        self.strategy_state = pad_rows(strategy_state, old, new_cap)
         self.capacity = new_cap
+        if self.mesh is not None:
+            self._set_trees(self._shard(self._trees()))
         return True

@@ -3,7 +3,9 @@ compositing forward (kernel 1), its backward (kernel 2), the sorted
 segment sum (kernel 3), the 2DGS forwards (kernels 4 and 5) and
 backward (kernel 6), the eval3d (3DGUT) forward (kernel 7) and
 backward (kernel 8), and the tile-dense forward (kernel 9) and backward
-(kernel 10).
+(kernel 10); and the sharded renders of ``tdgs_torch.parallel`` on worlds
+of 2 and 4 ranks sharing the card, which run those kernels through the
+exchange, each against the single-rank render of its cameras.
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card. The file imports neither JAX nor the JAX package, so it also
@@ -44,6 +46,7 @@ from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed_inference_plain,
 )
 from tdgs_torch.ops.tiling import isect_tiles_packed
+from tdgs_torch.parallel import checks, launch
 
 ATOL = 1e-3
 W, H = 40, 36  # a partial last tile row and column
@@ -1770,3 +1773,51 @@ def test_kernels_1_2_at_the_depth_path_d4_on_card(cuda_device, layout, tile_size
     if layout == "cut_entries":
         start = int(args[7][1])
         assert float(first[start + 128:start + 300].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the sharded path on the card: worlds of 2 (and 4, the 2-D mesh) ranks
+# sharing one card over gloo, each case against the single-rank render of
+# each rank's cameras (parallel.checks), kernels 1-10 through the exchange
+# ---------------------------------------------------------------------------
+
+SHARDED_CASES = dict(checks.RENDER_CASES, **checks.MESH2D_CASES)
+
+
+@pytest.fixture(scope="module")
+def sharded_results():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    names = sorted(checks.RENDER_CASES)
+    res = launch.run(checks.render_cases, 2, names, None, "cuda", device="cuda",
+                     timeout_s=600)
+    out = {n: [r[n] for r in res] for n in names}
+    res4 = launch.run(checks.render_cases, 4, ["mesh2d"], (2, 2), "cuda", device="cuda",
+                      timeout_s=600)
+    out["mesh2d"] = [r["mesh2d"] for r in res4]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+def test_sharded_render_matches_single_rank_on_card(sharded_results, case):
+    """Each rank's sharded render (outputs and the gradients of every
+    gaussian input, summed over the ranks) against the single-rank render of
+    its cameras: ATOL on outputs (the ED channel relatively where alpha >
+    0.1), 1e-3 of the largest gradient per input."""
+    for r, res in enumerate(sharded_results[case]):
+        for k in ("img", "alpha", "normals", "distort"):
+            if f"single_{k}" not in res:
+                continue
+            got, want = res[k], res[f"single_{k}"]
+            assert np.isfinite(got).all(), (case, r, k)
+            if k == "img" and SHARDED_CASES[case]["render_mode"].endswith("ED"):
+                seen = res["single_alpha"][..., 0] > 0.1
+                np.testing.assert_allclose(got[..., -1][seen], want[..., -1][seen], rtol=2e-3)
+                got, want = got[..., :-1], want[..., :-1]
+            np.testing.assert_allclose(got, want, atol=ATOL, err_msg=f"{case}/{r}/{k}")
+        for k in res:
+            if k.startswith("single_grad_"):
+                g, w = res[k[len("single_"):]], res[k]
+                scale = max(float(np.abs(w).max()), 1e-30)
+                assert float(np.abs(g - w).max()) <= 1e-3 * scale, (case, r, k)

@@ -148,6 +148,9 @@ import tdgs_torch.datasets.prefetch, tdgs_torch.datasets.traj, tdgs_torch.utils.
 import tdgs_torch.training.modules, tdgs_torch.training.bilateral_grid
 import tdgs_torch.compression, tdgs_torch.compression.png_compression
 import tdgs_torch.ops.rasterize_eval3d, tdgs_torch.ops.rasterize_2dgs_jax
+import tdgs_torch.parallel, tdgs_torch.parallel.comm, tdgs_torch.parallel.mesh
+import tdgs_torch.parallel.launch, tdgs_torch.parallel.sharded_render
+import tdgs_torch.parallel.checkpoint, tdgs_torch.parallel.checks, tdgs_torch.parallel.rows
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "tdgs"
              or m.startswith("tdgs.") or m == "optax" or m.startswith("optax."))
@@ -187,6 +190,12 @@ def test_kernel_ab_imports_no_jax_and_no_tdgs():
     roots = _imported_roots("kernel_ab.py")
     assert "jax" not in roots and "tdgs" not in roots, sorted(roots)
     assert {"tdgs_torch", "chip_smoke"} <= roots
+
+
+def test_chain_clusters_imports_no_jax_and_no_tdgs():
+    roots = _imported_roots("chain_clusters.py")
+    assert "jax" not in roots and "tdgs" not in roots, sorted(roots)
+    assert "tdgs_torch" in roots
 
 
 def test_main_cli_rally_on_cpu(tmp_path):

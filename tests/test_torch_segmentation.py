@@ -217,6 +217,35 @@ def test_anchor_kmeans_background_matches():
     assert (got["labels"] == -1).sum() >= 1 and len(set(got["labels"].tolist())) == 4
 
 
+def test_chain_clusters_only_live_rows():
+    """The chain's clustering (``rally_e2e.cluster_live_rows``) leaves the
+    capacity's dead rows, which share one encoding, out of the K-means.
+    Clustered with the live rows, as the JAX example does before its
+    opacity cut, they capture an anchor and an instance is lost."""
+    from tdgs_torch.rally_e2e import cluster_live_rows
+
+    rng = np.random.default_rng(6)
+    fmap, mask = _mask_scene(6, n_inst=3)
+    centers = np.stack([fmap[mask == i].mean(0) for i in (1, 2, 3)])
+    live = np.concatenate([c + rng.normal(size=(80, 16)) * 0.4 for c in centers])
+    dead = np.tile(rng.normal(size=(1, 16)), (2000, 1))
+    enc = np.concatenate([live, dead]).astype(np.float32)
+    opac = np.concatenate([np.full(240, 0.9), np.full(2000, 1e-3)])
+    truth = np.repeat([0, 1, 2], 80)
+
+    ref = jclu.kmeans_identity_encodings_background(fmap, mask, enc)["labels"]
+    ref[opac < 0.05] = -1
+    assert len(set(ref[:240].tolist()) - {-1}) < 3
+
+    got = cluster_live_rows(fmap, mask, torch.from_numpy(enc), opac, device="cpu")
+    labels = got["labels"]
+    assert labels.shape == (2240,) and (labels[240:] == -1).all()
+    for i in range(3):
+        kept = labels[:240][(truth == i) & (labels[:240] >= 0)]
+        assert len(kept) >= 70 and (kept == i).all()
+    assert (labels[:240] == -1).sum() == 12  # the 95th percentile's outliers
+
+
 def test_dbscan_matches():
     pytest.importorskip("sklearn")
     X, _ = _clusters(7, n_per=40, K=3)

@@ -427,14 +427,14 @@ def test_runner_config_raises_for_unported_features(tmp_path):
     base.check_ported()
     dataclasses.replace(base, model_type="2dgs", normal_loss=True, dist_loss=True).check_ported()
     for change in (dict(pose_opt=True, pose_noise=1e-3), dict(app_opt=True),
-                   dict(compression="png"), dict(use_bilateral_grid=True)):
+                   dict(compression="png"), dict(use_bilateral_grid=True),
+                   dict(model_type="2dgs", sharded=True), dict(sharded=True),
+                   dict(ckpt_format="orbax")):
         dataclasses.replace(base, **change).check_ported()
-    for change in (dict(model_type="2dgs", sharded=True), dict(sharded=True),
-                   dict(disable_viewer=False)):
-        with pytest.raises(NotImplementedError):
-            dataclasses.replace(base, **change).check_ported()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dataclasses.replace(base, ckpt_format="orbax").check_ported()
+    with pytest.raises(NotImplementedError, match="item 6"):
+        dataclasses.replace(base, disable_viewer=False).check_ported()
+    with pytest.raises(ValueError, match="ckpt_format"):
+        dataclasses.replace(base, ckpt_format="msgpack").check_ported()
 
 
 @pytest.mark.parametrize("mode", ["RGB", "D", "ED", "RGB+D", "RGB+ED"])
