@@ -28,7 +28,14 @@ trained by two ranks sharing the card through ``torch.distributed.run``,
 its first loss against the single-rank Runner's and its sharded checkpoint
 read back; the bench scene seen by two cameras on a world of 2 ranks over
 gloo, kernels 1-10 through the exchange against the single-rank render,
-and on a world of 1 over NCCL), and print one JSON line per phase.
+and on a world of 1 over NCCL), then the viewer (``tdgs_torch.viewer``:
+the bench scene served at 1920x1080 for each family through kernels 1, 4
+and 7, each frame held against a direct render and its JPEG against the
+frame; the trainer cell with the live viewer serving frames while it
+trains, then its PLY served by ``python -m tdgs_torch.simple_viewer``),
+kernel 4 against the float64 surfel golden, and the clustering command
+line (``python -m tdgs_torch.load_identity_encodings``) on the chain's
+checkpoint, and print one JSON line per phase.
 
     python3 chip_smoke.py
 
@@ -911,7 +918,7 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100, rasterizer="pac
     if eval_launches < len(runner.valset):
         raise RuntimeError(f"{name}: eval launched {eval_kernel} {eval_launches} times "
                            f"for {len(runner.valset)} views")
-    return launches, eval_launches
+    return launches, eval_launches, n_steps / wall
 
 
 # ---------------------------------------------------------------------------
@@ -3042,6 +3049,367 @@ def phase_trainer_sharded(root, n_steps=100):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the viewer (tdgs_torch.viewer, the Runner's live view, simple_viewer), the
+# clustering command line, and the surfel golden
+# ---------------------------------------------------------------------------
+
+VIEWER_FAMILIES = {"3dgs": KERNEL, "2dgs": R2.KERNEL_FWD, "3dgut": E.KERNEL_FWD}
+JPEG_MAE = 3.0  # served JPEG against the frame, mean |Δ| in 8-bit levels
+
+
+def viewer_splats(sc):
+    """A scene's raw splat dict (log scales, logit opacities, sh0/shN)."""
+    return dict(means=sc["means"], quats=sc["quats"], scales=torch.log(sc["scales"]),
+                opacities=torch.logit(sc["opacities"]), sh0=sc["sh"][:, :1],
+                shN=sc["sh"][:, 1:])
+
+
+def viewer_poses(n, seed=5):
+    """The bench view and n − 1 poses near it (turned by up to 0.04 rad,
+    moved by up to 0.3), each still facing the scene."""
+    from tdgs_torch.ops.transforms import quat_to_rotmat
+
+    rng = np.random.default_rng(seed)
+    poses = [np.eye(4, dtype=np.float32)]
+    for _ in range(n - 1):
+        q = np.concatenate([[1.0], rng.uniform(-0.02, 0.02, 3)]).astype(np.float32)
+        vm = np.eye(4, dtype=np.float32)
+        vm[:3, :3] = quat_to_rotmat(torch.as_tensor(q / np.linalg.norm(q))).numpy()
+        vm[:3, 3] = rng.uniform(-0.3, 0.3, 3)
+        poses.append(vm)
+    return poses
+
+
+def http_get(url, timeout=120):
+    """(status, body, ms) of a GET, on the host clock."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def decode_jpeg(body):
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+
+
+def phase_viewer(bench, n_requests=20):
+    """Each family (3DGS kernel 1, 2DGS kernel 4, 3DGUT kernel 7) served at
+    1920x1080 from the bench scene by a ``ViewerServer`` on 127.0.0.1 over
+    ``make_splat_render_fn``: the page once, rgb/depth/alpha once each to
+    warm up, then ``n_requests`` rgb frames through ``?vm=`` (the bench view
+    and poses near it). Reports request ms (host clock, the JPEG encode
+    included), the render's ms (CUDA events around the rasterization call
+    inside ``render_fn``), ``render_fn``'s host ms (the render, the copy to
+    the host and the uint8 conversion), the JPEG encode's host ms, JPEG
+    bytes and the kernel's launches. Fails on a 500, unless the bench
+    view's frame is within 1 level of a direct ``rasterization`` call on
+    the same inputs after the same conversion, unless the served JPEG of it
+    decodes within 3 levels (mean) of that frame, or unless the kernel
+    launched once a request."""
+    from tdgs_torch.viewer import server as V
+
+    raw = viewer_splats(bench)
+    K0 = bench["Ks"][0].cpu().numpy()
+    poses = viewer_poses(n_requests)
+    out = {}
+    for family, kernel in VIEWER_FAMILIES.items():
+        render_ms, host_ms = [], []
+        direct = {"rasterization": V.rasterization, "rasterization_2dgs": V.rasterization_2dgs}
+
+        def timed(fn):
+            def call(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                res = fn(*a, **k)
+                end.record()
+                render_ms.append((start, end))
+                return res
+            return call
+
+        V.rasterization = timed(direct["rasterization"])
+        V.rasterization_2dgs = timed(direct["rasterization_2dgs"])
+        try:
+            fn = V.make_splat_render_fn(raw, model_type=family, device=DEVICE)
+
+            def render_fn(*a):
+                t0 = time.perf_counter()
+                img = fn(*a)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                return img
+
+            server = V.ViewerServer(render_fn, width=WIDTH, height=HEIGHT, port=0,
+                                    host="127.0.0.1", focal=float(K0[0, 0]))
+            th = server.start()
+            base = f"http://127.0.0.1:{server.port}"
+            try:
+                codes = [http_get(base + "/")[0]]
+                for mode in ("rgb", "depth", "alpha"):
+                    codes.append(http_get(f"{base}/render?w={WIDTH}&h={HEIGHT}&mode={mode}")[0])
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                render_ms.clear()
+                host_ms.clear()
+                req_ms, sizes, bodies = [], [], []
+                for vm in poses:
+                    q = ",".join(repr(float(x)) for x in vm.reshape(-1))
+                    code, body, ms = http_get(f"{base}/render?w={WIDTH}&h={HEIGHT}&mode=rgb"
+                                              f"&vm={q}")
+                    codes.append(code)
+                    req_ms.append(ms)
+                    sizes.append(len(body))
+                    bodies.append(body)
+                launches = _build.LAUNCHES.get(kernel, 0)
+                dev_ms = [s.elapsed_time(e) for s, e in render_ms]
+                # the bench view's frame: render_fn against a direct call
+                st = V.RenderTabState(render_mode="rgb")
+                frame = fn(poses[0], server.intrinsics(WIDTH, HEIGHT), WIDTH, HEIGHT, st)
+            finally:
+                server.shutdown()
+                th.join(timeout=30)
+        finally:
+            V.rasterization, V.rasterization_2dgs = direct.values()
+        rast = V.viewer_rasterizer(family, torch.device(DEVICE))
+        args = (bench["means"], bench["quats"], torch.exp(raw["scales"]),
+                torch.sigmoid(raw["opacities"]), bench["sh"],
+                torch.as_tensor(poses[0], device=DEVICE)[None],
+                torch.as_tensor(server.intrinsics(WIDTH, HEIGHT), device=DEVICE)[None],
+                WIDTH, HEIGHT)
+        kw = dict(sh_degree=3, backgrounds=torch.zeros((1, 3), device=DEVICE),
+                  rasterizer=rast, device=DEVICE)
+        with torch.no_grad():
+            if family == "2dgs":
+                res = tdgs_torch.rasterization_2dgs(*args, **kw)
+            else:
+                res = tdgs_torch.rasterization(*args, **kw)
+        want = V.frame_to_uint8(res[0], res[1], "rgb")
+        level = int(np.abs(frame.astype(np.int16) - want.astype(np.int16)).max())
+        served = decode_jpeg(bodies[0])
+        jpeg_mae = float(np.abs(served.astype(np.float32) - frame).mean())
+        # the same frame at PIL's default chroma subsampling (4:2:0), for the record
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(frame).save(buf, "JPEG", quality=90)
+        jpeg_mae_420 = float(np.abs(decode_jpeg(buf.getvalue()).astype(np.float32)
+                                    - frame).mean())
+        t0 = time.perf_counter()
+        for _ in range(5):
+            V.encode_jpeg(frame)
+        jpeg_ms = (time.perf_counter() - t0) / 5 * 1e3
+        out[family] = dict(
+            kernel=kernel, rasterizer=rast, requests=len(poses),
+            request_ms_median=float(np.median(req_ms)),
+            request_ms_p90=float(np.percentile(req_ms, 90)),
+            render_ms_median=float(np.median(dev_ms)),
+            render_fn_host_ms_median=float(np.median(host_ms)),
+            jpeg_encode_ms=jpeg_ms, jpeg_bytes_median=int(np.median(sizes)),
+            launches=launches, max_level_vs_direct=level, jpeg_mae_levels=jpeg_mae,
+            jpeg_mae_levels_420=jpeg_mae_420, jpeg_bytes_420=len(buf.getvalue()),
+            codes=sorted(set(codes)), frame_mean=float(frame.mean()))
+        emit(f"viewer_{family}", **out[family])
+        bad = [c for c in codes if c != 200]
+        if bad:
+            raise RuntimeError(f"viewer {family}: HTTP {bad}")
+        if level > 1:
+            raise RuntimeError(f"viewer {family}: frame {level} levels off the direct render")
+        if jpeg_mae > JPEG_MAE:
+            raise RuntimeError(f"viewer {family}: JPEG {jpeg_mae:.2f} levels off its frame")
+        if launches < len(poses):
+            raise RuntimeError(f"viewer {family}: {kernel} launched {launches} times "
+                               f"for {len(poses)} requests")
+        if frame.mean() <= 1.0:
+            raise RuntimeError(f"viewer {family}: the bench view renders black")
+    return out
+
+
+def phase_trainer_viewer(root, n_steps=100, width=960, height=540):
+    """The trainer cell with the live viewer on (``disable_viewer=False``,
+    a free port): a client thread fetches ``/render`` at 960x540 in a loop
+    while it trains ``n_steps``. Reports steps/s, frames served and their
+    request ms, and kernels 1-3's launches (kernel 1's include the frames).
+    Fails unless the RGB loss drops, every frame is a JPEG with no 500, and
+    after training ``_viewer_render_fn`` gives a finite frame in every mode
+    for 3DGS (kernel 1) and for the same splats as 2DGS surfels (kernel 4).
+    Then the PLY and .splat exports, and the PLY served once by ``python -m
+    tdgs_torch.simple_viewer --model-type 3dgut`` (kernel 7) as a process
+    of its own: one frame, then it is killed."""
+    import dataclasses
+    import threading
+
+    from tdgs_torch.viewer import RenderTabState
+
+    cfg = cell_config(root, "trainer_viewer", n_steps, disable_viewer=False, viewer_port=0)
+    runner = Runner(cfg, device=DEVICE)
+    port = runner.viewer.port
+    frames, codes, ms = [], [], []
+    stop = threading.Event()
+
+    def client():
+        while not stop.is_set():
+            code, body, t = http_get(f"http://127.0.0.1:{port}/render?w={width}&h={height}"
+                                     "&mode=rgb")
+            codes.append(code)
+            frames.append(body[:2] == b"\xff\xd8")
+            ms.append(t)
+
+    th = threading.Thread(target=client, daemon=True)
+    _build.reset_launches()
+    th.start()
+    try:
+        steps_per_s, _, hist = train_timed(runner, n_steps)
+        n_during = len(frames)
+    finally:
+        stop.set()
+        th.join(timeout=120)
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in KERNELS}
+    recs = train_records(cfg.result_dir)
+    rgb_first, rgb_last = recs[0]["train/rgbloss"], recs[-1]["train/rgbloss"]
+    d = runner.trainset[0]
+    vm, K = np.asarray(d["viewmat"]), np.asarray(d["K"])
+    H, W = d["image"].shape[:2]
+    finite = {}
+    for family in ("3dgs", "2dgs"):
+        cfg0 = runner.cfg
+        if family == "2dgs":
+            runner.cfg = dataclasses.replace(cfg0, model_type="2dgs")
+        _build.reset_launches()
+        try:
+            for mode in ("rgb", "depth", "alpha"):
+                img = runner._viewer_render_fn(vm, K, W, H, RenderTabState(render_mode=mode))
+                finite[f"{family}_{mode}"] = bool(img.shape == (H, W, 3) and img.max() > 0)
+        finally:
+            runner.cfg = cfg0
+        finite[f"{family}_launches"] = _build.LAUNCHES.get(VIEWER_FAMILIES[family], 0)
+    ply = runner.export_ply(n_steps)
+    splat = runner.export_ply(n_steps, format="splat")
+    sizes = {"ply_bytes": os.path.getsize(ply), "splat_bytes": os.path.getsize(splat)}
+    runner.close()
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tdgs_torch.simple_viewer", "--ply", ply, "--model-type",
+         "3dgut", "--port", "0", "--host", "127.0.0.1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        line, log = "", []
+        while "viewer at" not in line:
+            line = proc.stdout.readline()
+            log.append(line)
+            if not line:
+                raise RuntimeError(f"simple_viewer exited: {''.join(log)[-2000:]}")
+        cli_code, cli_body, cli_ms = http_get(
+            f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}/render?w={width}&h={height}"
+            "&dist=4")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    emit("trainer_viewer", steps=n_steps, steps_per_s=steps_per_s, frames=len(frames),
+         frames_during_training=n_during, frame_ms_median=float(np.median(ms)) if ms else None,
+         frame_ms_p90=float(np.percentile(ms, 90)) if ms else None,
+         codes=sorted(set(codes)), launches=launches, rgbloss_first=rgb_first,
+         rgbloss_last=rgb_last, loss_history=hist, live_frames=finite, **sizes,
+         simple_viewer_3dgut=dict(code=cli_code, jpeg=cli_body[:2] == b"\xff\xd8",
+                                  ms=cli_ms))
+    failures = [
+        (rgb_last < rgb_first, f"RGB loss {rgb_first} -> {rgb_last}"),
+        (n_during > 0, "no frame served during training"),
+        (set(codes) == {200} and all(frames), f"HTTP {sorted(set(codes))}, non-JPEG frames"),
+        (all(v for k, v in finite.items() if not k.endswith("launches")),
+         f"live frames {finite}"),
+        (finite["3dgs_launches"] >= 3 and finite["2dgs_launches"] >= 3,
+         f"live frames' launches {finite}"),
+        (cli_code == 200 and cli_body[:2] == b"\xff\xd8", f"simple_viewer HTTP {cli_code}"),
+    ] + [(launches[k] >= n_steps, f"{k} launched {launches[k]} times") for k in KERNELS]
+    bad = [msg for ok, msg in failures if not ok]
+    if bad:
+        raise RuntimeError(f"trainer_viewer: {'; '.join(bad)}")
+    return launches, steps_per_s
+
+
+def phase_load_identity_encodings(root, summary, min_cluster=100):
+    """``python -m tdgs_torch.load_identity_encodings`` (its ``main``) on the
+    chain's checkpoint and scene, the K-means at its defaults, the view
+    read in the chain's frame (``--no-normalize-world-space``) and taken
+    from the side of the row (``--view-index 6``: the first views look down
+    the row, where the front dominoes hide the rear ones' masks). Held to
+    the chain's bar: one cluster a domino, each of at least
+    ``min_cluster`` gaussians (a seventh of the 700 a domino is drawn
+    with); kernel 1 renders the identity map at D = 16."""
+    from tdgs_torch.load_identity_encodings import build_parser, run
+
+    out = f"{root}/cluster_groups_cli.npz"
+    args = build_parser().parse_args([
+        "--ckpt", f"{root}/out/ckpts/ckpt_{summary['steps']}.pkl", "--data-dir",
+        f"{root}/data", "--out", out, "--view-index", "6", "--no-normalize-world-space",
+        "--device", DEVICE])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = run(args)
+    wall = time.perf_counter() - t0
+    launches = _build.LAUNCHES.get(KERNEL, 0)
+    emit("load_identity_encodings", wall_s=wall, kernel_launches=launches, **res)
+    n = summary["n_dominoes"]
+    if (res["clusters"] != n or min(res["cluster_sizes"], default=0) < min_cluster
+            or launches < 1):
+        raise RuntimeError(f"load_identity_encodings: clusters {res['cluster_sizes']} of {n} "
+                           f"(each needs {min_cluster}), kernel 1 launched {launches} times")
+    return res
+
+
+def phase_golden_2dgs(bench, tile_capacity=4096):
+    """Kernel 4's bench frame ("RGB", the surfels' SH colours) against
+    ``compose_reference_2dgs_f64`` over the same packed stream, in dB
+    (colours and alpha), held to 40 dB as ``kernel_vs_oracle_psnr`` is;
+    ``tile_capacity`` keeps every entry of the stream's fullest tile."""
+    from tdgs_torch.rally_e2e import psnr_np
+    from tdgs_torch.utils.golden import compose_reference_2dgs_f64
+
+    with torch.no_grad():
+        out = tdgs_torch.rasterization_2dgs(
+            bench["means"], bench["quats"], bench["scales"], bench["opacities"], bench["sh"],
+            bench["viewmats"], bench["Ks"], WIDTH, HEIGHT, sh_degree=3,
+            tile_capacity=tile_capacity, max_tiles_per_gauss=16,
+            rasterizer="packed_inference", device=DEVICE)
+        meta = out[6]
+        cols = _colors_per_camera(bench["sh"], 3, bench["means"], bench["viewmats"],
+                                  meta["radii"])
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    offsets = host(meta["isect_offsets"])
+    fullest = int(np.diff(offsets).max())
+    t0 = time.perf_counter()
+    img, alpha = compose_reference_2dgs_f64(
+        offsets, host(meta["flatten_ids"]), host(meta["means2d"]).reshape(-1, 2),
+        host(meta["ray_transforms"]).reshape(-1, 3, 3), host(cols).reshape(-1, 3),
+        host(meta["opacities"]).reshape(-1), WIDTH, HEIGHT, 16, meta["tile_width"],
+        meta["tile_height"], n_isects=int(meta["n_isects"]))
+    oracle_s = time.perf_counter() - t0
+    psnr = psnr_np(np.clip(host(out[0][0]), 0, 1), np.clip(img, 0, 1))
+    psnr_alpha = psnr_np(host(out[1][0, ..., 0]), alpha)
+    emit("golden_2dgs", psnr=psnr, psnr_alpha=psnr_alpha, n_isects=int(meta["n_isects"]),
+         fullest_tile=fullest, tile_capacity=tile_capacity, oracle_s=oracle_s)
+    if fullest > tile_capacity:
+        raise RuntimeError(f"golden_2dgs: a tile holds {fullest} > {tile_capacity} entries")
+    if psnr < 40.0 or psnr_alpha < 40.0:
+        raise RuntimeError(f"golden_2dgs: kernel 4 vs float64 {psnr:.2f} dB "
+                           f"(alpha {psnr_alpha:.2f}) < 40")
+    return psnr
+
+
 def main():
     if sys.argv[1:2] == ["--trainer-sharded-rank"]:
         # one rank of phase_trainer_sharded, under torch.distributed.run
@@ -3076,27 +3444,31 @@ def main():
         t0 = time.perf_counter()
         gt = make_rich_scene(root, device=DEVICE)
         scene_s = time.perf_counter() - t0
-        trainer_launches, trainer_eval = phase_trainer(root, scene_s)
+        trainer_launches, trainer_eval, trainer_rate = phase_trainer(root, scene_s)
+        trainer_viewer_launches, trainer_viewer_rate = phase_trainer_viewer(root)
+        emit("trainer_viewer_vs_trainer", trainer_steps_per_s=trainer_rate,
+             trainer_viewer_steps_per_s=trainer_viewer_rate,
+             ratio=trainer_viewer_rate / trainer_rate)
         k_train = measure_train_kernels(train_inputs)
 
         cap_2dgs = bench_capacity_2dgs(bench)
         errs_2dgs, par_rgb, par_ed = phase_parity_2dgs(bench, heavy, cap_2dgs)
         render_2dgs_launches = phase_bench_render_2dgs(bench, cap_2dgs)
         train_2dgs_launches = phase_render_train_2dgs(bench, cap_2dgs)
-        trainer_2dgs_launches, trainer_2dgs_eval = phase_trainer(root, scene_s, "2dgs")
+        trainer_2dgs_launches, trainer_2dgs_eval, _ = phase_trainer(root, scene_s, "2dgs")
 
         # the eval3d tiling of the bench render is the 3DGS one: same capacity
         errs_e3, par_e3 = phase_parity_eval3d(bench, heavy, cap)
         render_e3_launches = phase_bench_render_eval3d(bench, cap)
         train_e3_launches = phase_render_train_eval3d(bench, cap)
-        trainer_e3_launches, trainer_e3_eval = phase_trainer(root, scene_s, "3dgut")
+        trainer_e3_launches, trainer_e3_eval, _ = phase_trainer(root, scene_s, "3dgut")
         phase_cli_3dgut(root)
 
         cap_dense = dense_capacity(bench)
         errs_dense, par_dense, par_fitting = phase_parity_dense(bench, heavy, cap_dense)
         render_dense_launches = phase_bench_render_pallas(bench, cap_dense)
         train_dense_launches = phase_render_train(bench, cap_dense, rasterizer="pallas")
-        trainer_dense_launches, _ = phase_trainer(root, scene_s, rasterizer="pallas")
+        trainer_dense_launches, _, _ = phase_trainer(root, scene_s, rasterizer="pallas")
         fitting_launches = phase_image_fitting()
 
         phase_depth_scene(root, gt)
@@ -3115,12 +3487,15 @@ def main():
         shutil.rmtree(root, ignore_errors=True)
     sharded_launches, sharded_errs = phase_parity_sharded()
     errs_ref = phase_parity_dense_reference(bench)
+    viewer = phase_viewer(bench)
+    golden_2dgs = phase_golden_2dgs(bench)
     fitting_2dgs_launches = phase_image_fitting_2dgs()
     root_e2e = tempfile.mkdtemp(prefix="tdgs_rally_e2e_")
     try:
         e2e, e2e_launches = phase_rally_e2e(root_e2e)
         ident, k_ident, err_e2e, k_e2e = phase_parity_identity(root_e2e, e2e)
         phase_seg_step(root_e2e, e2e)
+        phase_load_identity_encodings(root_e2e, e2e)
     finally:
         shutil.rmtree(root_e2e, ignore_errors=True)
     k_eval3d, seg_eval3d = measure_kernels_eval3d(par_e3)
@@ -3185,6 +3560,15 @@ def main():
             fields["parity_sharded_max_rel_err"] = sharded_errs[name]["bwd_rel"]
     for name in KERNELS:
         new_fields[name]["trainer_sharded_launches"] = trainer_sharded_launches[name]
+    # the viewer (kernels 1, 4, 7: 20 requests at 1080p each) and the trainer
+    # with the live viewer on (kernels 1-3; kernel 1's count holds the frames)
+    for family, v in viewer.items():
+        new_fields.setdefault(v["kernel"], {}).update(
+            viewer_launches=v["launches"], viewer_ms=v["render_ms_median"],
+            viewer_request_ms=v["request_ms_median"])
+    new_fields[R2.KERNEL_FWD]["golden_2dgs_psnr"] = golden_2dgs
+    for name in KERNELS:
+        new_fields[name]["trainer_viewer_launches"] = trainer_viewer_launches[name]
 
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7

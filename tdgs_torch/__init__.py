@@ -21,7 +21,24 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from tdgs_torch.ops.projection import fully_fused_projection  # noqa: E402
+from tdgs_torch.compression import PngCompression  # noqa: E402
+from tdgs_torch.ops.adam import SelectiveAdam, selective_adam  # noqa: E402
+from tdgs_torch.ops.camera_models import RollingShutterType  # noqa: E402
+from tdgs_torch.ops.indices import (  # noqa: E402
+    accumulate,
+    accumulate_2dgs,
+    rasterize_to_indices_in_range,
+    rasterize_to_indices_in_range_2dgs,
+)
+from tdgs_torch.ops.projection import fully_fused_projection, proj  # noqa: E402
+from tdgs_torch.ops.projection_2dgs import fully_fused_projection_2dgs  # noqa: E402
+from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut  # noqa: E402
+from tdgs_torch.ops.rasterize_2dgs_jax import (  # noqa: E402
+    rasterize_to_pixels_2dgs_jax as rasterize_to_pixels_2dgs,
+)
+from tdgs_torch.ops.rasterize_eval3d import (  # noqa: E402
+    rasterize_to_pixels_eval3d_jax as rasterize_to_pixels_eval3d,
+)
 from tdgs_torch.ops.rasterize_jax import (  # noqa: E402
     rasterize_to_pixels_jax as rasterize_to_pixels,
 )
@@ -31,6 +48,7 @@ from tdgs_torch.ops.rasterize_packed import (  # noqa: E402
     rasterize_to_pixels_packed_inference,
     rasterize_to_pixels_packed_inference_plain,
 )
+from tdgs_torch.ops.relocation import compute_relocation  # noqa: E402
 from tdgs_torch.ops.sh import spherical_harmonics  # noqa: E402
 from tdgs_torch.ops.tiling import (  # noqa: E402
     isect_offset_encode,
@@ -42,25 +60,53 @@ from tdgs_torch.ops.transforms import (  # noqa: E402
     quat_to_rotmat,
     world_to_cam,
 )
-from tdgs_torch.rendering import rasterization, rasterization_2dgs  # noqa: E402
+from tdgs_torch.rendering import (  # noqa: E402
+    rasterization,
+    rasterization_2dgs,
+    rasterization_2dgs_inria_wrapper,
+    rasterization_inria_wrapper,
+)
+from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy, Strategy  # noqa: E402
+from tdgs_torch.utils.ply import export_splats  # noqa: E402
 
 __version__ = "0.1.0"
 
+# every name of the JAX package's ``tdgs.__all__``, then the port's own
 __all__ = [
+    "PngCompression",
+    "DefaultStrategy",
+    "MCMCStrategy",
+    "Strategy",
     "rasterization",
     "rasterization_2dgs",
+    "rasterization_inria_wrapper",
+    "rasterization_2dgs_inria_wrapper",
     "spherical_harmonics",
     "isect_offset_encode",
     "isect_tiles",
-    "isect_tiles_packed",
+    "proj",
     "fully_fused_projection",
     "quat_scale_to_covar_preci",
     "quat_to_rotmat",
     "rasterize_to_pixels",
+    "world_to_cam",
+    "accumulate",
+    "rasterize_to_indices_in_range",
+    "fully_fused_projection_2dgs",
+    "rasterize_to_pixels_2dgs",
+    "rasterize_to_indices_in_range_2dgs",
+    "accumulate_2dgs",
+    "RollingShutterType",
+    "fully_fused_projection_with_ut",
+    "rasterize_to_pixels_eval3d",
+    "SelectiveAdam",
+    "selective_adam",
+    "compute_relocation",
+    "export_splats",
+    "__version__",
+    "isect_tiles_packed",
     "rasterize_to_pixels_pallas",
     "rasterize_to_pixels_packed",
     "rasterize_to_pixels_packed_inference",
     "rasterize_to_pixels_packed_inference_plain",
-    "world_to_cam",
-    "__version__",
 ]

@@ -77,3 +77,36 @@ def selective_adam(
         return steps, SelectiveAdamState(state.count + 1, ms, vs)
 
     return init_fn, update_fn
+
+
+class SelectiveAdam:
+    """Stateful selective Adam with the reference optimizer's name and
+    ``step(visibility)`` shape (gsplat/optimizers/selective_adam.py), over
+    :func:`selective_adam_step`:
+
+        opt = SelectiveAdam(params, lr=1e-3, eps=1e-8, betas=(0.9, 0.999))
+        params = opt.step(grads, visibility=vis_mask)
+
+    ``params`` and ``grads`` are dicts of tensors; ``lr`` a scalar or a
+    dict keyed like ``params`` (per-group learning rates). No bias
+    correction; masked-out rows keep their moments and value. ``step``
+    returns new tensors and leaves the old ones untouched."""
+
+    def __init__(self, params: Params, lr: Union[float, Dict[str, float]] = 1e-3,
+                 eps: float = 1e-8, betas=(0.9, 0.999)):
+        self.params = dict(params)
+        self.lr = lr
+        self.eps = eps
+        self.b1, self.b2 = betas
+        self.exp_avg = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.exp_avg_sq = {k: torch.zeros_like(p) for k, p in self.params.items()}
+
+    @torch.no_grad()
+    def step(self, grads: Params, visibility: Optional[torch.Tensor] = None) -> Params:
+        for k, p in self.params.items():
+            lr = self.lr[k] if isinstance(self.lr, dict) else self.lr
+            step, self.exp_avg[k], self.exp_avg_sq[k] = selective_adam_step(
+                grads[k], self.exp_avg[k], self.exp_avg_sq[k], lr, self.b1, self.b2,
+                self.eps, visibility)
+            self.params[k] = p + step
+        return self.params

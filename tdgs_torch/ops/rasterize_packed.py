@@ -10,7 +10,8 @@ plain PyTorch versions below for CPU tensors. Both read the sorted stream
 as the TPU kernel does: tile t owns ``offsets[t]..offsets[t+1]`` of
 ``flatten_ids``, cut to ``max(tile_capacity // 128, 1) * 128`` entries.
 Alpha clamp 0.999, 1/255 skip, and entry k is included iff the raw
-transmittance after it, ∏_{j≤k}(1−α_j), is still above 1e-4.
+transmittance after it, ∏_{j≤k}(1−α_j) multiplied left to right in float32
+as the kernels multiply it, is still above 1e-4.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tdgs_torch.ops import _build
@@ -33,6 +35,9 @@ KERNEL_BWD = "rasterize_packed_bwd"
 # kernel name -> the blocks a tile of its last launch (kernels 1, 4, 5, 9, 10)
 BLOCKS_A_TILE = {}
 MAX_CHANNELS = 32
+# the running products the plain versions test against a cutoff: the
+# inclusion rule's, and the 2DGS median's T > 0.5
+CUTOFFS = (TRANSMITTANCE_EPS, 0.5)
 
 
 def max_entries_per_tile(tile_capacity: int) -> int:
@@ -119,10 +124,32 @@ def _plain_walk(n_images, image_width, image_height, tile_size, offsets,
         skip = (sigma < 0.0) | (alpha < ALPHA_THRESHOLD) | ~valid[:, None, :]
         alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
 
-        raw = torch.cumprod(1.0 - alpha, dim=-1)  # transmittance after each entry
+        one_minus = 1.0 - alpha
+        raw = left_to_right(torch.cumprod(one_minus, dim=-1), one_minus)  # T after each entry
         T_prev = torch.cat([torch.ones_like(raw[..., :1]), raw[..., :-1]], dim=-1)
         yield _Chunk(tt, cnt, valid, idx, ids, px, py, geom, vis, op_vis, alpha, skip,
                      raw > TRANSMITTANCE_EPS, T_prev)
+
+
+def left_to_right(raw: torch.Tensor, one_minus: torch.Tensor) -> torch.Tensor:
+    """``raw``, a ``cumprod`` of ``one_minus`` [..., L] along its last axis,
+    with every row that may decide a cutoff otherwise than the kernels
+    recomputed as the kernels multiply: left to right, each product rounded
+    to float32. ``cumprod`` multiplies in an order of its own (a tree on
+    the card, float64 on the CPU); products of the same L factors in two
+    orders lie within about 2 L ulps of each other, so a row with no
+    product that close to a cutoff (``CUTOFFS``) decides every test as the
+    kernels do, and keeps ``cumprod``'s values."""
+    band = 4.0 * raw.shape[-1] * 2.0 ** -24  # relative
+    near = torch.zeros(raw.shape[:-1], dtype=torch.bool, device=raw.device)
+    for cut in CUTOFFS:
+        near |= ((raw - cut).abs() <= band * raw).any(-1)
+    if not bool(near.any()):
+        return raw
+    factors = one_minus[near].t().cpu().numpy()  # [L, rows]
+    seq = np.multiply.accumulate(factors, axis=0, dtype=np.float32)
+    raw[near] = torch.from_numpy(np.ascontiguousarray(seq.T)).to(raw.device)
+    return raw
 
 
 def _response_3dgs(means2d, conics, opacities):
@@ -222,7 +249,8 @@ def rasterize_to_pixels_packed_inference_plain(
     tile_capacity: int = 1024,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: gathers each tile's cut range and
-    composites with a ``cumprod`` prefix. Returns (colors [..., H, W, D],
+    composites with a ``cumprod`` prefix (``left_to_right`` near a cutoff).
+    Returns (colors [..., H, W, D],
     alphas [..., H, W, 1])."""
     image_dims, I, _, D, _, _ = _dims(
         means2d, colors, image_width, image_height, tile_size

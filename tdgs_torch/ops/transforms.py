@@ -197,3 +197,13 @@ def world_to_cam(
     means_c = torch.einsum("...cij,...nj->...cni", R, means) + t[..., :, None, :]
     covars_c = torch.einsum("...cij,...njk,...clk->...cnil", R, covars, R)
     return means_c, covars_c
+
+
+def se3_apply(
+    rotation: torch.Tensor,  # [..., 3, 3]
+    translation: torch.Tensor,  # [..., 3]
+    points: torch.Tensor,  # [..., N, 3]
+) -> torch.Tensor:
+    """R·p + t for point sets, broadcast over the batch dims (``tdgs/ops/
+    transforms.py se3_apply``)."""
+    return torch.einsum("...ij,...nj->...ni", rotation, points) + translation[..., None, :]

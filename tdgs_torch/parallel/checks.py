@@ -421,3 +421,78 @@ def runner_variants(cfg_dicts: Dict[str, Dict], device: DeviceLike = None) -> Di
                      "refines": runner.refines}
         runner.close()
     return out
+
+
+def viewer_case(cfg_dict: Dict, device: DeviceLike = None) -> Dict:
+    """The sharded ``Runner`` from ``cfg_dict`` with the live viewer on
+    (rank 0 serves on a free port): a client thread on rank 0 fetches
+    frames in a loop while every rank trains; then rank 0 renders each
+    mode of the last gathered copy. Also ``rendering.rasterization(...,
+    distributed=True)`` of a seeded scene, each rank with its block of
+    gaussians and its camera, beside ``parallel.rasterization_sharded`` on
+    the same inputs. Returns (per rank) the frames served during training
+    and their HTTP statuses, the training's history and wall times, the
+    modes' frames and both renders."""
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    from tdgs_torch.parallel.sharded_render import rasterization_sharded
+    from tdgs_torch.rendering import rasterization
+    from tdgs_torch.viewer.server import RenderTabState
+
+    out: Dict = {}
+    runner = _sharded_runner(cfg_dict, device, disable_viewer=False, viewer_port=0)
+    served, statuses = [], []
+    stop = threading.Event()
+
+    def client(port):
+        while not stop.is_set():
+            url = f"http://127.0.0.1:{port}/render?w=48&h=32&dist=3"
+            try:
+                with urllib.request.urlopen(url, timeout=60) as r:
+                    statuses.append(r.status)
+                    if r.read(2) == b"\xff\xd8":
+                        served.append(time.monotonic())
+            except urllib.error.HTTPError as e:
+                statuses.append(e.code)
+
+    th = None
+    if runner.viewer is not None:
+        th = threading.Thread(target=client, args=(runner.viewer.port,), daemon=True)
+        th.start()
+    t0 = time.monotonic()
+    out["history"] = runner.train()["history"]
+    t1 = time.monotonic()
+    if th is not None:
+        # one more frame after training, then stop the client
+        n = len(served)
+        while len(served) == n and th.is_alive() and time.monotonic() < t1 + 60:
+            time.sleep(0.01)
+        stop.set()
+        th.join(timeout=60)
+        vm = np.asarray(runner.trainset[0]["viewmat"])
+        K = np.asarray(runner.trainset[0]["K"])
+        out["modes"] = {m: runner._viewer_render_fn(vm, K, 48, 32, RenderTabState(render_mode=m))
+                        for m in ("rgb", "depth", "alpha")}
+    out.update(served=[t - t0 for t in served], statuses=statuses, train_s=t1 - t0,
+               has_viewer=runner.viewer is not None)
+    runner.close()
+
+    sc = render_scene(2, seed=4)
+    mesh = runner.mesh
+    n = sc["means"].shape[0] // mesh.world
+    rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    dev = mesh.device
+    ins = [torch.as_tensor(sc[k][rows], device=dev)
+           for k in ("means", "quats", "scales", "opacities", "sh")]
+    cams = [torch.as_tensor(sc[k][mesh.rank:mesh.rank + 1], device=dev)
+            for k in ("viewmats", "Ks")]
+    kw = dict(sh_degree=1, tile_capacity=256, rasterizer="packed_inference")
+    W, H = SCENE["width"], SCENE["height"]
+    got = rasterization(*ins, *cams, W, H, distributed=True, device=dev, **kw)
+    want = rasterization_sharded(*ins, *cams, W, H, mesh, **kw)
+    out["distributed"] = {"got": [got[0].cpu().numpy(), got[1].cpu().numpy()],
+                          "want": [want[0].cpu().numpy(), want[1].cpu().numpy()]}
+    return out

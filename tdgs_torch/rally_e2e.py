@@ -136,7 +136,8 @@ def clustering_inputs(runner: Runner):
 
 
 def cluster_live_rows(identity_map, instance_mask, feats, opacities,
-                      min_opacity: float = 0.05, device: DeviceLike = None) -> Dict[str, Any]:
+                      min_opacity: float = 0.05, outlier_percentile: float = 95.0,
+                      device: DeviceLike = None) -> Dict[str, Any]:
     """``kmeans_identity_encodings_background`` over the rows whose opacity
     reaches ``min_opacity``; every other row is background (label −1).
 
@@ -149,6 +150,7 @@ def cluster_live_rows(identity_map, instance_mask, feats, opacities,
     if isinstance(feats, torch.Tensor):
         feats = feats.detach().cpu().numpy()
     res = kmeans_identity_encodings_background(identity_map, instance_mask, feats[live],
+                                               outlier_percentile=outlier_percentile,
                                                device=device)
     labels = np.full(len(opacities), -1, res["labels"].dtype)
     labels[live] = res["labels"]

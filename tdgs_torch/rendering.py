@@ -241,6 +241,13 @@ def rasterization(
     ftheta_coeffs=None,  # FThetaCameraDistortionParameters
     rolling_shutter: Optional[RollingShutterType] = None,
     viewmats_rs=None,  # [..., C, 4, 4] frame-end poses
+    # the reference's drop-in kwargs (gsplat/rendering.py:33 argument set)
+    packed: Optional[bool] = None,
+    sparse_grad: bool = False,
+    segmented: bool = False,
+    absgrad: bool = False,
+    channel_chunk: int = 32,
+    distributed: bool = False,
     with_eval3d: bool = False,
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
@@ -269,7 +276,33 @@ def rasterization(
     when that is asked for), which evaluates each gaussian along the
     pixels' true rays (differentiable, gradients also to ``viewmats`` and
     ``viewmats_rs``); the projection then only feeds the tiling. eval3d
-    takes unbatched gaussians, quats and scales, and no AbsGS tap."""
+    takes unbatched gaussians, quats and scales, and no AbsGS tap.
+
+    The reference's drop-in kwargs, as the JAX package takes them:
+    ``packed``, ``sparse_grad``, ``segmented`` and ``channel_chunk`` name
+    layouts and chunkings of the reference's CUDA build and are accepted
+    and ignored; ``absgrad=True`` needs ``means2d_abs_tap`` (its gradient
+    is the AbsGS signal) and raises without it; ``distributed=True`` is a
+    no-op in a single process and, in a joined ``torch.distributed`` world
+    of more ranks, renders this rank's cameras from every rank's gaussians
+    through ``parallel.rasterization_sharded`` (the gaussians and cameras
+    given are this rank's; unbatched, not eval3d or UT)."""
+    if absgrad and means2d_abs_tap is None:
+        raise ValueError(
+            "absgrad: pass means2d_abs_tap=torch.zeros(batch + (C, N, 2)) and take the "
+            "gradient of the loss w.r.t. that input (the AbsGS signal, as the trainer's "
+            "DefaultStrategy absgrad path does)")
+    del packed, sparse_grad, segmented, channel_chunk
+    if distributed and torch.distributed.is_initialized() and (
+            torch.distributed.get_world_size() > 1):
+        return _rasterization_distributed(
+            means, quats, scales, opacities, colors, viewmats, Ks, width, height, device,
+            rasterizer=rasterizer, with_eval3d=with_eval3d, with_ut=with_ut,
+            sh_degree=sh_degree, near_plane=near_plane, far_plane=far_plane, eps2d=eps2d,
+            radius_clip=radius_clip, tile_size=tile_size, backgrounds=backgrounds,
+            render_mode=render_mode, rasterize_mode=rasterize_mode,
+            isect_capacity=isect_capacity, tile_capacity=tile_capacity,
+            max_tiles_per_gauss=max_tiles_per_gauss)
     if with_eval3d and not rasterizer.startswith("eval3d"):
         rasterizer = "eval3d_packed"
     if rasterizer not in _RASTERIZERS:
@@ -409,6 +442,28 @@ def rasterization(
     return render_colors, render_alphas, meta
 
 
+def _rasterization_distributed(means, quats, scales, opacities, colors, viewmats, Ks,
+                               width, height, device, rasterizer, with_eval3d, with_ut,
+                               **kw):
+    """``rasterization(distributed=True)`` in a world of several ranks: this
+    rank's cameras rendered from every rank's gaussians by
+    ``parallel.rasterization_sharded`` over a mesh of the whole world."""
+    from tdgs_torch.parallel import make_mesh, rasterization_sharded
+
+    dev = resolve_device(device)
+    means = as_float(means, dev)
+    if means.dim() != 2:
+        raise ValueError("distributed=True takes unbatched [N] gaussians")
+    if with_eval3d or rasterizer.startswith("eval3d") or with_ut:
+        raise ValueError("distributed eval3d/UT: call parallel.rasterization_eval3d_sharded")
+    quats, scales, opacities, colors, viewmats, Ks = (
+        as_float(x, dev) for x in (quats, scales, opacities, colors, viewmats, Ks))
+    kw["backgrounds"] = as_optional_float(kw["backgrounds"], dev)
+    return rasterization_sharded(means, quats, scales, opacities, colors, viewmats, Ks,
+                                 width, height, make_mesh(device=dev), rasterizer=rasterizer,
+                                 **kw)
+
+
 def rasterization_2dgs(
     means,  # [..., N, 3]
     quats,  # [..., N, 4]
@@ -438,6 +493,11 @@ def rasterization_2dgs(
     rasterizer: str = "packed_inference",
     means2d_offset=None,  # [..., C, N, 2]
     means2d_abs_tap=None,  # [..., C, N, 2]
+    # the reference's drop-in kwargs (gsplat/rendering.py:1270 argument set)
+    eps2d: float = 0.3,
+    packed: Optional[bool] = None,
+    sparse_grad: bool = False,
+    absgrad: bool = False,
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Rasterize 2D (surfel) Gaussians (port of ``tdgs/rendering.py:583
@@ -456,7 +516,15 @@ def rasterization_2dgs(
     it by alpha after the render, and "RGB+ED"/"RGB+D" also return the
     normals of that depth map (``depth_mode="median"``: of the median
     depth). ``means2d_offset`` and ``means2d_abs_tap`` are the screen-space
-    taps of :func:`rasterization`."""
+    taps of :func:`rasterization`. The reference's drop-in ``eps2d``,
+    ``packed`` and ``sparse_grad`` are accepted and ignored (its own 2DGS
+    projection never reads eps2d); ``absgrad=True`` needs
+    ``means2d_abs_tap``, as in :func:`rasterization`."""
+    if absgrad and means2d_abs_tap is None:
+        raise ValueError(
+            "absgrad: pass means2d_abs_tap=torch.zeros(batch + (C, N, 2)) and take the "
+            "gradient of the loss w.r.t. that input (the AbsGS signal)")
+    del eps2d, packed, sparse_grad
     if rasterizer not in _RASTERIZERS_2DGS:
         raise ValueError(f"unknown rasterizer {rasterizer!r}")
     if render_mode not in RENDER_MODES:

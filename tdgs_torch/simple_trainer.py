@@ -27,7 +27,9 @@ With ``--pose-opt`` (and ``--pose-noise``), ``--app-opt`` and
 splats; ``--compression png`` compresses the trained splats and scores the
 round trip. After training it renders the camera trajectory (``--render-traj-path``:
 ``traj_<step>.gif`` where PIL is installed, else PNG frames under
-``traj_<step>/``) unless ``--disable-video`` is given.
+``traj_<step>/``) unless ``--disable-video`` is given. ``--no-disable-viewer``
+serves the live viewer on ``--viewer-port`` while it trains, and
+keeps it up after training until Ctrl+C.
 
 With ``--sharded`` it trains gaussian-sharded, one process a rank, under
 PyTorch's launcher (each rank on its card, or on the CPU with
@@ -43,6 +45,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 
 from tdgs_torch.strategy import DefaultStrategy, MCMCStrategy
 from tdgs_torch.training.config import Config
@@ -137,6 +140,15 @@ def main(argv=None) -> int:
         if not cfg.disable_video:
             # the camera-trajectory render at the end of training
             report(runner.render_traj(cfg.max_steps, traj_path=cfg.render_traj_path))
+        if runner.viewer is not None:
+            # keep the live viewer up after training (examples/simple_trainer.py:128-135)
+            report(f"viewer still running at http://localhost:{runner.viewer.port} "
+                   "- Ctrl+C to exit")
+            try:
+                while True:
+                    time.sleep(3600)
+            except KeyboardInterrupt:
+                pass
     finally:
         runner.close()
     return 0

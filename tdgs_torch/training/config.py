@@ -1,9 +1,8 @@
 """Training configuration (port of ``tdgs/training/config.py``).
 
 The same dataclass fields and defaults as the JAX package, so command-line
-flags parse alike. Features the port does not have yet raise
-``NotImplementedError`` from ``Config.check_ported`` when they are set
-(the trainer calls it); their defaults are what the ported path runs.
+flags parse alike. ``Config.check_ported`` (the trainer calls it) refuses
+the combinations the trainer cannot run.
 """
 
 from __future__ import annotations
@@ -181,18 +180,14 @@ class Config:
         )
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a feature set here that the
-        port does not have yet (the viewer), naming its ROADMAP queue, and
-        ``ValueError`` for a 3DGUT combination the trainer refuses (as the
-        JAX Runner asserts: with_ut needs with_eval3d, eval3d is 3DGS) or
-        an unknown checkpoint container."""
+        """Raise ``ValueError`` for a 3DGUT combination the trainer refuses
+        (as the JAX Runner asserts: with_ut needs with_eval3d, eval3d is
+        3DGS), an unknown checkpoint container or a forward-only training
+        rasterizer."""
         if self.with_ut and not self.with_eval3d:
             raise ValueError("training with with_ut requires with_eval3d")
         if self.with_eval3d and self.model_type != "3dgs":
             raise ValueError("with_eval3d is a 3DGS render path")
-        if not self.disable_viewer:
-            raise NotImplementedError(
-                "the viewer is not ported yet (ROADMAP queue 1: item 6, remaining modules)")
         if self.ckpt_format not in ("pickle", "orbax"):
             raise ValueError(f"ckpt_format {self.ckpt_format!r}: 'pickle' or 'orbax' "
                              "(the port's sharded directory, parallel/checkpoint.py)")

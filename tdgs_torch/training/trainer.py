@@ -74,10 +74,12 @@ with local weights, else the random-filter proxy, ``lpips_proxy``);
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
 import pickle
+import threading
 import time
 from collections import defaultdict
 from typing import Any, Dict, Optional
@@ -108,6 +110,8 @@ from tdgs_torch.training import normal_losses as NL
 from tdgs_torch.training.config import Config
 from tdgs_torch.training.metrics import lpips, lpips_impl
 from tdgs_torch.utils.depth import depth_to_normal, rotate
+from tdgs_torch.utils.logger import MetricsLogger, device_mem_gb
+from tdgs_torch.viewer.server import frame_to_uint8, viewer_rasterizer
 
 
 def make_lr_schedules(cfg: Config, scene_scale: float, max_steps: int):
@@ -165,21 +169,14 @@ class SplatOptimizer:
         return new_params, {"mu": new_mu, "nu": new_nu}
 
 
-class _MetricsLog:
-    """Append-only JSONL scalar log (``metrics.jsonl``)."""
-
-    def __init__(self, result_dir: str, enabled: bool = True):
-        self.path = os.path.join(result_dir, "metrics.jsonl")
-        self.enabled = enabled
-
-    def log(self, step: int, scalars: Dict[str, float]) -> None:
-        if not self.enabled:
-            return
-        rec = {"step": int(step), "time": time.time()}
-        rec.update({k: float(v) for k, v in scalars.items()
-                    if isinstance(v, (int, float, np.generic, torch.Tensor))})
-        with open(self.path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+def _under_viewer_lock(method):
+    """Run a ``Runner`` method under its ``viewer_lock`` (reentrant): the
+    live viewer's render never reads a state the method is writing."""
+    @functools.wraps(method)
+    def locked(self, *args, **kwargs):
+        with self.viewer_lock:
+            return method(self, *args, **kwargs)
+    return locked
 
 
 class Runner:
@@ -191,6 +188,10 @@ class Runner:
         cfg = cfg.adjusted()
         cfg.check_ported()
         self.cfg = cfg
+        # every write to the splats, the moments and the aux modules, and the
+        # live viewer's render, hold this lock (tdgs/training/trainer.py:274)
+        self.viewer_lock = threading.RLock()
+        self.viewer = None
         # Config.sharded: this process is one rank (tdgs/training/trainer.py:148-178)
         self.mesh = None
         self._owns_world = False
@@ -208,7 +209,7 @@ class Runner:
         self.ckpt_dir = os.path.join(cfg.result_dir, "ckpts")
         os.makedirs(self.stats_dir, exist_ok=True)
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        self.logger = _MetricsLog(cfg.result_dir, enabled=self.is_main)
+        self.logger = MetricsLogger(cfg.result_dir) if self.is_main else None
 
         load_masks = (cfg.load_instance_masks if cfg.load_instance_masks is not None
                       else cfg.with_segmentation)
@@ -246,12 +247,23 @@ class Runner:
         else:
             self.strategy_state = self.strategy.initialize_state(
                 self.splats, scene_scale=self.scene_scale)
+        # the live viewer's splats under sharding: rank 0's last gathered copy
+        self._viewer_copy = self.splats if self.mesh is not None and self.is_main else None
+        self._viewer_wanted = False
         if self.mesh is not None:
             # every rank made the same global state: keep this rank's block
             if self.capacity % self.mesh.world:
                 raise ValueError(f"sharded: capacity {self.capacity} must divide over "
                                  f"{self.mesh.world} ranks")
             self._set_trees(self._shard(self._trees()))
+        if not cfg.disable_viewer and self.is_main:
+            from tdgs_torch.viewer import ViewerServer
+
+            center = self.parser.camtoworlds[:, :3, 3].mean(axis=0)
+            self.viewer = ViewerServer(self._viewer_render_fn, port=cfg.viewer_port,
+                                       target=center)
+            self.viewer.start()
+            print(f"live viewer at http://localhost:{self.viewer.port}", flush=True)
 
     # ------------------------------------------------------------------
     # Config.sharded: each rank holds a block of the gaussian rows
@@ -304,6 +316,71 @@ class Runner:
 
     def _alive_count(self) -> int:
         return int(self._world_sum(G.alive_mask(self.splats).sum()))
+
+    # ------------------------------------------------------------------
+    # the live viewer (tdgs/training/trainer.py:526-600)
+    def _inference_rasterizer(self) -> str:
+        """The forward-only rasterizer of the live view: kernel 1, 4 or 7
+        on the card, their plain tensor routes on the CPU."""
+        model = "3dgut" if self.cfg.with_eval3d else self.cfg.model_type
+        return viewer_rasterizer(model, self.device)
+
+    def _viewer_splats(self) -> G.SplatParams:
+        """The splats the live view renders: the runner's own, or under
+        sharding rank 0's copy from the last step boundary at which every
+        rank joined the gather (``_sync_viewer_copy``). A viewer thread
+        never calls a collective: alone on rank 0 it would hang the world."""
+        if self.mesh is None:
+            return self.splats
+        self._viewer_wanted = True
+        return self._viewer_copy
+
+    def _sync_viewer_copy(self) -> None:
+        """Under sharding with the viewer on, at a step boundary on every
+        rank: one all-reduce of rank 0's flag "a frame was asked for since
+        the last copy", and if it is set, the splats gathered whole on every
+        rank, kept by rank 0 for the viewer."""
+        wanted = torch.tensor([1.0 if self._viewer_wanted else 0.0], device=self.device)
+        if float(comm.all_reduce_sum(wanted)) == 0.0:
+            return
+        whole = self._gather({"splats": self.splats})["splats"]
+        if self.is_main:
+            with self.viewer_lock:
+                self._viewer_copy = whole
+                self._viewer_wanted = False
+
+    @torch.no_grad()
+    def _viewer_render_fn(self, viewmat, K, width, height, st):
+        """The live view for ``ViewerServer``: the current splats rendered
+        under the lock with the render tab's knobs. "depth" renders "ED"
+        (2DGS: "RGB+ED", its last channel), scaled by its 2nd and 98th
+        percentiles and inverted with ``inverse_depth``; the background is
+        passed in "rgb" only; ``with_eval3d`` renders through eval3d."""
+        cfg = self.cfg
+        mode = {"rgb": "RGB", "depth": "ED", "alpha": "RGB"}[st.render_mode]
+        with self.viewer_lock:
+            means, quats, scales, opacities, sh = G.splat_activations(self._viewer_splats())
+            dev = means.device
+            bkgd = (torch.tensor(st.backgrounds, dtype=torch.float32, device=dev)[None]
+                    if st.render_mode == "rgb" else None)
+            cams = (torch.as_tensor(viewmat, dtype=torch.float32, device=dev)[None],
+                    torch.as_tensor(K, dtype=torch.float32, device=dev)[None], width, height)
+            common = dict(sh_degree=min(st.max_sh_degree, cfg.sh_degree),
+                          near_plane=st.near_plane, far_plane=st.far_plane,
+                          radius_clip=st.radius_clip, backgrounds=bkgd,
+                          tile_capacity=cfg.tile_capacity, isect_capacity=cfg.isect_capacity,
+                          rasterizer=self._inference_rasterizer(), device=dev)
+            if cfg.model_type == "2dgs":
+                out = rasterization_2dgs(means, quats, scales, opacities, sh, *cams,
+                                         render_mode="RGB+ED" if mode == "ED" else mode,
+                                         **common)
+                img, alpha = out[0], out[1]
+            else:
+                img, alpha, _ = rasterization(means, quats, scales, opacities, sh, *cams,
+                                              eps2d=st.eps2d, render_mode=mode,
+                                              with_eval3d=cfg.with_eval3d, with_ut=cfg.with_ut,
+                                              **common)
+            return frame_to_uint8(img, alpha, st.render_mode, st.inverse_depth)
 
     # ------------------------------------------------------------------
     def _init_splats(self) -> G.SplatParams:
@@ -381,6 +458,7 @@ class Runner:
             groups["app_mlp"] = dict(self.app_module.linears.named_parameters())
         return groups
 
+    @_under_viewer_lock
     @torch.no_grad()
     def load_aux_state(self, params: Dict[str, Dict[str, torch.Tensor]],
                        opt_state: Optional[Dict] = None) -> None:
@@ -497,6 +575,7 @@ class Runner:
         )
 
     # ------------------------------------------------------------------
+    @_under_viewer_lock
     def train_step(self, batch: Dict[str, torch.Tensor], step: int, sh_degree: int,
                    use_seg: bool = False, use_spatial: bool = False,
                    seg_quality: bool = False):
@@ -895,6 +974,8 @@ class Runner:
         world = self.mesh.world if self.mesh is not None else 1
         rank = self.mesh.rank if self.mesh is not None else 0
         per_rank = cfg.batch_size // world
+        sync_viewer = self.mesh is not None and not cfg.disable_viewer
+        last_log_step, last_log_time = start_step, time.time()
         for step in range(start_step + 1, cfg.max_steps + 1):
             if cursor + cfg.batch_size > len(order):
                 order = rng.permutation(len(self.trainset))
@@ -914,26 +995,31 @@ class Runner:
                        and "instance_mask" in batch)
             use_spatial = seg_live and step % cfg.seg_spatial_every == 0
             log_step = step % cfg.tb_every == 0 or step == cfg.max_steps
-            loss, aux = self.train_step(batch, step, sh_degree, use_seg=use_seg,
-                                        use_spatial=use_spatial, seg_quality=log_step)
-            self.seg_steps += int(use_seg or use_spatial)
+            # the live view sees the state between steps (tdgs/training/trainer.py:1154)
+            with self.viewer_lock:
+                loss, aux = self.train_step(batch, step, sh_degree, use_seg=use_seg,
+                                            use_spatial=use_spatial, seg_quality=log_step)
+                self.seg_steps += int(use_seg or use_spatial)
 
-            info = {"radii": aux["radii"], "width": W, "height": H}
-            if aux["v_means2d"] is not None:
-                self.strategy_state = self.strategy.update_state(
-                    self.strategy_state, info, aux["v_means2d"])
-            refine_before = self.strategy.last_refine
-            # a device scalar: read (a host sync) only when a refine ran
-            alive_before = self._world_sum(G.alive_mask(self.splats).sum())
-            self.strategy_post_backward(step, info, aux["lr_means"])
-            if self.strategy.last_refine is not refine_before:
-                self.refines.append(dict(
-                    step=step, **self.strategy.last_refine,
-                    alive_before=int(alive_before), alive_after=self._alive_count()))
-            if (cfg.max_capacity and isinstance(self.strategy, DefaultStrategy)
-                    and self.strategy.refine_start_iter <= step <= self.strategy.refine_stop_iter
-                    and step % self.strategy.refine_every == 0):
-                self.maybe_grow_capacity()
+                info = {"radii": aux["radii"], "width": W, "height": H}
+                if aux["v_means2d"] is not None:
+                    self.strategy_state = self.strategy.update_state(
+                        self.strategy_state, info, aux["v_means2d"])
+                refine_before = self.strategy.last_refine
+                # a device scalar: read (a host sync) only when a refine ran
+                alive_before = self._world_sum(G.alive_mask(self.splats).sum())
+                self.strategy_post_backward(step, info, aux["lr_means"])
+                if self.strategy.last_refine is not refine_before:
+                    self.refines.append(dict(
+                        step=step, **self.strategy.last_refine,
+                        alive_before=int(alive_before), alive_after=self._alive_count()))
+                if (cfg.max_capacity and isinstance(self.strategy, DefaultStrategy)
+                        and self.strategy.refine_start_iter <= step
+                        <= self.strategy.refine_stop_iter
+                        and step % self.strategy.refine_every == 0):
+                    self.maybe_grow_capacity()
+            if sync_viewer:
+                self._sync_viewer_copy()
 
             nancheck = int(os.environ.get("TDGS_NANCHECK", "0") or 0)
             if nancheck and step % nancheck == 0 and not math.isfinite(float(loss)):
@@ -944,11 +1030,19 @@ class Runner:
 
             if log_step:
                 history.append({"step": step, "loss": float(loss)})
+                # rays a second over the steps since the last record, every
+                # rank's images counted (tdgs/training/trainer.py:1233-1267)
+                now = time.time()
+                rays_sec = (H * W * cfg.batch_size * (step - last_log_step)
+                            / max(now - last_log_time, 1e-9))
+                last_log_step, last_log_time = step, now
                 scalars = {
                     "train/loss": float(loss),
                     "train/num_GS": self._alive_count(),
                     "train/visible_GS": int(self._world_sum(aux["visibility"].sum())),
+                    "train/rays_per_sec": rays_sec,
                     "train/sh_degree": sh_degree,
+                    "train/mem_gb": device_mem_gb() if self.device.type == "cuda" else None,
                 }
                 scalars.update({f"train/{k}": float(v) for k, v in aux["loss_terms"].items()})
                 scalars.update({f"train/{k}": float(v) for k, v in aux["seg_terms"].items()})
@@ -956,7 +1050,8 @@ class Runner:
                     intra, inter = aux["cluster_quality"]
                     scalars["train/cluster_intra"] = float(intra)
                     scalars["train/cluster_inter"] = float(inter)
-                self.logger.log(step, scalars)
+                if self.logger is not None:
+                    self.logger.log(step, scalars)
                 if cfg.save_depth_normal_vis and aux["depth"] is not None and self.is_main:
                     self._save_depth_normal_vis(step, aux["depth"][0], batch)
             if step in cfg.eval_steps:
@@ -967,6 +1062,7 @@ class Runner:
                 self.export_ply(step)
         return {"history": history, "wall_time_s": time.time() - t0}
 
+    @_under_viewer_lock
     def strategy_post_backward(self, step: int, info: Dict, lr: float) -> None:
         """The strategy's step after the update. Under sharding a refine or
         an opacity reset runs on the rows gathered whole, with the same
@@ -1010,8 +1106,15 @@ class Runner:
                    os.path.join(vis_dir, f"normal_{step:05d}.png"))
 
     def close(self) -> None:
-        """Stop the training set's decode-ahead threads, and leave the
-        world this runner joined."""
+        """Stop the live viewer and the training set's decode-ahead
+        threads, close the metrics log, and leave the world this runner
+        joined."""
+        if self.viewer is not None:
+            self.viewer.shutdown()
+            self.viewer = None
+        if self.logger is not None:
+            self.logger.close()
+            self.logger = None
         self.trainset.close()
         if self._owns_world and torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
@@ -1076,7 +1179,8 @@ class Runner:
         if self.is_main:
             with open(os.path.join(self.stats_dir, f"{stage}_step{step}.json"), "w") as f:
                 json.dump(out, f)
-        self.logger.log(step, {f"{stage}/{k}": v for k, v in out.items()})
+        if self.logger is not None:
+            self.logger.log(step, {f"{stage}/{k}": v for k, v in out.items()})
         return out
 
     def render_traj(self, step: int, n_frames: int = 60, traj_path: str = "interp") -> str:
@@ -1185,6 +1289,7 @@ class Runner:
                 pickle.dump(state, f)
         return path
 
+    @_under_viewer_lock
     def load_state_numpy(self, state: Dict[str, Any], blocks: bool = False) -> int:
         """Restore from the checkpoint's content (see ``state_numpy``;
         arrays or tensors). Under sharding the rows are cut to this rank's
@@ -1239,10 +1344,13 @@ class Runner:
             rasterizer="packed_inference", override_features=feats)
         return fmap[0].cpu().numpy()
 
-    def export_ply(self, step: int) -> str:
-        """The alive splats as a standard 3DGS PLY (dead rows dropped;
-        gathered under sharding, rank 0 writes)."""
-        from tdgs_torch.utils.ply import save_ply
+    def export_ply(self, step: int, format: str = "ply") -> str:
+        """The alive splats at ``step`` through ``export_splats`` (dead rows
+        dropped; gathered under sharding, rank 0 writes):
+        ply/point_cloud_{step}.ply ("ply", with the extra per-gaussian
+        arrays such as identity encodings; "ply_compressed") or .splat
+        ("splat"). Returns the path."""
+        from tdgs_torch.utils.ply import export_splats
 
         splats = self._replicated_splats()
         keep = G.alive_mask(splats)
@@ -1251,9 +1359,11 @@ class Runner:
         extra = {k: v for k, v in s.items() if k not in main}
         ply_dir = os.path.join(self.cfg.result_dir, "ply")
         os.makedirs(ply_dir, exist_ok=True)
-        out = os.path.join(ply_dir, f"point_cloud_{step}.ply")
+        ext = "splat" if format == "splat" else "ply"
+        out = os.path.join(ply_dir, f"point_cloud_{step}.{ext}")
         if self.is_main:
-            save_ply(out, *(s[k] for k in main), extra=extra or None)
+            export_splats(*(s[k] for k in main), format=format, save_to=out,
+                          extra=extra if format == "ply" and extra else None)
         return out
 
     def run_compression(self, step: int) -> Dict[str, Any]:
@@ -1278,6 +1388,7 @@ class Runner:
                         for k, v in method.decompress(compress_dir).items()}
         return self.eval(step, stage="compress", splats=decompressed)
 
+    @_under_viewer_lock
     def maybe_grow_capacity(self) -> bool:
         """Double the capacity (up to ``max_capacity``) when the alive share
         passes ``capacity_growth_at``: new rows are dead, with zero moments

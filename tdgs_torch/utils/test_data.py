@@ -2,6 +2,9 @@
 
 Same seeds, same draws, same arrays as the JAX package:
 
+- ``load_test_data`` (:22): the viewer's synthetic scene, a seeded blob
+  cloud above z = 0, replicated over a ``scene_grid`` of cells with one
+  camera each;
 - ``make_domino_scene_arrays``: the ground-truth half of
   ``make_domino_scene`` (:152), a row of coloured dominoes (z-up, ground
   z = 0, the physics engine's frame) on a ground plane of flat disks, plus
@@ -30,6 +33,45 @@ from tdgs_torch.utils.png import write_png
 
 # flat backdrop the domino GT images are composited onto
 DOMINO_BACKGROUND = 0.78
+
+
+def load_test_data(device=None, scene_grid: int = 1, n: int = 1000, seed: int = 42):
+    """(means, quats, scales, opacities, colors, viewmats, Ks, width,
+    height) as numpy arrays: ``n`` gaussians a grid cell (activated scales
+    and opacities, RGB colours) and one 640x480 camera a cell, 6 units
+    back and 1.5 up. ``device`` is accepted for the reference's signature
+    and unused: the arrays stay on the host."""
+    rng = np.random.default_rng(seed)
+    base_means = rng.normal(size=(n, 3)).astype(np.float32) * [1.2, 1.2, 0.4]
+    base_means[:, 2] += 0.5
+    colors = rng.uniform(0.1, 1.0, size=(n, 3)).astype(np.float32)
+
+    means_list, colors_list = [], []
+    viewmats, Ks = [], []
+    width, height = 640, 480
+    f = 500.0
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]], np.float32)
+    g = scene_grid
+    for gy in range(g):
+        for gx in range(g):
+            offset = np.array([4.0 * gx, 4.0 * gy, 0.0], np.float32)
+            means_list.append(base_means + offset)
+            colors_list.append(colors)
+            vm = np.eye(4, dtype=np.float32)
+            vm[:3, :3] = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32)
+            cam = offset + np.array([0.0, -6.0, 1.5], np.float32)
+            vm[:3, 3] = -(vm[:3, :3] @ cam)
+            viewmats.append(vm)
+            Ks.append(K)
+
+    means = np.concatenate(means_list)
+    colors_all = np.concatenate(colors_list)
+    m = means.shape[0]
+    quats = rng.normal(size=(m, 4)).astype(np.float32)
+    scales = rng.uniform(0.02, 0.12, size=(m, 3)).astype(np.float32)
+    opacities = rng.uniform(0.4, 1.0, size=(m,)).astype(np.float32)
+    return (means, quats, scales, opacities, colors_all, np.stack(viewmats), np.stack(Ks),
+            width, height)
 
 
 def _look_at_viewmat(eye: np.ndarray, target: np.ndarray) -> np.ndarray:

@@ -21,8 +21,9 @@ with ``sum``); 1e-5 relative per column for the segment sum, whose two
 launches must agree bit for bit. The 2DGS kernels are held as kernels 1
 and 2 are, with the distortion and the gradient groups relative to their
 scale and median depth, a selected entry, allowed to differ in 1% of the
-pixels (the plain version's cumprod on the card rounds its running
-product differently at the 1e-4 cutoff). The eval3d kernels are held as
+pixels (the bar set when the plain version's cumprod rounded its running
+product otherwise than the kernel at the cutoffs; ``left_to_right`` now
+recomputes such rows as the kernel multiplies). The eval3d kernels are held as
 kernels 1 and 2 are, the ray gradients per group like the rows; the
 tile-dense kernels as kernels 1 and 2 are, and their launches cut into
 several blocks a tile bit for bit as one block a tile.
@@ -44,6 +45,7 @@ from tdgs_torch.ops.rasterize_packed import (
     rasterize_to_pixels_packed,
     rasterize_to_pixels_packed_inference,
     rasterize_to_pixels_packed_inference_plain,
+    left_to_right,
 )
 from tdgs_torch.ops.tiling import isect_tiles_packed
 from tdgs_torch.parallel import checks, launch
@@ -121,6 +123,76 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
         rasterize_to_pixels_packed_inference(args[0], args[1], wide, *args[3:])
     with pytest.raises(ValueError):  # operands on two devices
         rasterize_to_pixels_packed_inference(args[0], args[1].cpu(), *args[2:])
+
+
+# prefix opacities that keep a row's product above each cutoff
+PREFIX_OPACITY = {1e-4: (0.02, 0.2), 0.5: (0.004, 0.015)}
+
+
+def near_cutoff_opacities(rng, n, cut, L=41):
+    """[n, L] float32 opacities, every α in [1/255, 0.999], whose
+    left-to-right float32 product of (1 − α) ends within 1e-6 (relative)
+    of ``cut``: rows on which two orders of the product may decide
+    ``> cut`` differently at the last entry."""
+    rows = []
+    while len(rows) < n:
+        ops = rng.uniform(*PREFIX_OPACITY[cut], size=(4096, L)).astype(np.float32)
+        one = np.float32(1)
+        p = np.multiply.accumulate(one - ops[:, :-1], axis=-1, dtype=np.float32)[:, -1]
+        ops[:, -1] = (1.0 - cut / p.astype(np.float64)).astype(np.float32)
+        end = np.multiply.accumulate(one - ops, axis=-1, dtype=np.float32)[:, -1]
+        keep = ((np.abs(end / cut - 1.0) <= 1e-6) & (ops[:, -1] >= 1.0 / 255.0)
+                & (ops[:, -1] <= 0.999))
+        rows.extend(ops[keep])
+    return np.stack(rows[:n])
+
+
+def cutoff_stream(ops, D=3, seed=0, tile_size=16):
+    """A packed stream whose tile t holds the L entries of ``ops[t]`` in
+    order, over zero conics (σ = 0, so α is the opacity itself at every
+    pixel), on an image of one row of tiles; colours random in [0.5, 1]."""
+    n, L = ops.shape
+    rng = np.random.default_rng(seed)
+    N = n * L
+    return dict(
+        means2d=torch.zeros((1, N, 2)), conics=torch.zeros((1, N, 3)),
+        colors=torch.from_numpy(rng.uniform(0.5, 1, size=(1, N, D)).astype(np.float32)),
+        opacities=torch.from_numpy(ops.reshape(1, N)),
+        offsets=torch.arange(0, N + 1, L, dtype=torch.int32),
+        flatten_ids=torch.arange(N, dtype=torch.int32),
+        width=n * tile_size, height=tile_size,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", sorted(PREFIX_OPACITY))
+def test_plain_products_decide_cutoffs_left_to_right_on_card(cuda_device, cut):
+    """The plain versions' running product on the card (a tree-ordered
+    cumprod, repaired by ``left_to_right``) decides every ``> cut`` test as
+    the kernels' left-to-right float32 product does."""
+    ops = near_cutoff_opacities(np.random.default_rng(7), 4096, cut)
+    one_minus = 1.0 - torch.from_numpy(ops).to(cuda_device)
+    got = left_to_right(torch.cumprod(one_minus, dim=-1), one_minus).cpu().numpy()
+    want = np.multiply.accumulate(np.float32(1) - ops, axis=-1, dtype=np.float32)
+    for c in PREFIX_OPACITY:
+        np.testing.assert_array_equal(got > np.float32(c), want > np.float32(c))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_at_the_cutoff_on_card(cuda_device):
+    """Kernel 1 against the plain version on 1024 tiles whose products end
+    within ulps of the 1e-4 cutoff, where the last entry weighs α·T of
+    about 1e-2: they agree to 1e-5, so they included the same entries."""
+    ops = near_cutoff_opacities(np.random.default_rng(8), 1024, 1e-4)
+    s = cutoff_stream(ops)
+    t = {k: v.to(cuda_device) for k, v in s.items() if torch.is_tensor(v)}
+    args = (t["means2d"], t["conics"], t["colors"], t["opacities"], s["width"], s["height"],
+            16, t["offsets"], t["flatten_ids"])
+    got = rasterize_to_pixels_packed_inference(*args)
+    want = rasterize_to_pixels_packed_inference_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
 
 
 # groups of a gradient row: means2d, conics, opacity, colours
@@ -1821,3 +1893,126 @@ def test_sharded_render_matches_single_rank_on_card(sharded_results, case):
                 g, w = res[k[len("single_"):]], res[k]
                 scale = max(float(np.abs(w).max()), 1e-30)
                 assert float(np.abs(g - w).max()) <= 1e-3 * scale, (case, r, k)
+
+
+# ---------------------------------------------------------------------------
+# the viewer: each family's frame (kernels 1, 4, 7) against the plain route
+# on the card, kernel 4 against the float64 surfel golden, and the live view
+# of a training Runner
+# ---------------------------------------------------------------------------
+
+VIEWER_FAMILIES = ("3dgs", "2dgs", "3dgut")
+
+
+def _viewer_splats(seed=5, n=400):
+    rng = np.random.default_rng(seed)
+    return {
+        "means": (rng.normal(size=(n, 3)) * [1.0, 0.7, 0.5]).astype(np.float32),
+        "quats": rng.normal(size=(n, 4)).astype(np.float32),
+        "scales": np.log(rng.uniform(0.03, 0.15, size=(n, 3))).astype(np.float32),
+        "opacities": rng.normal(0.5, 1.0, size=(n,)).astype(np.float32),
+        "sh0": rng.normal(size=(n, 1, 3)).astype(np.float32),
+        "shN": (rng.normal(size=(n, 15, 3)) * 0.2).astype(np.float32),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", VIEWER_FAMILIES)
+@pytest.mark.parametrize("mode", ["rgb", "depth", "alpha"])
+def test_viewer_frame_matches_plain_route_on_card(cuda_device, family, mode):
+    """``make_splat_render_fn``'s frame through the family's kernel against
+    the same render through the plain tensor route, on the card: uint8
+    within 1 level (depth: of the same percentile scaling)."""
+    from tdgs_torch.viewer import server as V
+
+    raw = _viewer_splats()
+    vm = V.orbit_camera(0.5, 0.35, 4.0, np.zeros(3, np.float32))
+    K = np.array([[120.0, 0, 64], [0, 120.0, 40], [0, 0, 1]], np.float32)
+    st = V.RenderTabState(render_mode=mode, backgrounds=(0.1, 0.2, 0.3))
+    _build.reset_launches()
+    got = V.make_splat_render_fn(raw, model_type=family, device="cuda")(vm, K, 128, 80, st)
+    kernel = {"3dgs": KERNEL, "2dgs": "rasterize_2dgs_fwd", "3dgut": "rasterize_eval3d_fwd"}
+    assert _build.LAUNCHES.get(kernel[family], 0) == 1
+    plain = "eval3d" if family == "3dgut" else "jax"
+    want = V.make_splat_render_fn(raw, rasterizer=plain, model_type=family,
+                                  device="cuda")(vm, K, 128, 80, st)
+    assert want.max() > 0
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1, (family, mode, diff.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_depth", [False, True])
+def test_golden_2dgs_against_kernel_4_on_card(cuda_device, with_depth):
+    """Kernel 4's frame against ``compose_reference_2dgs_f64`` over the same
+    stream (M's columns): 1e-3 absolute, colours and alpha."""
+    from tdgs_torch.rendering import _colors_per_camera, rasterization_2dgs
+    from tdgs_torch.utils.golden import compose_reference_2dgs_f64
+
+    raw = _viewer_splats(seed=6)
+    dev = torch.device("cuda")
+    t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    sh = torch.cat([t["sh0"], t["shN"]], 1)
+    vm = torch.eye(4, device=dev)[None]
+    vm[0, 2, 3] = 4.0
+    K = torch.tensor([[[120.0, 0, 64], [0, 120.0, 40], [0, 0, 1]]], device=dev)
+    mode = "RGB+D" if with_depth else "RGB"
+    out = rasterization_2dgs(t["means"], t["quats"], torch.exp(t["scales"]),
+                             torch.sigmoid(t["opacities"]), sh, vm, K, 128, 80, sh_degree=3,
+                             render_mode=mode, tile_capacity=4096,
+                             rasterizer="packed_inference", device=dev)
+    meta = out[6]
+    cols = _colors_per_camera(sh, 3, t["means"], vm, meta["radii"])
+    if with_depth:
+        cols = torch.cat([cols, meta["depths"][..., None]], -1)
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    img, alpha = compose_reference_2dgs_f64(
+        host(meta["isect_offsets"]), host(meta["flatten_ids"]),
+        host(meta["means2d"]).reshape(-1, 2), host(meta["ray_transforms"]).reshape(-1, 3, 3),
+        host(cols).reshape(-1, cols.shape[-1]), host(meta["opacities"]).reshape(-1), 128, 80,
+        16, meta["tile_width"], meta["tile_height"], n_isects=int(meta["n_isects"]))
+    assert alpha.max() > 0.5
+    np.testing.assert_allclose(host(out[0][0]), img, atol=ATOL)
+    np.testing.assert_allclose(host(out[1][0, ..., 0]), alpha, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["3dgs", "2dgs"])
+def test_live_view_during_training_on_card(cuda_device, model_type, tmp_path):
+    """A Runner with the live viewer on serves JPEG frames (kernel 1 or 4)
+    while it trains, under the lock, with no 500; the loss drops."""
+    import threading
+    import urllib.request
+
+    from tdgs_torch.training.config import Config
+    from tdgs_torch.training.trainer import Runner
+    from tdgs_torch.utils.test_data import make_colmap_test_scene
+
+    make_colmap_test_scene(str(tmp_path / "scene"), device="cuda")
+    extra = dict(normal_loss=True, dist_loss=True) if model_type == "2dgs" else {}
+    cfg = Config(data_dir=str(tmp_path / "scene"), result_dir=str(tmp_path / "r"),
+                 data_factor=1, max_steps=60, eval_steps=[], save_steps=[], ply_steps=[],
+                 sh_degree=1, sh_degree_interval=20, capacity=512, tile_capacity=256,
+                 test_every=4, tb_every=20, disable_viewer=False, viewer_port=0,
+                 model_type=model_type, **extra)
+    runner = Runner(cfg, device="cuda")
+    frames, stop = [], threading.Event()
+
+    def client():
+        while not stop.is_set():
+            url = f"http://127.0.0.1:{runner.viewer.port}/render?w=64&h=48&dist=3"
+            with urllib.request.urlopen(url, timeout=60) as r:
+                frames.append((r.status, r.read(2)))
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        hist = runner.train()["history"]
+        n_during = len(frames)
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        runner.close()
+    assert not th.is_alive()
+    assert n_during > 0 and set(frames) == {(200, b"\xff\xd8")}
+    assert hist[-1]["loss"] < hist[0]["loss"]

@@ -22,12 +22,16 @@ from tdgs.ops.rasterize_pallas_packed import (
 )
 from tdgs_torch.ops import _build
 from tdgs_torch.ops.rasterize_packed import (
+    CUTOFFS,
+    TRANSMITTANCE_EPS,
+    left_to_right,
     max_entries_per_tile,
     pixel_entry_evaluations,
     rasterize_to_pixels_packed_inference,
     rasterize_to_pixels_packed_inference_plain,
 )
 from tests.test_rasterize import make_raster_inputs
+from tests.test_torch_kernel_card import PREFIX_OPACITY, cutoff_stream, near_cutoff_opacities
 
 ATOL = 2e-3
 
@@ -168,3 +172,49 @@ def test_pixel_entry_evaluations_counts_the_walk():
     assert evals(1.0) == (256 * 2, 256)
     assert evals(0.01) == (256 * 3, 256 * 3)
     assert evals(0.01, 10, 12) == (10 * 12 * 3,) * 2  # pixels outside are not walked
+
+
+@pytest.mark.parametrize("cut", CUTOFFS)
+def test_left_to_right_decides_cutoffs_as_the_kernels(cut):
+    """Rows whose product of (1 − α) ends within ulps of a cutoff: on some,
+    ``cumprod`` (float64 on the CPU) and the kernels' left-to-right float32
+    product fall on two sides of it; ``left_to_right`` decides every entry
+    of every row as the left-to-right product does, and takes its values
+    on the rows it recomputes."""
+    ops = near_cutoff_opacities(np.random.default_rng(11), 256, cut)
+    one_minus = 1.0 - torch.from_numpy(ops)
+    raw = torch.cumprod(one_minus, dim=-1)
+    want = np.multiply.accumulate(np.float32(1) - ops, axis=-1, dtype=np.float32)
+    assert ((raw.numpy() > np.float32(cut)) != (want > np.float32(cut))).any()
+    got = left_to_right(raw.clone(), one_minus).numpy()
+    for c in CUTOFFS:
+        np.testing.assert_array_equal(got > np.float32(c), want > np.float32(c))
+    moved = (got != raw.numpy()).any(-1)
+    np.testing.assert_array_equal(got[moved], want[moved])
+
+
+def test_plain_inclusion_multiplies_left_to_right():
+    """Tiles whose last entry's product lands within ulps of the 1e-4
+    cutoff, α = the opacity at every pixel (zero conics): the plain
+    version includes each entry as a left-to-right float32 walk does (the
+    kernels' walk, here in numpy), to 1e-6, though the last entry weighs
+    α·T of about 1e-2."""
+    assert PREFIX_OPACITY.keys() == set(CUTOFFS)
+    ops = near_cutoff_opacities(np.random.default_rng(12), 64, TRANSMITTANCE_EPS)
+    s = cutoff_stream(ops)
+    got_c, got_a = rasterize_to_pixels_packed_inference_plain(
+        s["means2d"], s["conics"], s["colors"], s["opacities"], s["width"], s["height"],
+        16, s["offsets"], s["flatten_ids"])
+    colors = s["colors"].numpy().reshape(ops.shape + (-1,))
+    for t, row in enumerate(ops):
+        T, acc = np.float32(1), np.zeros(colors.shape[-1])
+        for k, a in enumerate(row):
+            next_T = T * (np.float32(1) - a)
+            if next_T <= np.float32(TRANSMITTANCE_EPS):
+                break
+            acc += float(a * T) * colors[t, k]
+            T = next_T
+        tile = np.s_[0, :, 16 * t:16 * (t + 1)]
+        np.testing.assert_allclose(got_c[tile].numpy(), np.broadcast_to(acc, (16, 16, 3)),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got_a[tile].numpy(), 1 - T, rtol=0, atol=1e-6)

@@ -429,10 +429,8 @@ def test_runner_config_raises_for_unported_features(tmp_path):
     for change in (dict(pose_opt=True, pose_noise=1e-3), dict(app_opt=True),
                    dict(compression="png"), dict(use_bilateral_grid=True),
                    dict(model_type="2dgs", sharded=True), dict(sharded=True),
-                   dict(ckpt_format="orbax")):
+                   dict(ckpt_format="orbax"), dict(disable_viewer=False)):
         dataclasses.replace(base, **change).check_ported()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dataclasses.replace(base, disable_viewer=False).check_ported()
     with pytest.raises(ValueError, match="ckpt_format"):
         dataclasses.replace(base, ckpt_format="msgpack").check_ported()
 
