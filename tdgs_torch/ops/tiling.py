@@ -24,6 +24,7 @@ import torch
 
 from tdgs_torch._device import DeviceLike, as_float, constant, resolve_device
 from tdgs_torch.ops.projection import fully_fused_projection
+from tdgs_torch.utils.profiler import host_read
 
 INT32_SENTINEL = 2**31 - 1
 
@@ -126,9 +127,10 @@ def isect_tiles(
         means2d, radii, tile_size, tile_width, tile_height)
     G = tiles_full.numel()
     tiles_capped = torch.clamp(tiles_full, max=max_tiles_per_gauss).reshape(-1).to(torch.int64)
-    total = int(tiles_capped.sum())
+    total = host_read(tiles_capped.sum(), "tile_sort", int)
     n_isects = min(total, capacity)
-    n_dropped = int((tiles_full.reshape(-1) - tiles_capped).sum()) + max(total - capacity, 0)
+    n_dropped = (host_read((tiles_full.reshape(-1) - tiles_capped).sum(), "tile_sort", int)
+                 + max(total - capacity, 0))
 
     owner = torch.repeat_interleave(
         torch.arange(G, device=device), tiles_capped, output_size=total)[:n_isects]
@@ -351,7 +353,7 @@ def isect_tiles_packed(
             capacity = I * N * K
         out_len = _round_up_128(capacity)
         counts = tiles_full.reshape(-1).to(torch.int64)
-        total = int(counts.sum())
+        total = host_read(counts.sum(), "tile_sort", int)
         n_isects = min(total, out_len)
         n_dropped = max(total - out_len, 0)
         owner = torch.repeat_interleave(
@@ -376,8 +378,8 @@ def isect_tiles_packed(
         if capacity is not None:
             capacity = _round_up_128(capacity)
         out_len = full_len if capacity is None or capacity >= full_len else capacity
-        n_real = int(tiles_capped.sum())
-        n_dropped = int((tiles_full.reshape(-1) - tiles_capped).sum())
+        n_real = host_read(tiles_capped.sum(), "tile_sort", int)
+        n_dropped = host_read((tiles_full.reshape(-1) - tiles_capped).sum(), "tile_sort", int)
         owner = torch.repeat_interleave(
             torch.arange(G, device=device), tiles_capped, output_size=n_real
         )

@@ -45,6 +45,7 @@ from tdgs_torch.ops.rasterize_pallas import rasterize_to_pixels_pallas
 from tdgs_torch.ops.sh import spherical_harmonics
 from tdgs_torch.ops.tiling import isect_offset_encode, isect_tiles, isect_tiles_packed
 from tdgs_torch.utils.depth import depth_to_normal, rotate
+from tdgs_torch.utils.profiler import host_read, span
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
 
@@ -69,7 +70,8 @@ def _colors_per_camera(colors, sh_degree, means, viewmats, radii):
         if colors.dim() == num_batch_dims + 2:
             return colors[..., None, :, :].expand(batch_dims + (C, N, colors.shape[-1]))
         return colors
-    campos = torch.linalg.inv(viewmats)[..., :3, 3]  # [..., C, 3]
+    # the inverse's error check reads its status on the host: a sync
+    campos = host_read(viewmats, "sh", torch.linalg.inv)[..., :3, 3]  # [..., C, 3]
     dirs = means[..., None, :, :] - campos[..., :, None, :]  # [..., C, N, 3]
     masks = (radii > 0).all(dim=-1)
     if colors.dim() == num_batch_dims + 3:
@@ -354,23 +356,24 @@ def rasterization(
         raise ValueError("with_ut needs quats and scales, not covars")
 
     calc_compensations = rasterize_mode == "antialiased"
-    if with_ut:
-        radii, means2d, depths, conics, compensations = fully_fused_projection_with_ut(
-            means, quats, scales, opacities, viewmats, Ks, width, height,
-            eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
-            radius_clip=radius_clip, calc_compensations=calc_compensations,
-            camera_model=camera_model, radial_coeffs=radial_coeffs,
-            tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
-            ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
-            viewmats_rs=viewmats_rs,
-        )
-    else:
-        radii, means2d, depths, conics, compensations = fully_fused_projection(
-            means, quats, scales, viewmats, Ks, width, height,
-            eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
-            radius_clip=radius_clip, calc_compensations=calc_compensations,
-            camera_model=camera_model, opacities=opacities, covars=covars,
-        )  # [..., C, N, ...]
+    with span("project"):
+        if with_ut:
+            radii, means2d, depths, conics, compensations = fully_fused_projection_with_ut(
+                means, quats, scales, opacities, viewmats, Ks, width, height,
+                eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
+                radius_clip=radius_clip, calc_compensations=calc_compensations,
+                camera_model=camera_model, radial_coeffs=radial_coeffs,
+                tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
+                ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
+                viewmats_rs=viewmats_rs,
+            )
+        else:
+            radii, means2d, depths, conics, compensations = fully_fused_projection(
+                means, quats, scales, viewmats, Ks, width, height,
+                eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
+                radius_clip=radius_clip, calc_compensations=calc_compensations,
+                camera_model=camera_model, opacities=opacities, covars=covars,
+            )  # [..., C, N, ...]
 
     if means2d_offset is not None:
         means2d = means2d + means2d_offset
@@ -391,15 +394,17 @@ def rasterization(
         "opacities": opacities_cn,
     })
 
-    colors_cn = _colors_per_camera(colors, sh_degree, means, viewmats, radii)
-    colors_cn, backgrounds = with_depth_channel(colors_cn, depths, backgrounds, render_mode)
+    with span("sh"):
+        colors_cn = _colors_per_camera(colors, sh_degree, means, viewmats, radii)
+        colors_cn, backgrounds = with_depth_channel(colors_cn, depths, backgrounds, render_mode)
 
     dense = rasterizer in ("jax", "pallas", "eval3d")
-    isect, offsets, tile_meta = tile_stream(
-        means2d, radii, depths, tile_size, width, height, dense,
-        default_isect_capacity(I, N) if dense and isect_capacity is None else isect_capacity,
-        max_tiles_per_gauss, isect_exact=isect_exact, isect_exact_depth=isect_exact_depth,
-        isect_split_k=isect_split_k, isect_big_capacity=isect_big_capacity)
+    with span("tile_sort"):
+        isect, offsets, tile_meta = tile_stream(
+            means2d, radii, depths, tile_size, width, height, dense,
+            default_isect_capacity(I, N) if dense and isect_capacity is None else isect_capacity,
+            max_tiles_per_gauss, isect_exact=isect_exact, isect_exact_depth=isect_exact_depth,
+            isect_split_k=isect_split_k, isect_big_capacity=isect_big_capacity)
     meta.update(tile_meta)
     meta.update({
         "width": width,
@@ -416,29 +421,30 @@ def rasterization(
         ftheta_coeffs=ftheta_coeffs, backgrounds=None if bg is None else bg.reshape(I, -1),
         tile_capacity=tile_capacity, rolling_shutter=rolling_shutter,
         viewmats_rs=None if viewmats_rs is None else viewmats_rs.reshape(I, 4, 4))
-    if rasterizer == "eval3d":
-        # the dense world-space oracle over the dense tiling
-        render_colors, render_alphas = rasterize_to_pixels_eval3d_jax(
-            means, quats, scales, colors_cn.reshape(I, N, -1),
-            opacities_cn.reshape(I, N), viewmats.reshape(I, 4, 4), Ks.reshape(I, 3, 3),
-            width, height, tile_size, offsets, isect.flatten_ids, isect.n_isects,
-            **eval3d_cams)
-        render_colors = render_colors.reshape((C, height, width, -1))
-        render_alphas = render_alphas.reshape((C, height, width, 1))
-    elif rasterizer == "eval3d_packed":
-        # the projection only tiled: the response is taken along the rays
-        render_colors, render_alphas = rasterize_to_pixels_eval3d_packed(
-            means, quats, scales, colors_cn.reshape(I, N, -1).contiguous(),
-            opacities_cn.reshape(I, N).contiguous(), viewmats.reshape(I, 4, 4),
-            Ks.reshape(I, 3, 3), width, height, tile_size, isect.offsets,
-            isect.flatten_ids, **eval3d_cams)
-        render_colors = render_colors.reshape((C, height, width, -1))
-        render_alphas = render_alphas.reshape((C, height, width, 1))
-    else:
-        render_colors, render_alphas = rasterize_screen(
-            rasterizer, means2d, conics, colors_cn, opacities_cn, width, height, tile_size,
-            offsets, isect, bg, tile_capacity, abs_dummy)
-    render_colors = expected_depth(render_colors, render_alphas, render_mode)
+    with span("composite"):
+        if rasterizer == "eval3d":
+            # the dense world-space oracle over the dense tiling
+            render_colors, render_alphas = rasterize_to_pixels_eval3d_jax(
+                means, quats, scales, colors_cn.reshape(I, N, -1),
+                opacities_cn.reshape(I, N), viewmats.reshape(I, 4, 4), Ks.reshape(I, 3, 3),
+                width, height, tile_size, offsets, isect.flatten_ids, isect.n_isects,
+                **eval3d_cams)
+            render_colors = render_colors.reshape((C, height, width, -1))
+            render_alphas = render_alphas.reshape((C, height, width, 1))
+        elif rasterizer == "eval3d_packed":
+            # the projection only tiled: the response is taken along the rays
+            render_colors, render_alphas = rasterize_to_pixels_eval3d_packed(
+                means, quats, scales, colors_cn.reshape(I, N, -1).contiguous(),
+                opacities_cn.reshape(I, N).contiguous(), viewmats.reshape(I, 4, 4),
+                Ks.reshape(I, 3, 3), width, height, tile_size, isect.offsets,
+                isect.flatten_ids, **eval3d_cams)
+            render_colors = render_colors.reshape((C, height, width, -1))
+            render_alphas = render_alphas.reshape((C, height, width, 1))
+        else:
+            render_colors, render_alphas = rasterize_screen(
+                rasterizer, means2d, conics, colors_cn, opacities_cn, width, height, tile_size,
+                offsets, isect, bg, tile_capacity, abs_dummy)
+        render_colors = expected_depth(render_colors, render_alphas, render_mode)
     return render_colors, render_alphas, meta
 
 

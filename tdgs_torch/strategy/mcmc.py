@@ -28,6 +28,7 @@ from tdgs_torch.strategy.ops import (
     position_noise,
     refine_mcmc,
 )
+from tdgs_torch.utils.profiler import host_read, span
 
 
 @dataclass
@@ -65,19 +66,21 @@ class MCMCStrategy(Strategy):
     ) -> Tuple[SplatParams, Any, Dict]:
         C = params["means"].shape[0]
         if self.refines_at(step):
-            n_before = int(state["n_alive"])
-            n_target = min(C, int(1.05 * n_before))
-            sampled = mcmc_sample_sources(params, generator, n_before, self.min_opacity)
-            n_reloc = 0
-            if sampled is not None:
-                params, opt_state, relocated = refine_mcmc(
-                    params, opt_state, sampled, n_before, n_target, state["binoms"],
-                    self.min_opacity)
-                n_reloc = int(relocated)
-                state = dict(state, n_alive=n_target)
-            self.last_refine = {"n_relocated": n_reloc, "n_alive": int(state["n_alive"])}
-            if self.verbose:
-                print(f"Step {step}: relocated {n_reloc} GSs; now {state['n_alive']} live GSs.")
+            with span("refine"):
+                n_before = int(state["n_alive"])
+                n_target = min(C, int(1.05 * n_before))
+                sampled = mcmc_sample_sources(params, generator, n_before, self.min_opacity)
+                n_reloc = 0
+                if sampled is not None:
+                    params, opt_state, relocated = refine_mcmc(
+                        params, opt_state, sampled, n_before, n_target, state["binoms"],
+                        self.min_opacity)
+                    n_reloc = host_read(relocated, "mcmc_refine", int)
+                    state = dict(state, n_alive=n_target)
+                self.last_refine = {"n_relocated": n_reloc, "n_alive": int(state["n_alive"])}
+                if self.verbose:
+                    print(f"Step {step}: relocated {n_reloc} GSs; now {state['n_alive']} "
+                          f"live GSs.")
 
         active = torch.arange(C, device=params["means"].device) < int(state["n_alive"])
         params = inject_noise_to_position(params, position_noise(params, generator),

@@ -21,6 +21,7 @@ import torch
 from tdgs_torch.models.gaussians import DEAD_OPACITY_LOGIT, SplatParams
 from tdgs_torch.ops.relocation import compute_relocation
 from tdgs_torch.ops.transforms import quat_scale_to_covar_preci, quat_to_rotmat
+from tdgs_torch.utils.profiler import host_read
 
 _EPS = float(torch.finfo(torch.float32).eps)
 
@@ -206,7 +207,7 @@ def mcmc_sample_sources(params: SplatParams, generator: torch.Generator, n_befor
     op = torch.sigmoid(params["opacities"])
     slots = torch.arange(op.shape[0], device=op.device)
     alive = (slots < n_before) & (op > min_opacity)
-    if not bool(alive.any()):
+    if not host_read(alive.any(), "mcmc_refine", bool):
         return None
     probs = torch.where(alive, op, torch.zeros_like(op))
     return torch.multinomial(probs, op.shape[0], replacement=True, generator=generator)
@@ -247,11 +248,12 @@ def refine_mcmc(
 
     # the sources first: every target that drew a source writes the same
     # values into it
-    src = sampled[target]
+    # each boolean index finds the targets on the host: one sync each
+    src = host_read(target, "mcmc_refine", sampled.__getitem__)
     opacities = params["opacities"].clone()
-    opacities[src] = new_op_logit[target]
+    opacities[src] = host_read(target, "mcmc_refine", new_op_logit.__getitem__)
     scales = params["scales"].clone()
-    scales[src] = new_log_scales[target]
+    scales[src] = host_read(target, "mcmc_refine", new_log_scales.__getitem__)
     upd = dict(params, opacities=opacities, scales=scales)
 
     # then the targets copy their (updated) sources

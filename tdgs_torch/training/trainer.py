@@ -111,6 +111,7 @@ from tdgs_torch.training.config import Config
 from tdgs_torch.training.metrics import lpips, lpips_impl
 from tdgs_torch.utils.depth import depth_to_normal, rotate
 from tdgs_torch.utils.logger import MetricsLogger, device_mem_gb
+from tdgs_torch.utils.profiler import host_read, span
 from tdgs_torch.viewer.server import frame_to_uint8, viewer_rasterizer
 
 
@@ -314,8 +315,8 @@ class Runner:
         x = x.detach()
         return comm.all_reduce_sum(x) if self.mesh is not None else x
 
-    def _alive_count(self) -> int:
-        return int(self._world_sum(G.alive_mask(self.splats).sum()))
+    def _alive_count(self, site: str = "alive_count") -> int:
+        return host_read(self._world_sum(G.alive_mask(self.splats).sum()), site, int)
 
     # ------------------------------------------------------------------
     # the live viewer (tdgs/training/trainer.py:526-600)
@@ -648,70 +649,77 @@ class Runner:
                                          backgrounds)
         else:
             render_mode = "RGB+ED" if (cfg.depth_loss or cfg.depth_normal_loss) else "RGB"
-            img, _, meta = self.rasterize_splats(
-                params, batch["viewmat"], batch["K"], W, H, sh_degree,
-                means2d_offset=tap, means2d_abs_tap=abs_tap, backgrounds=backgrounds,
-                render_mode=render_mode, image_ids=image_ids)
-            if "mask" in batch:
-                img = img * batch["mask"][..., None]
-            rgb = img[..., :3]
-            if self.bilagrid is not None:
-                rgb = BG.bilateral_grid_slice(self.bilagrid, image_ids, rgb)
-            terms["rgbloss"] = L.d_ssim_l1_loss(rgb, images, cfg.ssim_lambda)
-            if self.bilagrid is not None:
-                terms["tvloss"] = 10.0 * BG.total_variation_loss(self.bilagrid)
-            if self.camera_opt is not None:
-                terms["posereg"] = cfg.pose_opt_reg * M.camera_opt_reg(self.camera_opt.embeds)
-            if self.app_module is not None:
-                terms["appreg"] = cfg.app_opt_reg * (self.app_module.embeds ** 2).mean()
-            for k, v in self._depth_normal_terms(params, batch, step, img, meta).items():
-                terms[k] = v
-            if cfg.save_depth_normal_vis and img.shape[-1] > 3:
-                depth = img[..., 3:].detach()
-        # every term above is a mean over the batch's images (or of the
-        # replicated modules): this rank's share of it is 1/W
-        terms = {k: v / world for k, v in terms.items()}
-        if cfg.model_type == "2dgs":
-            loss = loss / world
-        else:
-            loss = sum(terms.values())
-        if cfg.opacity_reg > 0:
-            terms["opacityreg"] = cfg.opacity_reg * self._row_mean(
-                torch.sigmoid(params["opacities"]).abs())
-            loss = loss + terms["opacityreg"]
-        if cfg.scale_reg > 0:
-            terms["scalereg"] = cfg.scale_reg * self._row_mean(torch.exp(params["scales"]).abs())
-            loss = loss + terms["scalereg"]
+            with span("render"):
+                img, _, meta = self.rasterize_splats(
+                    params, batch["viewmat"], batch["K"], W, H, sh_degree,
+                    means2d_offset=tap, means2d_abs_tap=abs_tap, backgrounds=backgrounds,
+                    render_mode=render_mode, image_ids=image_ids)
+        with span("loss"):
+            if cfg.model_type != "2dgs":
+                if "mask" in batch:
+                    img = img * batch["mask"][..., None]
+                rgb = img[..., :3]
+                if self.bilagrid is not None:
+                    rgb = BG.bilateral_grid_slice(self.bilagrid, image_ids, rgb)
+                terms["rgbloss"] = L.d_ssim_l1_loss(rgb, images, cfg.ssim_lambda)
+                if self.bilagrid is not None:
+                    terms["tvloss"] = 10.0 * BG.total_variation_loss(self.bilagrid)
+                if self.camera_opt is not None:
+                    terms["posereg"] = cfg.pose_opt_reg * M.camera_opt_reg(
+                        self.camera_opt.embeds)
+                if self.app_module is not None:
+                    terms["appreg"] = cfg.app_opt_reg * (self.app_module.embeds ** 2).mean()
+                for k, v in self._depth_normal_terms(params, batch, step, img, meta).items():
+                    terms[k] = v
+                if cfg.save_depth_normal_vis and img.shape[-1] > 3:
+                    depth = img[..., 3:].detach()
+            # every term above is a mean over the batch's images (or of the
+            # replicated modules): this rank's share of it is 1/W
+            terms = {k: v / world for k, v in terms.items()}
+            if cfg.model_type == "2dgs":
+                loss = loss / world
+            else:
+                loss = sum(terms.values())
+            if cfg.opacity_reg > 0:
+                terms["opacityreg"] = cfg.opacity_reg * self._row_mean(
+                    torch.sigmoid(params["opacities"]).abs())
+                loss = loss + terms["opacityreg"]
+            if cfg.scale_reg > 0:
+                terms["scalereg"] = cfg.scale_reg * self._row_mean(
+                    torch.exp(params["scales"]).abs())
+                loss = loss + terms["scalereg"]
 
-        names = list(params)
-        aux_leaves = [(group, name, p) for group, ps in aux_groups.items()
-                      for name, p in ps.items()]
-        grads = torch.autograd.grad(
-            loss, [params[k] for k in names] + taps + [p for _, _, p in aux_leaves],
-            allow_unused=True)
-        g_params = {k: (g if g is not None else torch.zeros_like(params[k]))
-                    for k, g in zip(names, grads)}
-        for k, g in seg_grads.items():
-            # summed before the one Adam update: the fused loss's gradient
-            g_params[k] = g_params[k] + g
-        g_taps = grads[len(names):len(names) + len(taps)]
-        g_aux = {group: {} for group in aux_groups}
-        for (group, name, p), g in zip(aux_leaves, grads[len(names) + len(taps):]):
-            if blocked:
-                # replicated modules: the gradient of the global loss
-                g = self._world_sum(torch.zeros_like(p) if g is None else g)
-            g_aux[group][name] = g
-        self._aux_update(g_aux)
+        with span("backward"):
+            names = list(params)
+            aux_leaves = [(group, name, p) for group, ps in aux_groups.items()
+                          for name, p in ps.items()]
+            grads = torch.autograd.grad(
+                loss, [params[k] for k in names] + taps + [p for _, _, p in aux_leaves],
+                allow_unused=True)
+            g_params = {k: (g if g is not None else torch.zeros_like(params[k]))
+                        for k, g in zip(names, grads)}
+            for k, g in seg_grads.items():
+                # summed before the one Adam update: the fused loss's gradient
+                g_params[k] = g_params[k] + g
+            g_taps = grads[len(names):len(names) + len(taps)]
+            g_aux = {group: {} for group in aux_groups}
+            for (group, name, p), g in zip(aux_leaves, grads[len(names) + len(taps):]):
+                if blocked:
+                    # replicated modules: the gradient of the global loss
+                    g = self._world_sum(torch.zeros_like(p) if g is None else g)
+                g_aux[group][name] = g
+            self._aux_update(g_aux)
 
-        radii = meta["radii"]
-        visibility = (radii > 0).all(-1).any(dim=tuple(range(radii.dim() - 2)))
-        lr_dict = {k: v for k, v in self.optimizer.lr_at(step).items() if k in params}
-        self.splats, self.opt_state = self.optimizer.update(
-            g_params, self.opt_state, self.splats, lr_dict,
-            visibility=visibility if cfg.visible_adam else None)
-        if cfg.max_scale is not None:
-            self.splats["scales"] = torch.clamp(self.splats["scales"],
-                                                max=float(np.log(cfg.max_scale)))
+        with span("adam"):
+            radii = meta["radii"]
+            visibility = (radii > 0).all(-1).any(dim=tuple(range(radii.dim() - 2)))
+            lr_dict = {k: v for k, v in self.optimizer.lr_at(step).items() if k in params}
+            self.splats, self.opt_state = self.optimizer.update(
+                g_params, self.opt_state, self.splats, lr_dict,
+                visibility=visibility if cfg.visible_adam else None)
+            if cfg.max_scale is not None:
+                self.splats["scales"] = torch.clamp(self.splats["scales"],
+                                                    max=float(np.log(cfg.max_scale)))
         v_means2d = None
         if use_tap:
             v_means2d = g_taps[1] if use_absgrad else g_taps[0]
@@ -880,66 +888,68 @@ class Runner:
         cfg = self.cfg
         images = batch["image"]
         H, W = images.shape[1:3]
-        means, quats, scales, opacities, sh = G.splat_activations(params)
-        kw = dict(sh_degree=sh_degree, render_mode="RGB+ED", distloss=cfg.dist_loss,
-                  means2d_offset=tap, means2d_abs_tap=abs_tap,
-                  tile_capacity=cfg.tile_capacity, isect_capacity=cfg.isect_capacity,
-                  max_tiles_per_gauss=cfg.max_tiles_per_gauss, backgrounds=backgrounds,
-                  rasterizer="packed")
-        if self._blocked(params):
-            # the surfel exchange (tdgs/training/trainer.py:654-680); the
-            # normals come back in the camera frame
-            img, alpha, normals_cam, distort, _, meta = rasterization_2dgs_sharded(
-                means, quats, scales, opacities, sh, batch["viewmat"], batch["K"], W, H,
-                self.mesh, **kw)
-            c2w = torch.linalg.inv(batch["viewmat"])
-            normals = rotate(c2w[..., :3, :3], normals_cam)
-            normals_from_depth = depth_to_normal(img[..., -1:], c2w, batch["K"])
-        else:
-            img, alpha, normals, normals_from_depth, distort, _, meta = rasterization_2dgs(
-                means, quats, scales, opacities, sh, batch["viewmat"], batch["K"], W, H,
-                isect_exact=cfg.isect_exact, device=self.device, **kw)
-        if "mask" in batch:
-            img = img * batch["mask"][..., None]
-        loss = L.d_ssim_l1_loss(img[..., :3], images, cfg.ssim_lambda)
-        normal_lambda = cfg.normal_lambda if step > cfg.normal_start_iter else 0.0
-        if cfg.normal_loss and normal_lambda:
-            nfd = normals_from_depth * alpha.detach()
-            loss = loss + normal_lambda * (1.0 - (normals * nfd).sum(-1)).mean()
-        dist_lambda = cfg.dist_lambda if step > cfg.dist_start_iter else 0.0
-        if cfg.dist_loss and dist_lambda:
-            loss = loss + dist_lambda * distort.mean()
+        with span("render"):
+            means, quats, scales, opacities, sh = G.splat_activations(params)
+            kw = dict(sh_degree=sh_degree, render_mode="RGB+ED", distloss=cfg.dist_loss,
+                      means2d_offset=tap, means2d_abs_tap=abs_tap,
+                      tile_capacity=cfg.tile_capacity, isect_capacity=cfg.isect_capacity,
+                      max_tiles_per_gauss=cfg.max_tiles_per_gauss, backgrounds=backgrounds,
+                      rasterizer="packed")
+            if self._blocked(params):
+                # the surfel exchange (tdgs/training/trainer.py:654-680); the
+                # normals come back in the camera frame
+                img, alpha, normals_cam, distort, _, meta = rasterization_2dgs_sharded(
+                    means, quats, scales, opacities, sh, batch["viewmat"], batch["K"], W, H,
+                    self.mesh, **kw)
+                c2w = torch.linalg.inv(batch["viewmat"])
+                normals = rotate(c2w[..., :3, :3], normals_cam)
+                normals_from_depth = depth_to_normal(img[..., -1:], c2w, batch["K"])
+            else:
+                img, alpha, normals, normals_from_depth, distort, _, meta = rasterization_2dgs(
+                    means, quats, scales, opacities, sh, batch["viewmat"], batch["K"], W, H,
+                    isect_exact=cfg.isect_exact, device=self.device, **kw)
+        with span("loss"):
+            if "mask" in batch:
+                img = img * batch["mask"][..., None]
+            loss = L.d_ssim_l1_loss(img[..., :3], images, cfg.ssim_lambda)
+            normal_lambda = cfg.normal_lambda if step > cfg.normal_start_iter else 0.0
+            if cfg.normal_loss and normal_lambda:
+                nfd = normals_from_depth * alpha.detach()
+                loss = loss + normal_lambda * (1.0 - (normals * nfd).sum(-1)).mean()
+            dist_lambda = cfg.dist_lambda if step > cfg.dist_start_iter else 0.0
+            if cfg.dist_loss and dist_lambda:
+                loss = loss + dist_lambda * distort.mean()
         return loss, meta
 
     def _batch(self, idx) -> Dict[str, torch.Tensor]:
-        items = [self.trainset[int(i)] for i in idx]
-        dev = self.device
-        batch = {
-            k: torch.as_tensor(np.stack([it[src] for it in items]), dtype=torch.float32,
-                               device=dev)
-            for k, src in (("image", "image"), ("viewmat", "viewmat"), ("K", "K"))
-        }
-        # the training set's indices: the rows of the per-image modules
-        batch["image_id"] = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
-        if all("mask" in it for it in items):
-            batch["mask"] = torch.as_tensor(np.stack([it["mask"] for it in items]),
-                                            dtype=torch.float32, device=dev)
-        if all("instance_mask" in it for it in items):
-            batch["instance_mask"] = torch.as_tensor(
-                np.stack([it["instance_mask"] for it in items]).astype(np.int64), device=dev)
-        cfg = self.cfg
-        if cfg.load_normals and all("normal" in it for it in items):
-            batch["normal"] = torch.as_tensor(np.stack([it["normal"] for it in items]),
-                                              dtype=torch.float32, device=dev)
-        if cfg.depth_loss:
-            if cfg.use_precomputed_depths and all("refined_depth" in it for it in items):
-                batch["depth_map"] = torch.as_tensor(
-                    np.stack([it["refined_depth"] for it in items]), dtype=torch.float32,
-                    device=dev)
-            else:
-                batch.update({k: torch.as_tensor(v, device=dev)
-                              for k, v in self._depth_fields(items).items()})
-        return batch
+        with span("data"):
+            items = [self.trainset[int(i)] for i in idx]
+            dev = self.device
+
+            def upload(a, dtype=None):
+                # a copy from pageable host memory waits for the device's queue
+                return host_read(a, "data", lambda x: torch.as_tensor(x, dtype=dtype, device=dev))
+
+            batch = {k: upload(np.stack([it[src] for it in items]), torch.float32)
+                     for k, src in (("image", "image"), ("viewmat", "viewmat"), ("K", "K"))}
+            # the training set's indices: the rows of the per-image modules
+            batch["image_id"] = upload(np.asarray(idx, np.int64))
+            if all("mask" in it for it in items):
+                batch["mask"] = upload(np.stack([it["mask"] for it in items]), torch.float32)
+            if all("instance_mask" in it for it in items):
+                batch["instance_mask"] = upload(
+                    np.stack([it["instance_mask"] for it in items]).astype(np.int64))
+            cfg = self.cfg
+            if cfg.load_normals and all("normal" in it for it in items):
+                batch["normal"] = upload(np.stack([it["normal"] for it in items]),
+                                         torch.float32)
+            if cfg.depth_loss:
+                if cfg.use_precomputed_depths and all("refined_depth" in it for it in items):
+                    batch["depth_map"] = upload(
+                        np.stack([it["refined_depth"] for it in items]), torch.float32)
+                else:
+                    batch.update({k: upload(v) for k, v in self._depth_fields(items).items()})
+            return batch
 
     @staticmethod
     def _depth_fields(items) -> Dict[str, np.ndarray]:
@@ -976,90 +986,98 @@ class Runner:
         per_rank = cfg.batch_size // world
         sync_viewer = self.mesh is not None and not cfg.disable_viewer
         last_log_step, last_log_time = start_step, time.time()
+        nancheck = int(os.environ.get("TDGS_NANCHECK", "0") or 0)
         for step in range(start_step + 1, cfg.max_steps + 1):
-            if cursor + cfg.batch_size > len(order):
-                order = rng.permutation(len(self.trainset))
-                cursor = 0
-            idx = order[cursor:cursor + cfg.batch_size][rank * per_rank:(rank + 1) * per_rank]
-            # decode-ahead: the next steps' images decode while this one runs
-            ahead = order[cursor + cfg.batch_size:cursor + 5 * cfg.batch_size]
-            cursor += cfg.batch_size
-            mine = np.arange(len(ahead)) % cfg.batch_size // per_rank == rank
-            self.trainset.prefetch(ahead[mine])
-            batch = self._batch(idx)
-            H, W = batch["image"].shape[1:3]
-            sh_degree = min(step // cfg.sh_degree_interval, cfg.sh_degree)
-            # the segmentation cadence (tdgs/training/trainer.py:1100-1114)
-            seg_live = cfg.with_segmentation and step >= cfg.seg_start_iter
-            use_seg = (seg_live and step % cfg.seg_loss_every == 0
-                       and "instance_mask" in batch)
-            use_spatial = seg_live and step % cfg.seg_spatial_every == 0
-            log_step = step % cfg.tb_every == 0 or step == cfg.max_steps
-            # the live view sees the state between steps (tdgs/training/trainer.py:1154)
-            with self.viewer_lock:
-                loss, aux = self.train_step(batch, step, sh_degree, use_seg=use_seg,
-                                            use_spatial=use_spatial, seg_quality=log_step)
-                self.seg_steps += int(use_seg or use_spatial)
+            with span("step", step=step):
+                if cursor + cfg.batch_size > len(order):
+                    order = rng.permutation(len(self.trainset))
+                    cursor = 0
+                idx = order[cursor:cursor + cfg.batch_size][rank * per_rank:(rank + 1) * per_rank]
+                # decode-ahead: the next steps' images decode while this one runs
+                ahead = order[cursor + cfg.batch_size:cursor + 5 * cfg.batch_size]
+                cursor += cfg.batch_size
+                mine = np.arange(len(ahead)) % cfg.batch_size // per_rank == rank
+                self.trainset.prefetch(ahead[mine])
+                batch = self._batch(idx)
+                H, W = batch["image"].shape[1:3]
+                sh_degree = min(step // cfg.sh_degree_interval, cfg.sh_degree)
+                # the segmentation cadence (tdgs/training/trainer.py:1100-1114)
+                seg_live = cfg.with_segmentation and step >= cfg.seg_start_iter
+                use_seg = (seg_live and step % cfg.seg_loss_every == 0
+                           and "instance_mask" in batch)
+                use_spatial = seg_live and step % cfg.seg_spatial_every == 0
+                log_step = step % cfg.tb_every == 0 or step == cfg.max_steps
+                # the live view sees the state between steps (tdgs/training/trainer.py:1154)
+                with self.viewer_lock:
+                    loss, aux = self.train_step(batch, step, sh_degree, use_seg=use_seg,
+                                                use_spatial=use_spatial, seg_quality=log_step)
+                    self.seg_steps += int(use_seg or use_spatial)
 
-                info = {"radii": aux["radii"], "width": W, "height": H}
-                if aux["v_means2d"] is not None:
-                    self.strategy_state = self.strategy.update_state(
-                        self.strategy_state, info, aux["v_means2d"])
-                refine_before = self.strategy.last_refine
-                # a device scalar: read (a host sync) only when a refine ran
-                alive_before = self._world_sum(G.alive_mask(self.splats).sum())
-                self.strategy_post_backward(step, info, aux["lr_means"])
-                if self.strategy.last_refine is not refine_before:
-                    self.refines.append(dict(
-                        step=step, **self.strategy.last_refine,
-                        alive_before=int(alive_before), alive_after=self._alive_count()))
-                if (cfg.max_capacity and isinstance(self.strategy, DefaultStrategy)
-                        and self.strategy.refine_start_iter <= step
-                        <= self.strategy.refine_stop_iter
-                        and step % self.strategy.refine_every == 0):
-                    self.maybe_grow_capacity()
-            if sync_viewer:
-                self._sync_viewer_copy()
+                    info = {"radii": aux["radii"], "width": W, "height": H}
+                    if aux["v_means2d"] is not None:
+                        self.strategy_state = self.strategy.update_state(
+                            self.strategy_state, info, aux["v_means2d"])
+                    refine_before = self.strategy.last_refine
+                    # a device scalar: read (a host sync) only when a refine ran
+                    alive_before = self._world_sum(G.alive_mask(self.splats).sum())
+                    self.strategy_post_backward(step, info, aux["lr_means"])
+                    if self.strategy.last_refine is not refine_before:
+                        self.refines.append(dict(
+                            step=step, **self.strategy.last_refine,
+                            alive_before=host_read(alive_before, "refine_record", int),
+                            alive_after=self._alive_count("refine_record")))
+                    if (cfg.max_capacity and isinstance(self.strategy, DefaultStrategy)
+                            and self.strategy.refine_start_iter <= step
+                            <= self.strategy.refine_stop_iter
+                            and step % self.strategy.refine_every == 0):
+                        self.maybe_grow_capacity()
+                if sync_viewer:
+                    self._sync_viewer_copy()
 
-            nancheck = int(os.environ.get("TDGS_NANCHECK", "0") or 0)
-            if nancheck and step % nancheck == 0 and not math.isfinite(float(loss)):
-                bad = {k: int((~torch.isfinite(v)).sum()) for k, v in self.splats.items()
-                       if not bool(torch.isfinite(v).all())}
-                raise FloatingPointError(f"non-finite loss at step {step}: "
-                                         f"non-finite params={bad}")
+                if nancheck and step % nancheck == 0 and not math.isfinite(
+                        host_read(loss, "nancheck", float)):
+                    bad = {k: int((~torch.isfinite(v)).sum()) for k, v in self.splats.items()
+                           if not bool(torch.isfinite(v).all())}
+                    raise FloatingPointError(f"non-finite loss at step {step}: "
+                                             f"non-finite params={bad}")
 
-            if log_step:
-                history.append({"step": step, "loss": float(loss)})
-                # rays a second over the steps since the last record, every
-                # rank's images counted (tdgs/training/trainer.py:1233-1267)
-                now = time.time()
-                rays_sec = (H * W * cfg.batch_size * (step - last_log_step)
-                            / max(now - last_log_time, 1e-9))
-                last_log_step, last_log_time = step, now
-                scalars = {
-                    "train/loss": float(loss),
-                    "train/num_GS": self._alive_count(),
-                    "train/visible_GS": int(self._world_sum(aux["visibility"].sum())),
-                    "train/rays_per_sec": rays_sec,
-                    "train/sh_degree": sh_degree,
-                    "train/mem_gb": device_mem_gb() if self.device.type == "cuda" else None,
-                }
-                scalars.update({f"train/{k}": float(v) for k, v in aux["loss_terms"].items()})
-                scalars.update({f"train/{k}": float(v) for k, v in aux["seg_terms"].items()})
-                if aux["cluster_quality"] is not None:
-                    intra, inter = aux["cluster_quality"]
-                    scalars["train/cluster_intra"] = float(intra)
-                    scalars["train/cluster_inter"] = float(inter)
-                if self.logger is not None:
-                    self.logger.log(step, scalars)
-                if cfg.save_depth_normal_vis and aux["depth"] is not None and self.is_main:
-                    self._save_depth_normal_vis(step, aux["depth"][0], batch)
-            if step in cfg.eval_steps:
-                self.eval(step)
-            if step in cfg.save_steps:
-                self.save_checkpoint(step)
-            if cfg.save_ply and step in cfg.ply_steps:
-                self.export_ply(step)
+                if log_step:
+                    with span("log"):
+                        history.append({"step": step, "loss": host_read(loss, "log", float)})
+                        # rays a second over the steps since the last record, every
+                        # rank's images counted (tdgs/training/trainer.py:1233-1267)
+                        now = time.time()
+                        rays_sec = (H * W * cfg.batch_size * (step - last_log_step)
+                                    / max(now - last_log_time, 1e-9))
+                        last_log_step, last_log_time = step, now
+                        visible = self._world_sum(aux["visibility"].sum())
+                        scalars = {
+                            "train/loss": host_read(loss, "log", float),
+                            "train/num_GS": self._alive_count("log"),
+                            "train/visible_GS": host_read(visible, "log", int),
+                            "train/rays_per_sec": rays_sec,
+                            "train/sh_degree": sh_degree,
+                            "train/mem_gb": (device_mem_gb() if self.device.type == "cuda"
+                                             else None),
+                        }
+                        for named in (aux["loss_terms"], aux["seg_terms"]):
+                            scalars.update({f"train/{k}": host_read(v, "log", float)
+                                            for k, v in named.items()})
+                        if aux["cluster_quality"] is not None:
+                            intra, inter = aux["cluster_quality"]
+                            scalars["train/cluster_intra"] = host_read(intra, "log", float)
+                            scalars["train/cluster_inter"] = host_read(inter, "log", float)
+                        if self.logger is not None:
+                            self.logger.log(step, scalars)
+                        if (cfg.save_depth_normal_vis and aux["depth"] is not None
+                                and self.is_main):
+                            self._save_depth_normal_vis(step, aux["depth"][0], batch)
+                if step in cfg.eval_steps:
+                    self.eval(step)
+                if step in cfg.save_steps:
+                    self.save_checkpoint(step)
+                if cfg.save_ply and step in cfg.ply_steps:
+                    self.export_ply(step)
         return {"history": history, "wall_time_s": time.time() - t0}
 
     @_under_viewer_lock
@@ -1069,27 +1087,28 @@ class Runner:
         generator on every rank (so every rank draws alike) and each keeps
         its block; the MCMC position noise of the other steps is drawn for
         every row and each rank applies its block's."""
-        strat = self.strategy
-        if not self._blocked(self.splats):
-            self.splats, self.opt_state, self.strategy_state = strat.step_post_backward(
-                self.splats, self.opt_state, self.strategy_state, step, info,
-                self.generator, lr=lr)
-            return
-        if isinstance(strat, MCMCStrategy) and not strat.refines_at(step):
-            n = self.capacity // self.mesh.world
-            block = slice(self.mesh.rank * n, (self.mesh.rank + 1) * n)
-            noise = torch.randn((self.capacity, 3), generator=self.generator,
-                                device=self.device)[block]
-            active = (torch.arange(self.capacity, device=self.device)
-                      < int(self.strategy_state["n_alive"]))[block]
-            self.splats = inject_noise_to_position(self.splats, noise, lr * strat.noise_lr,
-                                                   active_mask=active)
-            return
-        if isinstance(strat, DefaultStrategy) and not strat.acts_at(step):
-            return
-        whole = self._gather(self._trees()).values()
-        whole = strat.step_post_backward(*whole, step, info, self.generator, lr=lr)
-        self._set_trees(self._shard(dict(zip(rows.TREES, whole))))
+        with span("strategy"):
+            strat = self.strategy
+            if not self._blocked(self.splats):
+                self.splats, self.opt_state, self.strategy_state = strat.step_post_backward(
+                    self.splats, self.opt_state, self.strategy_state, step, info,
+                    self.generator, lr=lr)
+                return
+            if isinstance(strat, MCMCStrategy) and not strat.refines_at(step):
+                n = self.capacity // self.mesh.world
+                block = slice(self.mesh.rank * n, (self.mesh.rank + 1) * n)
+                noise = torch.randn((self.capacity, 3), generator=self.generator,
+                                    device=self.device)[block]
+                active = (torch.arange(self.capacity, device=self.device)
+                          < int(self.strategy_state["n_alive"]))[block]
+                self.splats = inject_noise_to_position(self.splats, noise, lr * strat.noise_lr,
+                                                       active_mask=active)
+                return
+            if isinstance(strat, DefaultStrategy) and not strat.acts_at(step):
+                return
+            whole = self._gather(self._trees()).values()
+            whole = strat.step_post_backward(*whole, step, info, self.generator, lr=lr)
+            self._set_trees(self._shard(dict(zip(rows.TREES, whole))))
 
     @torch.no_grad()
     def _save_depth_normal_vis(self, step: int, depth: torch.Tensor, batch) -> None:
