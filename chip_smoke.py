@@ -62,6 +62,7 @@ import tdgs_torch
 from tdgs_torch.main import default_camera
 from tdgs_torch.models.gaussians import rgb_to_sh
 from tdgs_torch.ops import _build
+from tdgs_torch.ops import adam as A
 from tdgs_torch.ops import segment_sum as S
 from tdgs_torch.ops.rasterize_packed import (
     BLOCKS_A_TILE as P_BLOCKS_A_TILE,
@@ -108,6 +109,7 @@ WIDTH, HEIGHT = 1920, 1080
 TOL = 1e-3  # kernel vs plain version, absolute, colors and alphas
 BWD_RTOL = 1e-3  # kernel 2 vs plain: max|Δ| / max|plain| per gradient group
 SEG_RTOL = 1e-5  # kernel 3 vs plain: max|Δ| / max|plain| per column group
+ADAM_ULPS = 4  # the Adam kernel vs plain: float32 ulps of the value (and of the step)
 KERNELS = (KERNEL, KERNEL_BWD, S.KERNEL)
 DENSE_KERNELS = (RP.KERNEL_FWD, RP.KERNEL_BWD, S.KERNEL)
 DIST_RTOL = 1e-3  # kernel 5 vs plain: distortion, max|Δ| / max|plain|
@@ -754,6 +756,75 @@ def measure_segment_sum(rows, ids, offsets, G, reps=20):
                 entries=n_isects, rows_out=G, columns=F, bytes=seg_bytes)
 
 
+def measure_adam(n=1_000_000, visible=1.0, reps=20, seed=0, sh_slices=True):
+    """The Adam kernel (csrc/adam.cu) over the trainer's six 3DGS groups at
+    SH degree 3 (59 floats a row) at ``n`` rows, a random share ``visible``
+    of them unmasked, the SH gradients slices of one as the trainer's
+    (``sh_slices``): its device time by CUDA events and by CUDA graph
+    replay, the plain chain's time, and its bound by bytes (28 a visible
+    float, 24 a masked one, a byte a row). Held against the plain chain:
+    visible elements within ``ADAM_ULPS`` float32 ulps of its value, and of
+    the parameter's step, masked rows bitwise the inputs."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shapes = {"means": (3,), "scales": (3,), "quats": (4,), "opacities": (),
+              "sh0": (1, 3), "shN": (15, 3)}
+
+    def draw(shape, scale):
+        return torch.randn((n,) + shape, generator=gen, device=DEVICE) * scale
+
+    params = {k: draw(s, 1.0) for k, s in shapes.items()}
+    grads = {k: draw(s, 1e-3) for k, s in shapes.items()}
+    if sh_slices:
+        sh = draw((16, 3), 1e-3)
+        grads.update(sh0=sh[:, :1], shN=sh[:, 1:])
+    mu = {k: draw(s, 1e-4) for k, s in shapes.items()}
+    nu = {k: draw(s, 1e-4).square() for k, s in shapes.items()}
+    vis = torch.rand(n, generator=gen, device=DEVICE) < visible
+    lrs = {k: 1e-3 for k in shapes}
+    args = (params, grads, mu, nu, lrs, 0.9, 0.999, 1e-15, vis)
+    ulps, masked_bitwise = adam_errors(args, A.adam_update(*args), A.adam_update_plain(*args))
+    if ulps > ADAM_ULPS or not masked_bitwise:
+        raise RuntimeError(f"kernel_adam: {ulps:.2f} ulps from the plain chain (tolerance "
+                           f"{ADAM_ULPS}), masked rows bitwise the inputs: {masked_bitwise}")
+    _build.reset_launches()
+    ms = time_ms(lambda: A.adam_update(*args), reps)
+    launches = _build.LAUNCHES.get(A.KERNEL, 0)
+    graph = graph_ms(lambda: A.adam_update(*args), reps)
+    plain = time_ms(lambda: A.adam_update_plain(*args), reps)
+    floats = sum(t.numel() for t in params.values())
+    shown = float(vis.float().mean())
+    n_bytes = floats * (24 + 4 * shown) + n
+    bound = n_bytes / PEAK_BYTES * 1e3
+    return dict(ms=ms, device_graph_ms=graph, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                roofline=bound / ms, bytes=n_bytes, floats=floats, rows=n,
+                visible_share=shown, sh_grad_slices=sh_slices,
+                launches_per_call=launches / (reps + 1), max_ulps=ulps,
+                masked_rows_bitwise=masked_bitwise)
+
+
+def adam_errors(args, got, want):
+    """→ (the kernel's largest distance from the plain chain over visible
+    elements, in float32 ulps of the plain value plus, for a parameter, of
+    its step; whether every masked row is bitwise its input)."""
+    params, _, mu, nu, _, _, _, _, vis = args
+    ulps, bitwise = 0.0, True
+    for j, src in enumerate((params, mu, nu)):
+        for k, s in src.items():
+            out, ref = got[j][k], want[j][k]
+            room = _spacing(ref[vis])
+            if j == 0:
+                room = room + _spacing(ref[vis] - s[vis])
+            if room.numel():
+                ulps = max(ulps, float(((out[vis] - ref[vis]).abs() / room).max()))
+            bitwise = bitwise and torch.equal(out[~vis], s[~vis])
+    return ulps, bitwise
+
+
+def _spacing(x):
+    """The float32 ulp at each |x|."""
+    return torch.nextafter(x.abs(), torch.full_like(x, float("inf"))) - x.abs()
+
+
 def bench_capacity(bench):
     """The training path's stream capacity: this scene's intersections with
     25% headroom (the role of derive_isect_capacity in the JAX package's
@@ -882,7 +953,7 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100, rasterizer="pac
     out = runner.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels + (A.KERNEL,)}
     _build.reset_launches()
     stats = runner.eval(n_steps)
     eval_launches = _build.LAUNCHES.get(eval_kernel, 0)
@@ -915,6 +986,9 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100, rasterizer="pac
     for k in kernels:
         if launches[k] < n_steps:
             raise RuntimeError(f"{name} launched {k} {launches[k]} < {n_steps} times")
+    if launches[A.KERNEL] != n_steps:
+        raise RuntimeError(f"{name} launched {A.KERNEL} {launches[A.KERNEL]} times in "
+                           f"{n_steps} steps, not one a step")
     if eval_launches < len(runner.valset):
         raise RuntimeError(f"{name}: eval launched {eval_kernel} {eval_launches} times "
                            f"for {len(runner.valset)} views")
@@ -3434,6 +3508,9 @@ def main():
     rally_launches, rally_args, rally_bg = phase_rally(rally)
     k_rally = measure_kernel(rally_args, backgrounds=rally_bg)
     emit("kernel_rally_shape", **k_rally)
+    k_adam = dict(all_visible=measure_adam(), half_visible=measure_adam(visible=0.5),
+                  dense_grads=measure_adam(sh_slices=False))
+    emit("kernel_adam", **k_adam)
     k_bench, bench_launches = phase_bench(bench)
 
     cap = bench_capacity(bench)
@@ -3501,6 +3578,7 @@ def main():
     k_eval3d, seg_eval3d = measure_kernels_eval3d(par_e3)
     k_dense, k_fitting = measure_kernels_dense(par_dense, par_fitting)
     timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed), **k_eval3d, **k_dense)
+    timings[A.KERNEL] = dict(k_adam["all_visible"], library_ms=None)
     fitting_shape = {name: {f"image_fitting_{k}": t[k]
                             for k in ("ms", "device_graph_ms", "plain_ms", "bound_ms",
                                       "blocks_a_tile")}
@@ -3573,8 +3651,8 @@ def main():
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
     # in bench_render_eval3d, 8 in render_train_eval3d, 9 and 10 in
-    # render_train_pallas), the error and the tolerance it is held to, the
-    # other paths' launches)
+    # render_train_pallas, Adam in trainer), the error and the tolerance it
+    # is held to, the other paths' launches)
     pallas_2dgs = "tdgs/ops/rasterize_2dgs_pallas.py"
     pallas_e3 = "tdgs/ops/rasterize_eval3d_pallas.py"
     table = {
@@ -3659,6 +3737,17 @@ def main():
                         dict(trainer_launches=trainer_dense_launches[RP.KERNEL_BWD],
                              image_fitting_launches=fitting_launches[RP.KERNEL_BWD],
                              **fitting_shape[RP.KERNEL_BWD])),
+        A.KERNEL: ("adam.cu", "none (XLA-fused jnp)", trainer_launches[A.KERNEL],
+                   dict(max_ulps=max(t["max_ulps"] for t in k_adam.values()),
+                        ulp_tol=ADAM_ULPS,
+                        masked_rows_bitwise=all(t["masked_rows_bitwise"]
+                                                for t in k_adam.values())),
+                   dict(trainer_2dgs_launches=trainer_2dgs_launches[A.KERNEL],
+                        trainer_3dgut_launches=trainer_e3_launches[A.KERNEL],
+                        trainer_pallas_launches=trainer_dense_launches[A.KERNEL],
+                        **{f"{case}_{k}": t[k] for case, t in k_adam.items()
+                           if case != "all_visible"
+                           for k in ("ms", "device_graph_ms", "plain_ms", "bound_ms")})),
     }
     kernels = []
     for name, (src, replaces, launches, errs, others) in table.items():

@@ -8,7 +8,8 @@ forward kernel; backward kernel and segment-sum kernel under autograd; or,
 with ``Config.rasterizer`` "pallas", the dense tiling and kernels 9 and 10,
 or "jax", their plain tensor form) →
 (1−λ)·L1 + λ·(1−SSIM) → gradients → selective Adam without bias correction
-→ DefaultStrategy accumulation and refine. With ``model_type="2dgs"`` the
+(on the card one launch of ``csrc/adam.cu`` over every group) →
+DefaultStrategy accumulation and refine. With ``model_type="2dgs"`` the
 render is ``rasterization_2dgs`` in "RGB+ED" (kernels 5 and 6, the segment
 sum) and the loss adds the normal-consistency and distortion terms.
 With ``with_eval3d`` (3DGUT) the render is the world-space
@@ -90,7 +91,7 @@ import torch
 from tdgs_torch._device import DeviceLike, resolve_device
 from tdgs_torch.datasets import Dataset, Parser
 from tdgs_torch.models import gaussians as G
-from tdgs_torch.ops.adam import adam_moments
+from tdgs_torch.ops.adam import adam_update
 from tdgs_torch.parallel import comm, rows
 from tdgs_torch.parallel.mesh import initialize_multihost, make_mesh
 from tdgs_torch.parallel.sharded_render import (
@@ -157,16 +158,11 @@ class SplatOptimizer:
     @torch.no_grad()
     def update(self, grads, state, params, lr_dict, visibility=None):
         """→ (params, state): ``p − lr·m/(√v + eps)``; rows outside
-        ``visibility`` keep their value and moments."""
-        new_mu, new_nu, new_params = {}, {}, {}
-        for name, g in grads.items():
-            mu, nu, vis = adam_moments(g, state["mu"][name], state["nu"][name],
-                                       self.b1, self.b2, visibility)
-            step = -lr_dict[name] * mu / (torch.sqrt(nu) + self.eps)
-            if vis is not None:
-                step = torch.where(vis, step, torch.zeros_like(step))
-            new_mu[name], new_nu[name] = mu, nu
-            new_params[name] = params[name] + step
+        ``visibility`` keep their value and moments. On the card one launch
+        of the Adam kernel updates every group."""
+        new_params, new_mu, new_nu = adam_update(params, grads, state["mu"], state["nu"],
+                                                 lr_dict, self.b1, self.b2, self.eps,
+                                                 visibility)
         return new_params, {"mu": new_mu, "nu": new_nu}
 
 
