@@ -928,7 +928,7 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100, rasterizer="pac
     elif model_type == "3dgut":
         # the mcmc preset (examples/simple_trainer.py:81-86) with 3DGUT
         name, eval_kernel = "trainer_3dgut", E.KERNEL_FWD
-        kernels = (E.KERNEL_FWD, E.KERNEL_BWD, S.KERNEL)
+        kernels = (E.KERNEL_TRAIN, E.KERNEL_BWD, S.KERNEL)
         strategy = MCMCStrategy(cap_max=160_000, refine_start_iter=20, refine_every=40,
                                 refine_stop_iter=1000)
         extra = dict(with_ut=True, with_eval3d=True, init_opa=0.5, init_scale=0.1,
@@ -1697,7 +1697,7 @@ def phase_render_train_eval3d(bench, cap, n_steps=20):
         finite &= torch.isfinite(loss) & torch.stack([torch.isfinite(g).all() for g in grads]).all()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels = (E.KERNEL_FWD, E.KERNEL_BWD, S.KERNEL)
+    kernels = (E.KERNEL_TRAIN, E.KERNEL_BWD, S.KERNEL)
     launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels}
     step_ms = [a.elapsed_time(b) for a, b in ev]
     holder = {}
@@ -2512,7 +2512,7 @@ def aux_config(root, name, model_type, n_steps, **extra):
                                 refine_stop_iter=1000)
         return cell_config(root, name, n_steps, strategy=strategy, with_ut=True,
                            with_eval3d=True, init_opa=0.5, init_scale=0.1, opacity_reg=0.01,
-                           scale_reg=0.01, **extra), (E.KERNEL_FWD, E.KERNEL_BWD, S.KERNEL)
+                           scale_reg=0.01, **extra), (E.KERNEL_TRAIN, E.KERNEL_BWD, S.KERNEL)
     return cell_config(root, name, n_steps, **extra), KERNELS
 
 
@@ -2793,7 +2793,7 @@ SHARDED_CASES = {
     "3dgs_packed_inference": ("3dgs", "packed_inference", "RGB", False, (KERNEL,)),
     "2dgs_packed": ("2dgs", "packed", "RGB+ED", True, (R2.KERNEL_TRAIN, R2.KERNEL_BWD, S.KERNEL)),
     "2dgs_packed_inference": ("2dgs", "packed_inference", "RGB", False, (R2.KERNEL_FWD,)),
-    "eval3d": ("eval3d", None, "RGB", True, (E.KERNEL_FWD, E.KERNEL_BWD, S.KERNEL)),
+    "eval3d": ("eval3d", None, "RGB", True, (E.KERNEL_TRAIN, E.KERNEL_BWD, S.KERNEL)),
     "pallas": ("3dgs", "pallas", "RGB", True, DENSE_KERNELS),
 }
 
@@ -2931,7 +2931,7 @@ def phase_parity_sharded(n=200_000, n_steps=5):
         worlds[world] = ranks
     wall = time.perf_counter() - t0
     launches = {k: 0 for k in KERNELS + DENSE_KERNELS + (R2.KERNEL_FWD, R2.KERNEL_TRAIN,
-                                                         R2.KERNEL_BWD, E.KERNEL_FWD,
+                                                         R2.KERNEL_BWD, E.KERNEL_TRAIN,
                                                          E.KERNEL_BWD)}
     errs = {k: {"fwd": 0.0, "bwd_rel": 0.0} for k in launches}
     summary = {}
@@ -3616,7 +3616,7 @@ def main():
         image_fitting_2dgs_launches=fitting_2dgs_launches[S.KERNEL])
     ref_e3, ref_2d = errs_ref["eval3d"], errs_ref["2dgs"]
     new_fields = {
-        E.KERNEL_FWD: dict(trainer_3dgut_pose_launches=pose_3dgut_launches[E.KERNEL_FWD],
+        E.KERNEL_FWD: dict(trainer_3dgut_pose_launches=pose_3dgut_launches[E.KERNEL_TRAIN],
                            dense_reference_max_abs_err=ref_e3["fwd"]),
         E.KERNEL_BWD: dict(trainer_3dgut_pose_launches=pose_3dgut_launches[E.KERNEL_BWD],
                            dense_reference_max_rel_err=max(ref_e3["bwd_rel"].values()),
@@ -3714,8 +3714,8 @@ def main():
         E.KERNEL_FWD: ("rasterize_eval3d_fwd.cu", f"{pallas_e3}:98", render_e3_launches,
                        dict(max_abs_err=errs_e3["fwd"], abs_tol=TOL,
                             sigma_max_abs_err_vs_f64=errs_e3["sigma"], sigma_tol=SIGMA_TOL),
-                       dict(render_train_launches=train_e3_launches[E.KERNEL_FWD],
-                            trainer_launches=trainer_e3_launches[E.KERNEL_FWD],
+                       dict(render_train_launches=train_e3_launches[E.KERNEL_TRAIN],
+                            trainer_launches=trainer_e3_launches[E.KERNEL_TRAIN],
                             trainer_eval_launches=trainer_e3_eval,
                             train_call_ms=timings[E.KERNEL_FWD]["train_call_ms"])),
         E.KERNEL_BWD: ("rasterize_eval3d_bwd.cu", f"{pallas_e3}:495",

@@ -104,11 +104,11 @@ def fully_fused_projection_with_ut(
                        + vm_t[..., :3, 3])
             pixels, valid_pts = project_point(pts_cam, Ks_b, camera_model, **coeffs)
 
-    # the UT moments
-    w_mean = torch.full((2 * n_dim + 1,), w_i, dtype=means.dtype, device=means.device)
-    w_mean[0] = w_mean_0
-    w_cov = w_mean.clone()
-    w_cov[0] = w_cov_0
+    # the UT moments; the weights are made on the device (a Python number
+    # written into a device tensor is a copy the host waits for)
+    first = torch.arange(2 * n_dim + 1, device=means.device) == 0
+    w_mean = torch.where(first, w_mean_0, w_i).to(means.dtype)
+    w_cov = torch.where(first, w_cov_0, w_i).to(means.dtype)
     mean2d = torch.einsum("s,...sd->...d", w_mean, pixels)  # [..., C, N, 2]
     d = pixels - mean2d[..., None, :]
     cov2d = torch.einsum("s,...sd,...se->...de", w_cov, d, d)

@@ -61,8 +61,10 @@ from tdgs_torch.ops.transforms import (
     quat_to_rotmat,
     rotmat_to_quat,
 )
+from tdgs_torch.utils.profiler import span
 
-KERNEL_FWD = "rasterize_eval3d_fwd"  # kernel 7
+KERNEL_FWD = "rasterize_eval3d_fwd"  # kernel 7, its forward-only call
+KERNEL_TRAIN = "rasterize_eval3d_fwd_train"  # kernel 7's training call (same source)
 KERNEL_BWD = "rasterize_eval3d_bwd"  # kernel 8
 GEOM_COLS = 13  # M (9), g0 (3), opacity
 MAX_CHANNELS = 32
@@ -297,7 +299,8 @@ def _launch_fwd(rows, d, o, offsets, n_images, D, W, H, tile_size, backgrounds,
         _check("backgrounds", backgrounds, torch.float32, rows.device, (n_images, D))
     out_c = rows.new_empty((n_images, H, W, D))
     out_a = rows.new_empty((n_images, H, W))
-    _launch(_build.entry(KERNEL_FWD, 7, 9), KERNEL_FWD, rows, d, o, offsets,
+    name = KERNEL_TRAIN if write_transmittance else KERNEL_FWD
+    _launch(_build.entry(KERNEL_FWD, 7, 9), name, rows, d, o, offsets,
             backgrounds, out_c, out_a, n_images, W, H, tile_size, tw, th, D,
             max_entries_per_tile(tile_capacity), int(write_transmittance))
     return out_c, out_a
@@ -417,13 +420,27 @@ def rasterize_to_pixels_eval3d_packed(
     D = colors.shape[-1]
     tw = math.ceil(image_width / tile_size)
     th = math.ceil(image_height / tile_size)
-    d, o, o_ref = tile_rays_world(
-        I, tw, th, tile_size, image_width, image_height, viewmats, Ks, camera_model,
-        radial_coeffs, tangential_coeffs, thin_prism_coeffs, ftheta_coeffs,
-        rolling_shutter, viewmats_rs)
-    feats = feature_rows(means, quats, scales, opacities, colors, o_ref)
-    return rasterize_feature_rows(feats, d, o, offsets, flatten_ids, I, D, image_width,
-                                  image_height, tile_size, backgrounds, tile_capacity)
+    with span("eval3d_rays"):
+        d, o, o_ref = tile_rays_world(
+            I, tw, th, tile_size, image_width, image_height, viewmats, Ks, camera_model,
+            radial_coeffs, tangential_coeffs, thin_prism_coeffs, ftheta_coeffs,
+            rolling_shutter, viewmats_rs)
+    with span("eval3d_rows"):
+        feats = feature_rows(means, quats, scales, opacities, colors, o_ref)
+        rows, grads = _stream_rows(feats, d, o, offsets, flatten_ids)
+    return _rasterize_rows(rows, grads, d, o, offsets, I, D, image_width, image_height,
+                           tile_size, backgrounds, tile_capacity)
+
+
+def _stream_rows(feats, d, o, offsets, flatten_ids):
+    """The feature rows in stream order → (rows, whether autograd records):
+    gathered by ``gather_rows_segsum`` (whose VJP is the segment-sum
+    kernel) when it does, by indexing otherwise."""
+    grads = torch.is_grad_enabled() and (
+        feats.requires_grad or d.requires_grad or (o is not None and o.requires_grad))
+    if not grads:
+        return feats[flatten_ids.long()], False
+    return gather_rows_segsum(feats, flatten_ids, offsets[-1]), True
 
 
 def rasterize_feature_rows(
@@ -444,17 +461,24 @@ def rasterize_feature_rows(
     built (``rasterize_to_pixels_eval3d_packed`` after ``feature_rows``;
     the sharded path builds the rows before its exchange) → (colors
     [I, H, W, D], alphas [I, H, W, 1])."""
+    with span("eval3d_rows"):
+        rows, grads = _stream_rows(feats, d, o, offsets, flatten_ids)
+    return _rasterize_rows(rows, grads, d, o, offsets, n_images, D, image_width,
+                           image_height, tile_size, backgrounds, tile_capacity)
+
+
+def _rasterize_rows(rows, grads, d, o, offsets, n_images, D, image_width, image_height,
+                    tile_size, backgrounds, tile_capacity):
+    """Kernel 7's forward-only call on stream-order ``rows``, or (``grads``)
+    its training call and kernel 8 behind autograd, the background blended
+    outside them."""
     I = n_images
     d = d.contiguous()
     o = None if o is None else o.contiguous()
     bg = None if backgrounds is None else backgrounds.reshape(I, D).contiguous()
-    grads = torch.is_grad_enabled() and (
-        feats.requires_grad or d.requires_grad or (o is not None and o.requires_grad))
     if not grads:
-        rows = feats[flatten_ids.long()]
         return rasterize_eval3d_inference(rows, d, o, offsets, I, D, image_width,
                                           image_height, tile_size, bg, tile_capacity)
-    rows = gather_rows_segsum(feats, flatten_ids, offsets[-1])
     img, T = _RasterizeEval3D.apply(
         rows, d, o, offsets, (I, D, image_width, image_height, tile_size, tile_capacity))
     alp = 1.0 - T

@@ -24,6 +24,7 @@ import torch
 
 from tdgs_torch._device import DeviceLike, as_float, constant, resolve_device
 from tdgs_torch.ops.projection import fully_fused_projection
+from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut
 from tdgs_torch.utils.profiler import host_read
 
 INT32_SENTINEL = 2**31 - 1
@@ -229,6 +230,7 @@ def derive_isect_plan(
     big_budget: int = 8192,
     dense_factor: int = 3,
     device: DeviceLike = None,
+    with_ut: bool = False,
     **proj_kwargs,
 ) -> dict:
     """The packed tiling's expansion plan from the scene's footprints (port
@@ -242,12 +244,21 @@ def derive_isect_plan(
     clips the biggest splats' coverage; callers needing full coverage
     take ``isect_exact`` instead) and ``full_isect_demand``. Waits for the
     device once: call it once per scene. Runs on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``.
+
+    ``with_ut`` projects through the unscented transform, as a 3DGUT render
+    tiles (``proj_kwargs``: the render's camera model and its coefficients,
+    ``ut_params``, ``eps2d``, the planes); otherwise through EWA."""
     dev = resolve_device(device)
-    radii, means2d, _, _, _ = fully_fused_projection(
-        *(as_float(x, dev) for x in (means, quats, scales, viewmats, Ks)),
-        width, height, opacities=as_float(opacities, dev), **proj_kwargs,
-    )
+    means, quats, scales, opacities, viewmats, Ks = (
+        as_float(x, dev) for x in (means, quats, scales, opacities, viewmats, Ks))
+    if with_ut:
+        radii, means2d, _, _, _ = fully_fused_projection_with_ut(
+            means, quats, scales, opacities, viewmats, Ks, width, height, **proj_kwargs)
+    else:
+        radii, means2d, _, _, _ = fully_fused_projection(
+            means, quats, scales, viewmats, Ks, width, height, opacities=opacities,
+            **proj_kwargs)
     tiles = _tiles_full(means2d, radii, tile_size, math.ceil(width / tile_size),
                         math.ceil(height / tile_size))[2].reshape(-1).to(torch.int64)
     stats = torch.stack(
@@ -291,6 +302,7 @@ def isect_tiles_packed(
     exact_depth: bool = False,
     split_k: Optional[int] = None,
     big_capacity: Optional[int] = None,
+    tile_keep: Optional[int] = None,
 ) -> IsectPacked:
     """Sorted (tile, depth) intersection stream.
 
@@ -310,6 +322,11 @@ def isect_tiles_packed(
       (default G/4, rounded up to 128) keep tiles ``split_k..K``; the
       others' tails count in ``n_dropped``. The stream is the JAX package's
       ``G·split_k + big_capacity·(K − split_k)`` entries long.
+    - ``tile_keep``: the entries a tile's rasterizer keeps (its
+      ``tile_capacity`` cut); the entries past it in each tile count in
+      ``n_dropped`` too. Exact mode counts them from the footprints, in the
+      same host read as the demand (on the full demand, before a capacity
+      cut); capped mode from the sorted stream's offsets, one read more.
     """
     device = means2d.device
     image_dims = means2d.shape[:-2]
@@ -353,9 +370,14 @@ def isect_tiles_packed(
             capacity = I * N * K
         out_len = _round_up_128(capacity)
         counts = tiles_full.reshape(-1).to(torch.int64)
-        total = host_read(counts.sum(), "tile_sort", int)
+        if tile_keep is None:
+            total, n_cut = host_read(counts.sum(), "tile_sort", int), 0
+        else:
+            total, n_cut = host_read(torch.stack([counts.sum(), _tile_overflow(
+                means2d, radii, tile_size, tile_width, tile_height, tile_keep)]),
+                "tile_sort", torch.Tensor.tolist)
         n_isects = min(total, out_len)
-        n_dropped = max(total - out_len, 0)
+        n_dropped = max(total - out_len, 0) + n_cut
         owner = torch.repeat_interleave(
             torch.arange(G, device=device), counts, output_size=total
         )[:n_isects]
@@ -412,15 +434,42 @@ def isect_tiles_packed(
     fids_s = torch.zeros((out_len,), dtype=torch.int32, device=device)
     keys_s[:n_isects] = keys[order].to(torch.int32)
     fids_s[:n_isects] = fids[order]
+    offsets = _packed_offsets(keys_s, I, n_tiles, depth_bits)
+    if tile_keep is not None and not exact:
+        n_dropped += host_read(
+            torch.clamp(offsets[1:] - offsets[:-1] - tile_keep, min=0).sum(), "tile_sort", int)
 
     return IsectPacked(
         isect_keys=keys_s,
         flatten_ids=fids_s,
-        offsets=_packed_offsets(keys_s, I, n_tiles, depth_bits),
+        offsets=offsets,
         n_isects=n_isects,
         n_dropped=n_dropped,
         depth_bits=depth_bits,
     )
+
+
+def _tile_overflow(means2d, radii, tile_size: int, tile_width: int, tile_height: int,
+                   keep: int) -> torch.Tensor:
+    """The entries past the first ``keep`` of each tile in the exact
+    stream, summed (a device scalar): each live gaussian covers every tile
+    of its bbox [min, max), so a tile's count is a 2D prefix sum of the
+    bboxes' corners (+1 at (x0, y0) and (x1, y1), −1 at (x1, y0) and
+    (x0, y1)), taken without building the stream."""
+    N = means2d.shape[-2]
+    I = math.prod(means2d.shape[:-2]) if means2d.shape[:-2] else 1
+    means2d_f = means2d.reshape(I, N, 2)
+    mins, maxs, alive = _tile_bboxes(means2d_f, radii.reshape(I, N, 2).to(means2d_f.dtype),
+                                     tile_size, tile_width, tile_height)
+    mins, maxs = mins.to(torch.int64), maxs.to(torch.int64)
+    row = tile_width + 1
+    base = (torch.arange(I, device=means2d.device) * ((tile_height + 1) * row))[:, None]
+    one = alive.to(torch.int64).reshape(-1)
+    diff = torch.zeros(I * (tile_height + 1) * row, dtype=torch.int64, device=means2d.device)
+    for x, y, sign in ((mins, mins, 1), (maxs, maxs, 1), (maxs, mins, -1), (mins, maxs, -1)):
+        diff.index_add_(0, (base + y[..., 1] * row + x[..., 0]).reshape(-1), sign * one)
+    counts = diff.reshape(I, tile_height + 1, row).cumsum(1).cumsum(2)
+    return torch.clamp(counts[:, :tile_height, :tile_width] - keep, min=0).sum()
 
 
 def _packed_offsets(keys_s: torch.Tensor, I: int, n_tiles: int,

@@ -37,6 +37,7 @@ from tdgs_torch.ops.rasterize_2dgs_packed import (
 from tdgs_torch.ops.rasterize_eval3d import rasterize_to_pixels_eval3d_jax
 from tdgs_torch.ops.rasterize_eval3d_packed import rasterize_to_pixels_eval3d_packed
 from tdgs_torch.ops.rasterize_packed import (
+    max_entries_per_tile,
     rasterize_to_pixels_packed,
     rasterize_to_pixels_packed_inference,
 )
@@ -101,10 +102,13 @@ def tile_stream(means2d, radii, depths, tile_size: int, width: int, height: int,
                 dense: bool, isect_capacity: Optional[int], max_tiles_per_gauss: int,
                 isect_exact: bool = False, isect_exact_depth: bool = False,
                 isect_split_k: Optional[int] = None,
-                isect_big_capacity: Optional[int] = None):
+                isect_big_capacity: Optional[int] = None,
+                tile_keep: Optional[int] = None):
     """The sorted intersection stream of projected gaussians [..., I, N]:
     the dense tiling at ``isect_capacity`` entries (``dense``) or the packed
-    one. Returns (isect, the offsets the rasterizer takes, meta fields)."""
+    one, whose ``n_dropped`` also counts the entries past ``tile_keep`` in
+    a tile where that is given. Returns (isect, the offsets the rasterizer
+    takes, meta fields)."""
     image_dims = tuple(means2d.shape[:-2])
     I = math.prod(image_dims) if image_dims else 1
     tile_width = math.ceil(width / float(tile_size))
@@ -125,7 +129,7 @@ def tile_stream(means2d, radii, depths, tile_size: int, width: int, height: int,
             means2d.detach(), radii, depths.detach(), tile_size, tile_width, tile_height,
             max_tiles_per_gauss=max_tiles_per_gauss, capacity=isect_capacity,
             exact=isect_exact, exact_depth=isect_exact_depth,
-            split_k=isect_split_k, big_capacity=isect_big_capacity,
+            split_k=isect_split_k, big_capacity=isect_big_capacity, tile_keep=tile_keep,
         )
         offsets = isect.offsets
         fields = {"isect_offsets": offsets}
@@ -400,11 +404,15 @@ def rasterization(
 
     dense = rasterizer in ("jax", "pallas", "eval3d")
     with span("tile_sort"):
+        # the eval3d path counts its tiles' cut in n_dropped too; the
+        # screen-space paths keep the JAX package's count
         isect, offsets, tile_meta = tile_stream(
             means2d, radii, depths, tile_size, width, height, dense,
             default_isect_capacity(I, N) if dense and isect_capacity is None else isect_capacity,
             max_tiles_per_gauss, isect_exact=isect_exact, isect_exact_depth=isect_exact_depth,
-            isect_split_k=isect_split_k, isect_big_capacity=isect_big_capacity)
+            isect_split_k=isect_split_k, isect_big_capacity=isect_big_capacity,
+            tile_keep=(max_entries_per_tile(tile_capacity) if rasterizer == "eval3d_packed"
+                       else None))
     meta.update(tile_meta)
     meta.update({
         "width": width,

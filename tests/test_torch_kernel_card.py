@@ -615,7 +615,7 @@ def test_eval3d_kernels_match_plain_on_card(cuda_device, D, tile_capacity, rolli
     tc = tile_capacity
     bg = torch.linspace(0.1, 0.9, D, device=dev).repeat(n_images, 1)
 
-    before = {k: _build.LAUNCHES.get(k, 0) for k in (E.KERNEL_FWD, E.KERNEL_BWD)}
+    before = {k: _build.LAUNCHES.get(k, 0) for k in (E.KERNEL_FWD, E.KERNEL_TRAIN, E.KERNEL_BWD)}
     img, alp = E.rasterize_eval3d_inference(*geo, bg, tc)
     p_img, p_T, _ = E.rasterize_eval3d_fwd_plain(*geo, tc)
     torch.cuda.synchronize()
@@ -634,7 +634,9 @@ def test_eval3d_kernels_match_plain_on_card(cuda_device, D, tile_capacity, rolli
     want = E.rasterize_eval3d_bwd_plain(*geo, img, T, v_img, v_T, tc)
     torch.cuda.synchronize()
     after = {k: _build.LAUNCHES.get(k, 0) for k in before}
-    assert after[E.KERNEL_FWD] == before[E.KERNEL_FWD] + 2
+    # the forward-only call and the training call count apart
+    assert after[E.KERNEL_FWD] == before[E.KERNEL_FWD] + 1
+    assert after[E.KERNEL_TRAIN] == before[E.KERNEL_TRAIN] + 1
     assert after[E.KERNEL_BWD] == before[E.KERNEL_BWD] + 1
     assert got[0].shape == want[0].shape == (geo[0].shape[0], 13 + D)
     groups = {"M": slice(0, 9), "g0": slice(9, 12), "opacity": slice(12, 13),
