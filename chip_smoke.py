@@ -63,6 +63,7 @@ from tdgs_torch.main import default_camera
 from tdgs_torch.models.gaussians import rgb_to_sh
 from tdgs_torch.ops import _build
 from tdgs_torch.ops import adam as A
+from tdgs_torch.ops import mcmc_noise as N
 from tdgs_torch.ops import segment_sum as S
 from tdgs_torch.ops.rasterize_packed import (
     BLOCKS_A_TILE as P_BLOCKS_A_TILE,
@@ -820,6 +821,90 @@ def adam_errors(args, got, want):
     return ulps, bitwise
 
 
+def noise_state(n, seed=0):
+    """``n`` rows for the MCMC noise, drawn as ``portbench/scenes/state.py``
+    draws the trained state (anisotropic splats of the surfaces' spacing, 1%
+    at 2.5x, 5% near-transparent, so that the gate opens), quaternions left
+    unnormalized, and the standard normal noise; on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEVICE)
+
+    log_s = float(np.log(0.012)) + 0.35 * randn(n, 3)
+    log_s[:, 2] += float(np.log(0.3))
+    log_s = log_s + (rand(n) < 0.01)[:, None] * float(np.log(2.5))
+    op = torch.sigmoid(1.0 + 1.5 * randn(n))
+    op = torch.where(rand(n) < 0.05, 0.001 + 0.003 * rand(n), op)
+    params = {"means": 1.5 * randn(n, 3), "quats": randn(n, 4) * (0.5 + rand(n, 1)),
+              "scales": log_s, "opacities": torch.logit(op)}
+    return params, randn(n, 3)
+
+
+def noise_float64(params, noise, scaler, active):
+    """The means after the MCMC noise evaluated in float64 from the same
+    float32 inputs."""
+    from tdgs_torch.ops.transforms import quat_to_rotmat
+
+    p = {k: v.double() for k, v in params.items()}
+    q = p["quats"] / torch.clamp(torch.linalg.norm(p["quats"], dim=-1, keepdim=True),
+                                 min=1e-12)
+    M = quat_to_rotmat(q) * torch.exp(p["scales"])[:, None, :]
+    gate = torch.sigmoid(100.0 * ((1.0 - torch.sigmoid(p["opacities"])) - 0.995))
+    v = noise.double() * gate[:, None] * scaler
+    step = torch.einsum("nij,nkj,nk->ni", M, M, v)
+    step = torch.where(active[:, None], step, torch.zeros_like(step))
+    return p["means"] + step
+
+
+def mcmc_noise_errors(params, noise, scaler, active):
+    """The kernel and the plain chain against float64 on these rows → (the
+    kernel's worst error, the chain's, whether every kernel error is within
+    twice the chain's worst plus an ulp of the means, whether the inactive
+    rows and those with sigmoid(o) >= 0.5 are bitwise their inputs)."""
+    got = N.inject_noise_to_position(params, noise, scaler, active)["means"]
+    chain = N.inject_noise_to_position_plain(params, noise, scaler, active)["means"]
+    exact = noise_float64(params, noise, scaler, active)
+    err_k = (got.double() - exact).abs()
+    err_c = float((chain.double() - exact).abs().max())
+    within = bool((err_k <= 2 * err_c + _spacing(exact.float()).double()).all())
+    kept = ~active | (torch.sigmoid(params["opacities"]) >= 0.5)
+    bitwise = torch.equal(got[kept], params["means"][kept])
+    return float(err_k.max()), err_c, within, bitwise
+
+
+def measure_mcmc_noise(n=1_000_000, reps=20, seed=0, scaler=160.0):
+    """The MCMC noise kernel (csrc/mcmc_noise.cu) at ``n`` rows drawn by
+    ``noise_state``, every row active as at the benchmark's cap: its
+    device time by CUDA events and by CUDA graph replay, the plain chain's
+    time, and its bound by bytes (69 a row: means, quats, log-scales,
+    logit, noise and the mask read, the means written). Held first against
+    float64 (``mcmc_noise_errors``) with 95% of the rows active."""
+    params, noise = noise_state(n, seed)
+    some = torch.arange(n, device=DEVICE) < int(0.95 * n)
+    err_k, err_c, within, bitwise = mcmc_noise_errors(params, noise, scaler, some)
+    if not (within and bitwise):
+        raise RuntimeError(f"kernel_mcmc_noise: worst error {err_k!r} against the chain's "
+                           f"{err_c!r} (within 2x + 1 ulp: {within}), kept rows bitwise: "
+                           f"{bitwise}")
+    active = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    _build.reset_launches()
+    ms = time_ms(lambda: N.inject_noise_to_position(params, noise, scaler, active), reps)
+    launches = _build.LAUNCHES.get(N.KERNEL, 0)
+    graph = graph_ms(lambda: N.inject_noise_to_position(params, noise, scaler, active), reps)
+    plain = time_ms(lambda: N.inject_noise_to_position_plain(params, noise, scaler, active),
+                    reps)
+    n_bytes = 69 * n
+    bound = n_bytes / PEAK_BYTES * 1e3
+    return dict(ms=ms, device_graph_ms=graph, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes", roofline=bound / ms, bytes=n_bytes, rows=n,
+                launches_per_call=launches / (reps + 1), max_abs_err=err_k,
+                chain_max_abs_err=err_c, within_chain=within, kept_rows_bitwise=bitwise)
+
+
 def _spacing(x):
     """The float32 ulp at each |x|."""
     return torch.nextafter(x.abs(), torch.full_like(x, float("inf"))) - x.abs()
@@ -953,7 +1038,7 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100, rasterizer="pac
     out = runner.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels + (A.KERNEL,)}
+    launches = {k: _build.LAUNCHES.get(k, 0) for k in kernels + (A.KERNEL, N.KERNEL)}
     _build.reset_launches()
     stats = runner.eval(n_steps)
     eval_launches = _build.LAUNCHES.get(eval_kernel, 0)
@@ -989,6 +1074,10 @@ def phase_trainer(root, scene_s, model_type="3dgs", n_steps=100, rasterizer="pac
     if launches[A.KERNEL] != n_steps:
         raise RuntimeError(f"{name} launched {A.KERNEL} {launches[A.KERNEL]} times in "
                            f"{n_steps} steps, not one a step")
+    mcmc_steps = n_steps if isinstance(strategy, MCMCStrategy) else 0
+    if launches[N.KERNEL] != mcmc_steps:
+        raise RuntimeError(f"{name} launched {N.KERNEL} {launches[N.KERNEL]} times in "
+                           f"{mcmc_steps} MCMC steps, not one a step")
     if eval_launches < len(runner.valset):
         raise RuntimeError(f"{name}: eval launched {eval_kernel} {eval_launches} times "
                            f"for {len(runner.valset)} views")
@@ -3511,6 +3600,8 @@ def main():
     k_adam = dict(all_visible=measure_adam(), half_visible=measure_adam(visible=0.5),
                   dense_grads=measure_adam(sh_slices=False))
     emit("kernel_adam", **k_adam)
+    k_noise = measure_mcmc_noise()
+    emit("kernel_mcmc_noise", **k_noise)
     k_bench, bench_launches = phase_bench(bench)
 
     cap = bench_capacity(bench)
@@ -3579,6 +3670,7 @@ def main():
     k_dense, k_fitting = measure_kernels_dense(par_dense, par_fitting)
     timings = dict(k_train, **measure_kernels_2dgs(par_rgb, par_ed), **k_eval3d, **k_dense)
     timings[A.KERNEL] = dict(k_adam["all_visible"], library_ms=None)
+    timings[N.KERNEL] = dict(k_noise, library_ms=None)
     fitting_shape = {name: {f"image_fitting_{k}": t[k]
                             for k in ("ms", "device_graph_ms", "plain_ms", "bound_ms",
                                       "blocks_a_tile")}
@@ -3651,8 +3743,8 @@ def main():
     # name: (source, TPU kernel, launches on the main path (kernels 1-3 in
     # render_train, 4 in bench_render_2dgs, 5 and 6 in render_train_2dgs, 7
     # in bench_render_eval3d, 8 in render_train_eval3d, 9 and 10 in
-    # render_train_pallas, Adam in trainer), the error and the tolerance it
-    # is held to, the other paths' launches)
+    # render_train_pallas, Adam in trainer, the MCMC noise in trainer_3dgut),
+    # the error and the tolerance it is held to, the other paths' launches)
     pallas_2dgs = "tdgs/ops/rasterize_2dgs_pallas.py"
     pallas_e3 = "tdgs/ops/rasterize_eval3d_pallas.py"
     table = {
@@ -3748,6 +3840,12 @@ def main():
                         **{f"{case}_{k}": t[k] for case, t in k_adam.items()
                            if case != "all_visible"
                            for k in ("ms", "device_graph_ms", "plain_ms", "bound_ms")})),
+        N.KERNEL: ("mcmc_noise.cu", "none (XLA-fused jnp)", trainer_e3_launches[N.KERNEL],
+                   dict(max_abs_err=k_noise["max_abs_err"],
+                        chain_max_abs_err=k_noise["chain_max_abs_err"],
+                        within_chain=k_noise["within_chain"],
+                        kept_rows_bitwise=k_noise["kept_rows_bitwise"]),
+                   dict(trainer_launches=trainer_launches[N.KERNEL])),
     }
     kernels = []
     for name, (src, replaces, launches, errs, others) in table.items():

@@ -82,9 +82,10 @@ class MCMCStrategy(Strategy):
                     print(f"Step {step}: relocated {n_reloc} GSs; now {state['n_alive']} "
                           f"live GSs.")
 
-        active = torch.arange(C, device=params["means"].device) < int(state["n_alive"])
-        params = inject_noise_to_position(params, position_noise(params, generator),
-                                          lr * self.noise_lr, active_mask=active)
+        with span("noise"):
+            active = torch.arange(C, device=params["means"].device) < int(state["n_alive"])
+            params = inject_noise_to_position(params, position_noise(params, generator),
+                                              lr * self.noise_lr, active_mask=active)
         return params, opt_state, state
 
     def refines_at(self, step: int) -> bool:

@@ -19,8 +19,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from tdgs_torch.models.gaussians import DEAD_OPACITY_LOGIT, SplatParams
+from tdgs_torch.ops.mcmc_noise import inject_noise_to_position  # noqa: F401 (re-exported)
 from tdgs_torch.ops.relocation import compute_relocation
-from tdgs_torch.ops.transforms import quat_scale_to_covar_preci, quat_to_rotmat
+from tdgs_torch.ops.transforms import quat_to_rotmat
 from tdgs_torch.utils.profiler import host_read
 
 _EPS = float(torch.finfo(torch.float32).eps)
@@ -269,21 +270,3 @@ def position_noise(params: SplatParams, generator: torch.Generator) -> torch.Ten
     """Standard normal noise shaped like the means."""
     means = params["means"]
     return torch.randn(means.shape, generator=generator, device=means.device)
-
-
-def inject_noise_to_position(
-    params: SplatParams,
-    noise: torch.Tensor,  # [C, 3] standard normal
-    scaler: float,
-    active_mask: Optional[torch.Tensor] = None,  # [C]
-) -> SplatParams:
-    """MCMC exploration: means += Σ·ε·σ(100·((1 − op) − 0.995))·scaler, so
-    that only near-dead gaussians (opacity ≲ 0.005) move."""
-    op = torch.sigmoid(params["opacities"])
-    covars, _ = quat_scale_to_covar_preci(params["quats"], torch.exp(params["scales"]),
-                                          compute_preci=False)
-    gate = torch.sigmoid(100.0 * ((1.0 - op) - 0.995))
-    step = torch.einsum("nij,nj->ni", covars, noise * gate[:, None] * scaler)
-    if active_mask is not None:
-        step = torch.where(active_mask[:, None], step, torch.zeros_like(step))
-    return dict(params, means=params["means"] + step)

@@ -1093,12 +1093,14 @@ class Runner:
             if isinstance(strat, MCMCStrategy) and not strat.refines_at(step):
                 n = self.capacity // self.mesh.world
                 block = slice(self.mesh.rank * n, (self.mesh.rank + 1) * n)
-                noise = torch.randn((self.capacity, 3), generator=self.generator,
-                                    device=self.device)[block]
-                active = (torch.arange(self.capacity, device=self.device)
-                          < int(self.strategy_state["n_alive"]))[block]
-                self.splats = inject_noise_to_position(self.splats, noise, lr * strat.noise_lr,
-                                                       active_mask=active)
+                with span("noise"):
+                    noise = torch.randn((self.capacity, 3), generator=self.generator,
+                                        device=self.device)[block]
+                    active = (torch.arange(self.capacity, device=self.device)
+                              < int(self.strategy_state["n_alive"]))[block]
+                    self.splats = inject_noise_to_position(self.splats, noise,
+                                                           lr * strat.noise_lr,
+                                                           active_mask=active)
                 return
             if isinstance(strat, DefaultStrategy) and not strat.acts_at(step):
                 return
