@@ -328,13 +328,13 @@ def split_count(n_tiles, device, most):
 
 def tile_split(tile_size, n_split=None, n_tiles=None, device=None):
     """The blocks that share each tile in kernels 1, 4 and 5: ``n_split``
-    (forced, for tests and kernel_ab.py), else two for tiles of 8 warps or
+    (forced, for tests), else two for tiles of 8 warps or
     more, or ``split_count`` of ``n_tiles`` where that is more (kernel 1).
     Where a few long tiles set the time, a tile's warps spread over twice
     the SMs: against one block a tile, -11% for kernel 1 at the rally's
     frame (+0.8% at the bench frame's even tiles), -6.2% and -4.4% for
     kernels 5 and 4 at trainer_2dgs's shape (-1.6% and +0.05% at the bench
-    frame's); kernel_ab.py on an H100. The output does not depend on it."""
+    frame's), on an H100. The output does not depend on it."""
     warps = tile_size * tile_size // 32
     if n_split is None:
         n_split = 2 if warps >= 8 else 1

@@ -5,7 +5,12 @@ backward (kernel 6), the eval3d (3DGUT) forward (kernel 7) and
 backward (kernel 8), and the tile-dense forward (kernel 9) and backward
 (kernel 10); and the sharded renders of ``tdgs_torch.parallel`` on worlds
 of 2 and 4 ranks sharing the card, which run those kernels through the
-exchange, each against the single-rank render of its cameras.
+exchange, each against the single-rank render of its cameras. The small
+streams here reach every templated width, layout and cut; the last section
+holds every kernel again at full size (``tests/card_scenes.py``: the
+200k-gaussian 1080p bench scene at its paths' shapes), where a fault that
+only size exposes shows. ``tests/test_torch_paths_card.py`` holds the
+paths that launch them.
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card. The file imports neither JAX nor the JAX package, so it also
@@ -13,11 +18,11 @@ runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_card.py
 
-Tolerances, as chip_smoke.py holds the kernels at full size: 1e-3 absolute
-for the forward (the kernel accumulates colours in a running sum, the plain
-version in a matrix product); max|Δ| / max|plain| ≤ 1e-3 per gradient group
-for the backward (the kernel sums 256 pixels by shuffles, the plain version
-with ``sum``); 1e-5 relative per column for the segment sum, whose two
+Tolerances (``tests/card_scenes.py``), small streams and full size alike:
+1e-3 absolute for the forward (the kernel accumulates colours in a running
+sum, the plain version in a matrix product); max|Δ| / max|plain| ≤ 1e-3 per
+gradient group for the backward (the kernel sums 256 pixels by shuffles, the
+plain version with ``sum``); 1e-5 relative per column for the segment sum, whose two
 launches must agree bit for bit. The 2DGS kernels are held as kernels 1
 and 2 are, with the distortion and the gradient groups relative to their
 scale and median depth, a selected entry, allowed to differ in 1% of the
@@ -33,11 +38,16 @@ import numpy as np
 import pytest
 import torch
 
+import tdgs_torch
 from tdgs_torch.ops import _build
+from tdgs_torch.ops import rasterize_2dgs_packed as R2
+from tdgs_torch.ops import rasterize_eval3d_packed as E
+from tdgs_torch.ops import rasterize_pallas as RP
 from tdgs_torch.ops import segment_sum as S
 from tdgs_torch.ops.rasterize_packed import (
     KERNEL,
     KERNEL_BWD,
+    max_entries_per_tile,
     rasterize_packed_bwd,
     rasterize_packed_bwd_plain,
     rasterize_packed_train_fwd,
@@ -49,8 +59,9 @@ from tdgs_torch.ops.rasterize_packed import (
 )
 from tdgs_torch.ops.tiling import isect_tiles_packed
 from tdgs_torch.parallel import checks, launch
+from tests import card_scenes as C
 
-ATOL = 1e-3
+ATOL = C.TOL
 W, H = 40, 36  # a partial last tile row and column
 
 
@@ -256,46 +267,49 @@ def test_segment_sum_kernel_matches_plain_on_card(cuda_device, F, abs_cols):
         assert _rel_err(a[:, col], want[:, col]) <= 1e-5, col
 
 
+def _assert_k123(args, tile_capacity, seed):
+    """Kernel 1's training call, kernel 2 and kernel 3 on the same stream
+    against their plain versions, random cotangents: ATOL; kernel 2 bit for
+    bit repeatable, each gradient group within 1e-3 of its scale; kernel 3
+    (with and without the AbsGS columns) bit for bit repeatable, each
+    column within 1e-5 of its scale."""
+    tc = tile_capacity
+    img, trans = rasterize_packed_train_fwd(*args, tile_capacity=tc)
+    img_p, trans_p = rasterize_packed_train_fwd_plain(*args, tile_capacity=tc)
+    torch.testing.assert_close(img, img_p, rtol=0, atol=ATOL)
+    torch.testing.assert_close(trans, trans_p, rtol=0, atol=ATOL)
+    rows, again, rows_p = _bwd_packed(args, tc, seed)
+    assert torch.equal(rows, again) and bool(torch.isfinite(rows).all())
+    for name, cols in GROUPS.items():
+        assert _rel_err(rows[:, cols], rows_p[:, cols]) <= C.BWD_RTOL, name
+    offsets, ids = args[7], args[8]
+    G, D = args[0].numel() // 2, args[2].shape[-1]
+    sids, perm = S.sort_ids(ids, offsets[-1])
+    for abs_cols in (False, True):
+        a = S.segment_rows_sum(rows, perm, sids, G, abs_cols=abs_cols)
+        b = S.segment_rows_sum(rows, perm, sids, G, abs_cols=abs_cols)
+        want_s = S.segment_rows_sum_plain(rows, perm, sids, G, abs_cols=abs_cols)
+        torch.cuda.synchronize()
+        assert a.shape[1] == 6 + D + (2 if abs_cols else 0)
+        assert torch.equal(a, b)
+        for col in range(a.shape[1]):
+            assert _rel_err(a[:, col], want_s[:, col]) <= C.SEG_RTOL, (abs_cols, col)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [3, 16])
 def test_kernels_1_to_3_at_the_chain_shapes_on_card(cuda_device, D):
     """The domino chain's shapes: tiles longer than the rally's
     tile_capacity of 2048, and the identity render's D = 16 through kernel
-    1's training call, kernel 2 (its CMAX = 26 build: 32 values in the
-    reduce-scatter) and kernel 3 (rows of 22 columns, 24 with the AbsGS
-    columns), each against its plain version; kernel 3 bit for bit
-    repeatable."""
+    1's inference and training calls, kernel 2 (its CMAX = 26 build: 32
+    values in the reduce-scatter) and kernel 3 (rows of 22 columns, 24 with
+    the AbsGS columns), each against its plain version."""
     tc = 2048
     s = _stream(140 + D, D, N=3000, min_radius=40)  # every gaussian on every tile
     args = _args(s, cuda_device)
     assert int(torch.diff(s["offsets"].long()).max()) > tc  # the cut is live
-    bg = torch.linspace(0.1, 0.9, D, device=cuda_device)[None]
-    got = rasterize_to_pixels_packed_inference(*args, backgrounds=bg, tile_capacity=tc)
-    want = rasterize_to_pixels_packed_inference_plain(*args, backgrounds=bg, tile_capacity=tc)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
-    img, trans = rasterize_packed_train_fwd(*args, tile_capacity=tc)
-    img_p, trans_p = rasterize_packed_train_fwd_plain(*args, tile_capacity=tc)
-    torch.testing.assert_close(img, img_p, rtol=0, atol=ATOL)
-    torch.testing.assert_close(trans, trans_p, rtol=0, atol=ATOL)
-    gen = torch.Generator(device=cuda_device).manual_seed(D)
-    v_img = torch.randn(img.shape, generator=gen, device=cuda_device)
-    v_t = torch.randn(trans.shape, generator=gen, device=cuda_device)
-    rows = rasterize_packed_bwd(*args, img, trans, v_img, v_t, tile_capacity=tc)
-    rows_p = rasterize_packed_bwd_plain(*args, img, trans, v_img, v_t, tile_capacity=tc)
-    for name, cols in GROUPS.items():
-        assert _rel_err(rows[:, cols], rows_p[:, cols]) <= 1e-3, name
-    offsets, ids = args[7], args[8]
-    sids, perm = S.sort_ids(ids, offsets[-1])
-    for abs_cols in (False, True):
-        a = S.segment_rows_sum(rows, perm, sids, 3000, abs_cols=abs_cols)
-        b = S.segment_rows_sum(rows, perm, sids, 3000, abs_cols=abs_cols)
-        want_s = S.segment_rows_sum_plain(rows, perm, sids, 3000, abs_cols=abs_cols)
-        torch.cuda.synchronize()
-        assert a.shape[1] == 6 + D + (2 if abs_cols else 0)
-        assert torch.equal(a, b)
-        for col in range(a.shape[1]):
-            assert _rel_err(a[:, col], want_s[:, col]) <= 1e-5, (abs_cols, col)
+    _assert_k1(args, tc, torch.linspace(0.1, 0.9, D, device=cuda_device)[None])
+    _assert_k123(args, tc, seed=D)
 
 
 def _segment_layout(name, rng):
@@ -1443,7 +1457,7 @@ def _eval3d_stream_tiles(seed, D, n_images, rolling_shutter, tile_size, N=300):
 
 
 def _assert_k7(geo, tile_capacity, bg, keep=None):
-    """Kernel 7's inference call (with ``bg``) and training call: within
+    """Kernel 7's inference call (with ``bg``, if any) and training call: within
     ATOL of the plain version (on the pixels ``keep``, default all) and two
     launches bit for bit equal; returns the training call's outputs."""
     from tdgs_torch.ops import rasterize_eval3d_packed as E
@@ -1455,7 +1469,7 @@ def _assert_k7(geo, tile_capacity, bg, keep=None):
     p_img, p_T, _ = E.rasterize_eval3d_fwd_plain(*geo, tc)
     torch.cuda.synchronize()
     keep = torch.ones_like(p_T, dtype=torch.bool) if keep is None else keep
-    with_bg = p_img + p_T[..., None] * bg.reshape(I, 1, 1, D)
+    with_bg = p_img if bg is None else p_img + p_T[..., None] * bg.reshape(I, 1, 1, D)
     for g, w in ((img, with_bg), (alp[..., 0], 1.0 - p_T), (img_t, p_img), (T, p_T)):
         assert bool(torch.isfinite(g[keep]).all())
         torch.testing.assert_close(g[keep], w[keep], rtol=0, atol=ATOL)
@@ -1603,7 +1617,7 @@ def test_kernel_7_cull_layouts_on_card(cuda_device, layout):
 
 
 def _assert_k45(R, geo, feats, ids, tile_capacity, bg, mask=None):
-    """Kernel 4 through flatten_ids (with ``bg``) and kernel 5 (RGB+ED with
+    """Kernel 4 through flatten_ids (with ``bg``, if any) and kernel 5 (RGB+ED with
     the distortion): within ATOL of the plain version (on the pixels of
     ``mask``, default all), the distortion within 1e-3 of its scale, the
     median in all but 1% of the pixels; two launches bit for bit equal;
@@ -1617,7 +1631,8 @@ def _assert_k45(R, geo, feats, ids, tile_capacity, bg, mask=None):
     train = R.rasterize_2dgs_train_fwd(*geo, tc, D - 1, True)
     assert all(_build.LAUNCHES[k] == before[k] + 1 for k in before)
     p_img, p_nrm, p_T, p_dist, p_med, _ = R.rasterize_2dgs_fwd_plain(*geo, tc, D - 1, True)
-    want = (p_img + p_T[..., None] * bg[:, None, None, :], (1.0 - p_T)[..., None], p_nrm)
+    with_bg = p_img if bg is None else p_img + p_T[..., None] * bg[:, None, None, :]
+    want = (with_bg, (1.0 - p_T)[..., None], p_nrm)
     torch.cuda.synchronize()
     m = torch.ones(p_T.shape, dtype=torch.bool, device=p_T.device) if mask is None else mask
     for g, w in list(zip(got, want)) + [(train[0], p_img), (train[1], p_nrm), (train[2], p_T)]:
@@ -1944,36 +1959,56 @@ def test_viewer_frame_matches_plain_route_on_card(cuda_device, family, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("with_depth", [False, True])
-def test_golden_2dgs_against_kernel_4_on_card(cuda_device, with_depth):
+@pytest.mark.parametrize("case", ["viewer_rgb", "viewer_rgb_depth", "bench_1080p"])
+def test_golden_2dgs_against_kernel_4_on_card(cuda_device, request, case):
     """Kernel 4's frame against ``compose_reference_2dgs_f64`` over the same
-    stream (M's columns): 1e-3 absolute, colours and alpha."""
+    stream (M's columns), a tile capacity that keeps every entry of the
+    fullest tile, colours and alpha: the viewer's splats at 128x80 in "RGB"
+    and "RGB+D" within 1e-3 absolute; the bench scene at 1080p in "RGB" at
+    40 dB or more, as the chain's ``kernel_vs_oracle_psnr`` is held (there
+    float32 and float64 end a few pixels' walks at different entries: 140
+    of its 6.2M values lie up to 0.0103 apart)."""
     from tdgs_torch.rendering import _colors_per_camera, rasterization_2dgs
     from tdgs_torch.utils.golden import compose_reference_2dgs_f64
 
-    raw = _viewer_splats(seed=6)
-    dev = torch.device("cuda")
-    t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
-    sh = torch.cat([t["sh0"], t["shN"]], 1)
-    vm = torch.eye(4, device=dev)[None]
-    vm[0, 2, 3] = 4.0
-    K = torch.tensor([[[120.0, 0, 64], [0, 120.0, 40], [0, 0, 1]]], device=dev)
-    mode = "RGB+D" if with_depth else "RGB"
-    out = rasterization_2dgs(t["means"], t["quats"], torch.exp(t["scales"]),
-                             torch.sigmoid(t["opacities"]), sh, vm, K, 128, 80, sh_degree=3,
-                             render_mode=mode, tile_capacity=4096,
-                             rasterizer="packed_inference", device=dev)
-    meta = out[6]
-    cols = _colors_per_camera(sh, 3, t["means"], vm, meta["radii"])
+    dev, tc = torch.device("cuda"), 4096
+    if case == "bench_1080p":
+        sc = request.getfixturevalue("scenes")["bench"]
+        splats = tuple(sc[k] for k in ("means", "quats", "scales", "opacities", "sh"))
+        vm, K, width, height = sc["viewmats"], sc["Ks"], C.WIDTH, C.HEIGHT
+        kw = dict(max_tiles_per_gauss=16)
+    else:
+        t = {k: torch.as_tensor(v, device=dev) for k, v in _viewer_splats(seed=6).items()}
+        splats = (t["means"], t["quats"], torch.exp(t["scales"]), torch.sigmoid(t["opacities"]),
+                  torch.cat([t["sh0"], t["shN"]], 1))
+        vm = torch.eye(4, device=dev)[None]
+        vm[0, 2, 3] = 4.0
+        K = torch.tensor([[[120.0, 0, 64], [0, 120.0, 40], [0, 0, 1]]], device=dev)
+        width, height, kw = 128, 80, {}
+    with_depth = case == "viewer_rgb_depth"
+    with torch.no_grad():
+        out = rasterization_2dgs(*splats, vm, K, width, height, sh_degree=3,
+                                 render_mode="RGB+D" if with_depth else "RGB", tile_capacity=tc,
+                                 rasterizer="packed_inference", device=dev, **kw)
+        meta = out[6]
+        cols = _colors_per_camera(splats[4], 3, splats[0], vm, meta["radii"])
     if with_depth:
         cols = torch.cat([cols, meta["depths"][..., None]], -1)
     host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    offsets = host(meta["isect_offsets"])
+    assert int(np.diff(offsets).max()) <= tc
     img, alpha = compose_reference_2dgs_f64(
-        host(meta["isect_offsets"]), host(meta["flatten_ids"]),
-        host(meta["means2d"]).reshape(-1, 2), host(meta["ray_transforms"]).reshape(-1, 3, 3),
-        host(cols).reshape(-1, cols.shape[-1]), host(meta["opacities"]).reshape(-1), 128, 80,
-        16, meta["tile_width"], meta["tile_height"], n_isects=int(meta["n_isects"]))
+        offsets, host(meta["flatten_ids"]), host(meta["means2d"]).reshape(-1, 2),
+        host(meta["ray_transforms"]).reshape(-1, 3, 3), host(cols).reshape(-1, cols.shape[-1]),
+        host(meta["opacities"]).reshape(-1), width, height, 16, meta["tile_width"],
+        meta["tile_height"], n_isects=int(meta["n_isects"]))
     assert alpha.max() > 0.5
+    if case == "bench_1080p":
+        from tdgs_torch.rally_e2e import psnr_np
+
+        assert psnr_np(np.clip(host(out[0][0]), 0, 1), np.clip(img, 0, 1)) >= 40.0
+        assert psnr_np(host(out[1][0, ..., 0]), alpha) >= 40.0
+        return
     np.testing.assert_allclose(host(out[0][0]), img, atol=ATOL)
     np.testing.assert_allclose(host(out[1][0, ..., 0]), alpha, atol=ATOL)
 
@@ -2018,3 +2053,243 @@ def test_live_view_during_training_on_card(cuda_device, model_type, tmp_path):
     assert not th.is_alive()
     assert n_during > 0 and set(frames) == {(200, b"\xff\xd8")}
     assert hist[-1]["loss"] < hist[0]["loss"]
+
+
+# ---------------------------------------------------------------------------
+# every kernel at full size (tests/card_scenes.py): the 200k-gaussian 1080p
+# bench scene at the shapes of its render and training paths, a scene whose
+# tiles overflow tile_capacity 128, the rally's scene, the ortho and fisheye
+# cameras; each held by the helpers that hold the small streams above
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return C.full_size_scenes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(C.KERNEL_1_CASES))
+def test_kernel_1_matches_plain_at_full_size_on_card(scenes, case):
+    args, bg, tc = C.kernel_1_case(scenes, case)
+    _assert_k1(args, tc, bg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["a_bench", "b_heavy_overlap_truncated"])
+def test_kernels_1_to_3_train_at_full_size_on_card(scenes, case):
+    args, tc, seed = C.train_case(scenes, case)
+    if tc == 128:
+        counts = torch.diff(args[7].long())
+        assert int((counts > max_entries_per_tile(tc)).sum()) > 0  # the cut is live
+    _assert_k123(args, tc, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(C.KERNEL_2DGS_CASES))
+def test_kernels_4_to_6_at_full_size_on_card(scenes, case):
+    """Kernels 4 and 5 held as ``_assert_k45`` holds them, without and with
+    a background; on "RGB+ED" with the distortion (the training path's)
+    kernel 6 too, bit for bit repeatable, the gradient rows within BWD_RTOL
+    per group."""
+    geo, k4, tc, seed = C.kernel_2dgs_case(scenes, case)
+    for bg in (None, C.background(geo[3])):
+        _assert_k45(R2, geo, k4[0], k4[1], tc, bg)
+    if case == "a_bench_rgb":  # the render path's: no backward
+        return
+    first, second, want = _bwd_2dgs(R2, geo, tc, seed)
+    assert torch.equal(first, second) and bool(torch.isfinite(first).all())
+    for name, cols in GROUPS_2DGS.items():
+        assert _rel_err(first[:, cols], want[:, cols]) <= C.BWD_RTOL, name
+
+
+EVAL3D_GROUPS = {"M": slice(0, 9), "g0": slice(9, 12), "opacity": slice(12, 13),
+                 "colors": slice(13, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(C.KERNEL_EVAL3D_CASES))
+def test_kernels_7_8_at_full_size_on_card(scenes, case):
+    """Kernel 7 held as ``_assert_k7`` holds it, without and with a
+    background; kernel 8's rows and ray gradients within BWD_RTOL per
+    group."""
+    geo, _, tc, seed = C.kernel_eval3d_case(scenes, case)
+    stream = geo[:9]
+    for bg in (None, C.background()):
+        _assert_k7(stream, tc, bg)
+    img, T, v_img, v_T = C.train_stream_eval3d(stream, tc, seed)
+    got = E.rasterize_eval3d_bwd(*stream, img, T, v_img, v_T, tc)
+    want = E.rasterize_eval3d_bwd_plain(*stream, img, T, v_img, v_T, tc)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got if x is not None)
+    rel = {k: _rel_err(got[0][:, c], want[0][:, c]) for k, c in EVAL3D_GROUPS.items()}
+    rel["v_d"] = _rel_err(got[1], want[1])
+    if stream[2] is not None:
+        rel["v_o"] = _rel_err(got[2], want[2])
+    assert max(rel.values()) <= C.BWD_RTOL, rel
+
+
+@pytest.mark.cuda
+def test_eval3d_sigma_matches_float64_at_full_size_on_card(scenes):
+    """σ* of the eval3d walk in float32 (the plain version's arithmetic,
+    which is the kernels' operation for operation) against σ* in float64
+    from the same float32 scene, over every (pixel, entry) pair of the
+    bench frame's cut ranges inside the image, in front of the camera,
+    with σ* below 4: within SIGMA_TOL."""
+    geo, extra, tc, _ = C.kernel_eval3d_case(scenes, "a_bench_rgb_central")
+    sc = scenes["bench"]
+    rows, d, o, offsets, I, D, W, H, ts = geo
+    meta = extra["meta"]
+    f64 = {k: sc[k].double() for k in ("means", "quats", "scales", "viewmats", "Ks")}
+    d64, o64, o_ref64 = E.tile_rays_world(1, meta["tile_width"], meta["tile_height"], ts,
+                                          W, H, f64["viewmats"], f64["Ks"], **extra["rs"])
+    N = sc["means"].shape[0]
+    feats64 = E.feature_rows(f64["means"], f64["quats"], f64["scales"],
+                             meta["opacities"].reshape(1, N).double(),
+                             torch.zeros((1, N, D), dtype=torch.float64, device="cuda"),
+                             o_ref64)
+    rows64 = feats64[meta["flatten_ids"].long()]
+    r32, r64 = E._response_eval3d(rows, d, o), E._response_eval3d(rows64, d64, o64)
+    counts = torch.clamp(torch.diff(offsets.long()), 0, max_entries_per_tile(tc))
+    starts = offsets[:-1].long()
+    tw, P, T = meta["tile_width"], ts * ts, counts.shape[0]
+    p = torch.arange(P, device="cuda")
+    chunk = max(1, (1 << 22) // (P * max(int(counts.max()), 1)))
+    worst, pairs = 0.0, 0
+    for t0 in range(0, T, chunk):
+        tt = torch.arange(t0, min(t0 + chunk, T), device="cuda")
+        L = int(counts[tt].max())
+        if L == 0:
+            continue
+        lane = torch.arange(L, device="cuda")
+        valid = lane[None, :] < counts[tt, None]
+        idx = torch.where(valid, starts[tt, None] + lane[None, :], 0)
+        s32 = r32(tt, idx, None, None, None)[0]
+        s64 = r64(tt, idx, None, None, None)[0]
+        px = (tt % tw * ts)[:, None] + p % ts
+        py = (tt // tw * ts)[:, None] + p // ts
+        inside = ((px < W) & (py < H))[:, :, None]
+        sel = valid[:, None, :] & inside & (s64 >= 0) & (s64 < 4.0) & (s32 >= 0)
+        err = (s32.double() - s64)[sel].abs()
+        pairs += int(err.numel())
+        if err.numel():
+            worst = max(worst, float(err.max()))
+    assert pairs > 0
+    assert worst <= C.SIGMA_TOL, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(C.KERNEL_DENSE_CASES))
+def test_kernels_9_10_at_full_size_on_card(scenes, case):
+    """Kernels 9 and 10 held as ``_assert_dense`` holds them, and kernel 9's
+    outputs with the background blended as the wrapper blends it (where
+    there is one) within TOL; the heavy case must cut a tile at its
+    capacity of 128."""
+    (rows, counts, geo, *_), bg, meta = C.kernel_dense_case(scenes, case)
+    if case == "c_heavy_overlap_truncated":
+        offs = meta["isect_offsets"].reshape(-1).long()
+        ranges = torch.diff(torch.cat([offs, offs.new_tensor([meta["n_isects"]])]))
+        assert int((ranges > 128).sum()) > 0
+    fwd, fwd_p, bwd, bwd_p, _ = _dense_both(RP, rows, counts, geo, C.KERNEL_DENSE_CASES[case][2])
+    _assert_dense(fwd, fwd_p, bwd, bwd_p, counts)
+    if bg is not None:
+        (img, trans), (img_p, trans_p) = fwd[0], fwd_p
+        b = bg.reshape(1, 1, 1, -1)
+        torch.testing.assert_close(img + trans[..., None] * b, img_p + trans_p[..., None] * b,
+                                   rtol=0, atol=ATOL)
+
+
+def _dense_window(counts_fn, max_bytes=1e9, size=(512, 288)):
+    """The largest centred window of the bench view, halved from ``size``
+    until the dense rasterizers' largest [tiles, pixels, capacity] tensor
+    fits ``max_bytes`` (autograd keeps a few dozen of them), with the
+    capacity the window's longest tile (whole 128s, so that the packed
+    kernels cut nothing either): (W, H, tile_capacity, entries).
+    ``counts_fn(W, H)`` gives the packed stream's entries a tile."""
+    W, H = size
+    while True:
+        counts = counts_fn(W, H)
+        cap = max(128, -(-int(counts.max()) // 128) * 128)
+        if counts.numel() * 256 * cap * 4 <= max_bytes or W <= 64:
+            return W, H, cap, int(counts.sum())
+        W, H = W // 2, H // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["eval3d", "2dgs"])
+def test_dense_references_match_kernels_at_full_size_on_card(scenes, family):
+    """The dense plain-tensor rasterizers, independent of the kernels, as
+    references for them: on a centred window of the bench view sized from
+    its stream (no tile cut), the dense ``"eval3d"`` against
+    ``"eval3d_packed"`` (kernels 7, 8, 3), "RGB" with the gradients to every
+    input and the pose, and the dense 2DGS ``"jax"`` against ``"packed"``
+    (kernels 5, 6, 3) in "RGB+ED" with the distortion. Outputs within TOL
+    (distortion DIST_RTOL, median MEDIAN_SHARE), each input's gradient
+    within BWD_RTOL of its max; neither side drops an entry."""
+    sc = scenes["bench"]
+
+    def window_Ks(W, H):
+        Ks = sc["Ks"].clone()
+        Ks[:, 0, 2], Ks[:, 1, 2] = W / 2, H / 2
+        return Ks
+
+    def counts(W, H):
+        with torch.no_grad():
+            if family == "eval3d":
+                meta = tdgs_torch.rasterization(
+                    sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
+                    sc["viewmats"], window_Ks(W, H), W, H, sh_degree=3,
+                    rasterizer="packed_inference", device="cuda")[2]
+            else:
+                meta = tdgs_torch.rasterization_2dgs(
+                    sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["sh"],
+                    sc["viewmats"], window_Ks(W, H), W, H, sh_degree=3,
+                    rasterizer="packed_inference", device="cuda")[-1]
+        return torch.diff(meta["isect_offsets"].long())
+
+    W, H, cap, entries = _dense_window(counts)
+    Ks = window_Ks(W, H)
+    kw = dict(sh_degree=3, tile_capacity=cap, device="cuda",
+              isect_capacity=1 << (max(entries, 1) * 2 - 1).bit_length())
+    names = ("means", "quats", "scales", "opacities", "sh")
+    dropped = {}
+    if family == "eval3d":
+        names += ("viewmats",)
+
+        def render(route, *x):
+            img, alp, meta = tdgs_torch.rasterization(
+                *x[:5], x[5], Ks, W, H, with_eval3d=True,
+                rasterizer="eval3d" if route == "dense" else "eval3d_packed", **kw)
+            dropped[route] = int(meta["n_dropped"])
+            return img, alp
+        n_out = 2
+    else:
+        def render(route, *x):
+            out = tdgs_torch.rasterization_2dgs(
+                *x, sc["viewmats"], Ks, W, H, render_mode="RGB+ED", distloss=True,
+                rasterizer="jax" if route == "dense" else "packed", **kw)
+            dropped[route] = int(out[-1]["n_dropped"])
+            return out[0], out[1], out[2], out[4], out[5]
+        n_out = 4  # colours, alpha, normals, distortion (the median has no gradient)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    res, cot = {}, None
+    for route in ("dense", "kernel"):
+        leaves = [sc[k].detach().clone().requires_grad_(True) for k in names]
+        out = render(route, *leaves)
+        if cot is None:
+            cot = [torch.randn(o.shape, generator=gen, device="cuda") for o in out[:n_out]]
+        grads = torch.autograd.grad(sum((o * c).sum() for o, c in zip(out[:n_out], cot)),
+                                    leaves, allow_unused=True)
+        res[route] = ([o.detach() for o in out], grads)
+    (d_out, d_grads), (k_out, k_grads) = res["dense"], res["kernel"]
+    assert not any(dropped.values()), dropped
+    assert float(k_out[1].max()) >= 0.5
+    for a, b in zip(d_out[:3], k_out[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
+    if family == "2dgs":
+        assert _rel_err(d_out[3], k_out[3]) <= C.DIST_RTOL
+        assert float(((d_out[4] - k_out[4]).abs() > 1e-4).float().mean()) <= C.MEDIAN_SHARE
+    for name, a, b in zip(names, d_grads, k_grads):
+        assert _rel_err(a, b) <= C.BWD_RTOL, name

@@ -32,8 +32,7 @@ from tdgs_torch.ops.mcmc_noise import (
     inject_noise_to_position_plain,
 )
 from tdgs_torch.ops.transforms import quat_scale_to_covar_preci, quat_to_rotmat
-
-SCALER = 160.0  # lr · noise_lr of the benchmark's cells at step 5,200, about
+from tests.card_scenes import NOISE_SCALER, noise_state
 
 
 def _chain(params, noise, scaler, active_mask=None):
@@ -46,36 +45,6 @@ def _chain(params, noise, scaler, active_mask=None):
     if active_mask is not None:
         step = torch.where(active_mask[:, None], step, torch.zeros_like(step))
     return dict(params, means=params["means"] + step)
-
-
-def _state(n, seed=0, device="cpu"):
-    """Rows drawn as ``portbench/scenes/state.py`` draws the trained state
-    (anisotropic splats of the surfaces' spacing, 1% at 2.5×, 5%
-    near-transparent), quaternions left unnormalized as Adam leaves them,
-    the SH groups along; and the noise."""
-    g = torch.Generator().manual_seed(seed)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=g)
-
-    def rand(*shape):
-        return torch.rand(shape, generator=g)
-
-    log_s = torch.log(torch.tensor(0.012)) + 0.35 * randn(n, 3)
-    log_s[:, 2] += torch.log(torch.tensor(0.3))
-    log_s = log_s + (rand(n) < 0.01)[:, None] * torch.log(torch.tensor(2.5))
-    op = torch.sigmoid(1.0 + 1.5 * randn(n))
-    op = torch.where(rand(n) < 0.05, 0.001 + 0.003 * rand(n), op)
-    params = {
-        "means": 1.5 * randn(n, 3),
-        "quats": randn(n, 4) * (0.5 + rand(n, 1)),
-        "scales": log_s,
-        "opacities": torch.logit(op),
-        "sh0": randn(n, 1, 3),
-        "shN": 0.02 * randn(n, 15, 3),
-    }
-    noise = randn(n, 3)
-    return {k: v.to(device) for k, v in params.items()}, noise.to(device)
 
 
 def _snapshot(params, noise):
@@ -102,12 +71,12 @@ CPU_CASES = {
 @pytest.mark.parametrize("case", CPU_CASES.values(), ids=CPU_CASES.keys())
 def test_plain_equals_the_chain_bitwise(case):
     n, masked = case["n"], case["masked"]
-    params, noise = _state(n, seed=n + masked)
+    params, noise = noise_state(n, seed=n + masked)
     active = torch.arange(n) < (2 * n) // 3 if masked else None
     before = _snapshot(params, noise)
     n0 = _build.LAUNCHES.get(KERNEL, 0)
-    got = inject_noise_to_position(params, noise, SCALER, active_mask=active)
-    want = _chain(params, noise, SCALER, active)
+    got = inject_noise_to_position(params, noise, NOISE_SCALER, active_mask=active)
+    want = _chain(params, noise, NOISE_SCALER, active)
     assert _build.LAUNCHES.get(KERNEL, 0) == n0  # the plain version launches nothing
     _assert_untouched(params, noise, before)
     assert got.keys() == params.keys()
@@ -116,8 +85,8 @@ def test_plain_equals_the_chain_bitwise(case):
         assert torch.equal(got[k], want[k]), k
         if k != "means":
             assert got[k] is params[k], k
-    assert torch.equal(inject_noise_to_position_plain(params, noise, SCALER, active)["means"],
-                       got["means"])
+    plain = inject_noise_to_position_plain(params, noise, NOISE_SCALER, active)
+    assert torch.equal(plain["means"], got["means"])
     if masked and n:
         assert torch.equal(got["means"][~active], params["means"][~active])
         assert not torch.equal(got["means"][active], params["means"][active])
@@ -128,7 +97,7 @@ def test_sharded_block_equals_the_chain_bitwise(rank):
     """The sharded trainer's call: each rank's block of the rows, the noise
     drawn for every row and sliced, the mask of the live rows sliced."""
     capacity, world = 771, 3
-    params, _ = _state(capacity, seed=5)
+    params, _ = noise_state(capacity, seed=5)
     g = torch.Generator().manual_seed(6)
     n = capacity // world
     block = slice(rank * n, (rank + 1) * n)
@@ -136,9 +105,9 @@ def test_sharded_block_equals_the_chain_bitwise(rank):
     active = (torch.arange(capacity) < 600)[block]
     mine = {k: v[block] for k, v in params.items()}
     before = _snapshot(mine, noise)
-    got = inject_noise_to_position(mine, noise, SCALER, active_mask=active)
+    got = inject_noise_to_position(mine, noise, NOISE_SCALER, active_mask=active)
     _assert_untouched(mine, noise, before)
-    assert torch.equal(got["means"], _chain(mine, noise, SCALER, active)["means"])
+    assert torch.equal(got["means"], _chain(mine, noise, NOISE_SCALER, active)["means"])
 
 
 def test_float64_reference_matches_the_chain_on_cpu():
@@ -146,10 +115,10 @@ def test_float64_reference_matches_the_chain_on_cpu():
     float32 chain to a few ulps of the means, and of the step, whose gate
     the chain takes from (1 − σ(o)) − 0.995 rounded to float32 (relative
     1e-5 of the step), and keeps inactive rows."""
-    params, noise = _state(2000, seed=3)
+    params, noise = noise_state(2000, seed=3)
     active = torch.arange(2000) < 1500
-    want = _float64(params, noise, SCALER, active)
-    got = _chain(params, noise, SCALER, active)["means"]
+    want = _float64(params, noise, NOISE_SCALER, active)
+    got = _chain(params, noise, NOISE_SCALER, active)["means"]
     step = (want - params["means"].double()).abs()
     room = 2 * _spacing(want.float()).double() + 1e-5 * step
     assert ((got.double() - want).abs() <= room).all()
@@ -195,15 +164,15 @@ def _check_kernel(params, noise, active):
     chain's; inactive rows bitwise their inputs; the inputs untouched."""
     before = _snapshot(params, noise)
     n0 = _build.LAUNCHES.get(KERNEL, 0)
-    got = inject_noise_to_position(params, noise, SCALER, active_mask=active)
+    got = inject_noise_to_position(params, noise, NOISE_SCALER, active_mask=active)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[KERNEL] == n0 + 1
     _assert_untouched(params, noise, before)
     means = got["means"]
     assert means.shape == params["means"].shape and means.is_contiguous()
     assert all(got[k] is params[k] for k in params if k != "means")
-    chain = inject_noise_to_position_plain(params, noise, SCALER, active)["means"]
-    exact = _float64(params, noise, SCALER, active)
+    chain = inject_noise_to_position_plain(params, noise, NOISE_SCALER, active)["means"]
+    exact = _float64(params, noise, NOISE_SCALER, active)
     chain_worst = float((chain.double() - exact).abs().max()) if exact.numel() else 0.0
     room = 2 * chain_worst + _spacing(exact.float()).double()
     assert ((means.double() - exact).abs() <= room).all()
@@ -215,7 +184,7 @@ def _check_kernel(params, noise, active):
 @pytest.mark.cuda
 def test_kernel_matches_float64_at_1m_rows_on_card(cuda_device):
     n = 1_000_000
-    params, noise = _state(n, seed=11, device=cuda_device)
+    params, noise = noise_state(n, seed=11, device=cuda_device)
     active = torch.arange(n, device=cuda_device) < 950_000
     means = _check_kernel(params, noise, active)
     op = torch.sigmoid(params["opacities"])
@@ -233,7 +202,7 @@ def test_kernel_partial_blocks_and_unaligned_on_card(cuda_device, n):
     """A partial last block (the scalar path beside whole blocks), and the
     same rows one row into larger arrays: off a 16-byte boundary, the
     scalar path throughout, as a sharded block's slice can be."""
-    params, noise = _state(n + 1, seed=n, device=cuda_device)
+    params, noise = noise_state(n + 1, seed=n, device=cuda_device)
     active = torch.arange(n + 1, device=cuda_device) % 7 != 3
     _check_kernel(params, noise, active)
     shifted = {k: v[1:] for k, v in params.items()}
@@ -245,15 +214,15 @@ def test_kernel_partial_blocks_and_unaligned_on_card(cuda_device, n):
 
 @pytest.mark.cuda
 def test_kernel_no_rows_on_card(cuda_device):
-    params, noise = _state(0, device=cuda_device)
-    got = inject_noise_to_position(params, noise, SCALER,
+    params, noise = noise_state(0, device=cuda_device)
+    got = inject_noise_to_position(params, noise, NOISE_SCALER,
                                    torch.zeros(0, dtype=torch.bool, device=cuda_device))
     assert got["means"].shape == (0, 3)
 
 
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda_device):
-    params, noise = _state(64, seed=14, device=cuda_device)
+    params, noise = noise_state(64, seed=14, device=cuda_device)
     active = torch.ones(64, dtype=torch.bool, device=cuda_device)
     bad = [
         (dict(params, means=params["means"].double()), noise, active, "float32"),
@@ -268,4 +237,4 @@ def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda_device):
     ]
     for p, e, a, match in bad:
         with pytest.raises(ValueError, match=match):
-            inject_noise_to_position(p, e, SCALER, active_mask=a)
+            inject_noise_to_position(p, e, NOISE_SCALER, active_mask=a)

@@ -165,11 +165,11 @@ def test_port_imports_no_jax_and_no_tdgs():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _imported_roots(script):
-    """The top-level package names a script of the repository imports."""
+def _imported_modules(path):
+    """The modules a file of the repository imports, by their full names."""
     import ast
 
-    with open(os.path.join(REPO, script)) as f:
+    with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read())
     names = set()
     for node in ast.walk(tree):
@@ -177,23 +177,34 @@ def _imported_roots(script):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
-    return {n.split(".")[0] for n in names}
+            if node.module == "tests":
+                names.update(f"tests.{a.name}" for a in node.names)
+    return names
 
 
-def test_chip_smoke_imports_no_jax_and_no_tdgs():
-    roots = _imported_roots("chip_smoke.py")
-    assert "jax" not in roots and "tdgs" not in roots, sorted(roots)
-    assert "tdgs_torch" in roots
+def _imported_roots(path):
+    """The top-level package names a file of the repository imports, and
+    those the test modules it imports (``tests.*``) import, followed."""
+    roots, todo, seen = set(), [path], set()
+    while todo:
+        for name in _imported_modules(todo.pop()):
+            roots.add(name.split(".")[0])
+            if name.startswith("tests.") and name not in seen:
+                seen.add(name)
+                todo.append(name.replace(".", "/") + ".py")
+    return roots
 
 
-def test_kernel_ab_imports_no_jax_and_no_tdgs():
-    roots = _imported_roots("kernel_ab.py")
-    assert "jax" not in roots and "tdgs" not in roots, sorted(roots)
-    assert {"tdgs_torch", "chip_smoke"} <= roots
-
-
-def test_chain_clusters_imports_no_jax_and_no_tdgs():
-    roots = _imported_roots("chain_clusters.py")
+@pytest.mark.parametrize("path", ["chip_smoke.py", "kernel_times.py", "chain_clusters.py",
+                                  "tests/card_scenes.py", "tests/test_torch_kernel_card.py",
+                                  "tests/test_torch_paths_card.py", "tests/test_torch_adam.py",
+                                  "tests/test_torch_mcmc_noise.py", "tests/test_torch_trace.py",
+                                  "tests/test_torch_3dgut_trace.py"])
+def test_card_scripts_import_no_jax_and_no_tdgs(path):
+    """The scripts and card tests that run on a machine with a card and
+    without JAX (the tests under ``--noconftest``) import neither JAX nor
+    the JAX package, nor does any test module they import."""
+    roots = _imported_roots(path)
     assert "jax" not in roots and "tdgs" not in roots, sorted(roots)
     assert "tdgs_torch" in roots
 

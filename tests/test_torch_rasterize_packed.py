@@ -8,7 +8,7 @@ Tolerance 2e-3 absolute, as test_packed_inference_matches_jax uses: the
 Pallas kernel takes the transmittance prefix in log space and the plain
 version with a cumprod, and the two round differently at the 1e-4 cutoff.
 The CUDA kernel itself is held against the plain version on the card by
-test_torch_kernel_card.py and, at full size, by chip_smoke.py."""
+test_torch_kernel_card.py, on small streams and at full size."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -15,9 +15,9 @@ bound, op at 1/255, scales 1e-4 against 1, a camera inside the gaussian,
 entries behind the camera, 8-pixel tiles), that NaN rows are kept, and
 that it is not vacuous: it drops nearly every entry whose bounding sphere
 (radius sqrt(2 log(255 op)) max(s)) lies clear of the warp's rays. The
-kernel's own agreement is held on the card: bitwise with and without the
-cull by ``kernel_ab.py``, against the plain version on layouts that graze
-the bound by ``tests/test_torch_kernel_card.py``.
+kernel's own agreement is held on the card by
+``tests/test_torch_kernel_card.py``: against the plain version on layouts
+that graze the bound, and at full size.
 """
 
 import math

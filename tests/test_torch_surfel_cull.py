@@ -16,9 +16,9 @@ plain ``_response_2dgs`` gives alpha >= 1/255 at a pixel centre of the
 warp. Rows with NaN are kept wherever the kernels' walk (whose fminf takes
 the other operand of a NaN) would include them. And the bound is not
 vacuous: it drops nearly every surfel whose footprint lies clear of the
-warp's box. The kernels' own agreement is held on the card: bitwise with
-and without the cull by ``kernel_ab.py``, against the plain version on
-layouts that graze the bound by ``tests/test_torch_kernel_card.py``.
+warp's box. The kernels' own agreement is held on the card by
+``tests/test_torch_kernel_card.py``: against the plain version on layouts
+that graze the bound, and at full size.
 """
 
 import math
