@@ -31,6 +31,7 @@ FILES = (
     "tests/test_torch_paths_card.py",
     "tests/test_torch_adam.py",
     "tests/test_torch_mcmc_noise.py",
+    "tests/test_torch_ut_project.py",
     "tests/test_torch_trace.py",
     "tests/test_torch_3dgut_trace.py",
 )

@@ -3,11 +3,13 @@ PERF.md's kernel table: kernels 1-10 on the 200k-gaussian 1080p bench
 scene (tests/card_scenes.py) at the shapes of its render and training
 paths, kernel 1 also on the rally's scene at rest, kernels 9 and 10 also
 at the image-fitting example's, kernel 3 also on kernel 8's rows, the Adam
-kernel (11) over the trainer's six groups at 1M rows and the MCMC position
-noise (12) at 1M rows; then, on scenes it trains first (a few minutes),
-kernels 1-3 at the domino chain's identity render (D = 16) and kernel 1 at
-its rally frame (tile_capacity 2048), kernels 1-3 at the depth path's D = 4,
-and kernels 4-6 at the 2DGS trainer's first step (1236x822).
+kernel (11) over the trainer's six groups at 1M rows, the MCMC position
+noise (12) at 1M rows and the UT projection (13) at 1M gaussians, for the
+3DGUT cell's camera and for a distorted rolling-shutter one; then, on
+scenes it trains first (a few minutes), kernels 1-3 at the domino chain's
+identity render (D = 16) and kernel 1 at its rally frame (tile_capacity
+2048), kernels 1-3 at the depth path's D = 4, and kernels 4-6 at the 2DGS
+trainer's first step (1236x822).
 
     python3 kernel_times.py
 
@@ -38,6 +40,7 @@ from tdgs_torch.models.gaussians import create_splats
 from tdgs_torch.ops import _build
 from tdgs_torch.ops import adam as A
 from tdgs_torch.ops import mcmc_noise as N
+from tdgs_torch.ops import projection_ut as U
 from tdgs_torch.ops import rasterize_2dgs_packed as R2
 from tdgs_torch.ops import rasterize_eval3d_packed as E
 from tdgs_torch.ops import rasterize_pallas as RP
@@ -436,7 +439,7 @@ def time_kernels_9_10(shape, inputs):
 
 
 # ---------------------------------------------------------------------------
-# the Adam kernel (11) and the MCMC position noise (12)
+# the Adam kernel (11), the MCMC position noise (12), the UT projection (13)
 # ---------------------------------------------------------------------------
 
 
@@ -482,6 +485,28 @@ def time_mcmc_noise(n=1_000_000):
               lambda: N.inject_noise_to_position_plain(params, noise, scaler, active), REPS)
     b = bound(69 * n, 0)
     emit(N.KERNEL, "1m_rows", **t, **b, roofline=b["bound_ms"] / t["ms"], rows=n)
+
+
+def time_ut_project(shape, n=1_000_000, distorted_rolling_shutter=False):
+    """The UT projection's kernel (13) at ``n`` gaussians of
+    ``card_scenes.ut_scene`` for one 1236x822 pinhole camera, global
+    shutter as the 3DGUT cell projects, or (``distorted_rolling_shutter``)
+    with the card tests' distortion (``card_scenes.ut_distortion``) and
+    rolling shutter (``card_scenes.rolling_shutter_kw``, two passes); its
+    bound by bytes (76 a row: means, quats, scales and the opacity read,
+    radii, means2d, the depth and the conic written)."""
+    sc = C.ut_scene(n, device=DEVICE)
+    kw = {}
+    if distorted_rolling_shutter:
+        rs = C.rolling_shutter_kw(sc)
+        kw = dict(C.ut_distortion(1, device=DEVICE), rolling_shutter=rs["rolling_shutter"],
+                  viewmats_rs=rs["viewmats_rs"])
+    args = (sc["means"], sc["quats"], sc["scales"], sc["opacities"], sc["viewmats"], sc["Ks"],
+            C.UT_WIDTH, C.UT_HEIGHT)
+    t = times(lambda: U.project_ut_for_tiles(*args, **kw),
+              lambda: U.fully_fused_projection_with_ut(*args, **kw), REPS)
+    b = bound(76 * n, 0)
+    emit(U.KERNEL, shape, **t, **b, roofline=b["bound_ms"] / t["ms"], rows=n)
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +591,8 @@ def main():
                       ("1m_dense_grads", dict(sh_slices=False))):
         time_adam(shape, **kw)
     time_mcmc_noise()
+    time_ut_project("3dgut_cell_1m")
+    time_ut_project("1m_distorted_rolling_shutter", distorted_rolling_shutter=True)
     time_trained_shapes()
 
 

@@ -24,7 +24,7 @@ import torch
 
 from tdgs_torch._device import DeviceLike, as_float, constant, resolve_device
 from tdgs_torch.ops.projection import fully_fused_projection
-from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut
+from tdgs_torch.ops.projection_ut import project_ut_for_tiles
 from tdgs_torch.utils.profiler import host_read
 
 INT32_SENTINEL = 2**31 - 1
@@ -253,7 +253,7 @@ def derive_isect_plan(
     means, quats, scales, opacities, viewmats, Ks = (
         as_float(x, dev) for x in (means, quats, scales, opacities, viewmats, Ks))
     if with_ut:
-        radii, means2d, _, _, _ = fully_fused_projection_with_ut(
+        radii, means2d, _, _, _ = project_ut_for_tiles(
             means, quats, scales, opacities, viewmats, Ks, width, height, **proj_kwargs)
     else:
         radii, means2d, _, _, _ = fully_fused_projection(

@@ -43,7 +43,7 @@ from tdgs_torch._device import as_float, as_optional_float
 from tdgs_torch.ops.camera_models import RollingShutterType
 from tdgs_torch.ops.projection import fully_fused_projection
 from tdgs_torch.ops.projection_2dgs import fully_fused_projection_2dgs
-from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut
+from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut, project_ut_for_tiles
 from tdgs_torch.ops.rasterize_eval3d_packed import (
     feature_rows,
     rasterize_feature_rows,
@@ -353,7 +353,10 @@ def rasterization_eval3d_sharded(
 
     viewmats_all, Ks_all = gather(viewmats), gather(Ks)
     if use_ut:
-        radii, means2d, depths, _, _ = fully_fused_projection_with_ut(
+        # the projection only tiles unless its depths are a colour channel
+        project = (project_ut_for_tiles if render_mode == "RGB"
+                   else fully_fused_projection_with_ut)
+        radii, means2d, depths, _, _ = project(
             means, quats, scales, opacities, viewmats_all, Ks_all, width, height,
             eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
             radius_clip=radius_clip, camera_model=camera_model,

@@ -28,7 +28,7 @@ from tdgs_torch._device import DeviceLike, as_float, as_optional_float, resolve_
 from tdgs_torch.ops.camera_models import RollingShutterType
 from tdgs_torch.ops.projection import fully_fused_projection
 from tdgs_torch.ops.projection_2dgs import fully_fused_projection_2dgs
-from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut
+from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut, project_ut_for_tiles
 from tdgs_torch.ops.rasterize_2dgs_jax import rasterize_to_pixels_2dgs_jax
 from tdgs_torch.ops.rasterize_2dgs_packed import (
     rasterize_to_pixels_2dgs_packed,
@@ -362,7 +362,13 @@ def rasterization(
     calc_compensations = rasterize_mode == "antialiased"
     with span("project"):
         if with_ut:
-            radii, means2d, depths, conics, compensations = fully_fused_projection_with_ut(
+            # under eval3d the projection only tiles, unless its compensations
+            # scale the opacities or its depths are a colour channel: no
+            # gradient flows back through it, and the forward kernel serves
+            only_tiles = (rasterizer.startswith("eval3d") and not calc_compensations
+                          and render_mode == "RGB")
+            project = project_ut_for_tiles if only_tiles else fully_fused_projection_with_ut
+            radii, means2d, depths, conics, compensations = project(
                 means, quats, scales, opacities, viewmats, Ks, width, height,
                 eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
                 radius_clip=radius_clip, calc_compensations=calc_compensations,

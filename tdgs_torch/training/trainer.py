@@ -92,6 +92,7 @@ from tdgs_torch._device import DeviceLike, resolve_device
 from tdgs_torch.datasets import Dataset, Parser
 from tdgs_torch.models import gaussians as G
 from tdgs_torch.ops.adam import adam_update
+from tdgs_torch.ops.projection_ut import fully_fused_projection_with_ut
 from tdgs_torch.parallel import comm, rows
 from tdgs_torch.parallel.mesh import initialize_multihost, make_mesh
 from tdgs_torch.parallel.sharded_render import (
@@ -789,6 +790,10 @@ class Runner:
                 params["quats"], torch.exp(params["scales"]),
                 torch.sigmoid(params["opacities"]))
             normal_maps, m2d, rad = batch["normal"], meta["means2d"], meta["radii"]
+            if not m2d.requires_grad:
+                # the eval3d render's UT projection only tiled: the centres
+                # again through the differentiable chain
+                m2d, rad = self._ut_centres(params, batch, img.shape[2], img.shape[1])
             if self._blocked(params):
                 # the loss over every view and gaussian, alike on each rank:
                 # the maps, the normals and the centres gathered whole
@@ -816,6 +821,22 @@ class Runner:
             terms["depthsmooth"] = cfg.lambda_depth_smooth * sm / B
             terms["normalconsist"] = cfg.lambda_normal_consistency * tv / B
         return terms
+
+    def _ut_centres(self, params, batch, width, height):
+        """(means2d, radii) of ``params`` against the batch's cameras by the
+        differentiable unscented projection, with the options the eval3d
+        render projects with (its own projection carries no gradient).
+        Blocked: this block against every camera of the global batch, as
+        ``parallel.sharded_render`` projects it."""
+        cfg = self.cfg
+        viewmats, Ks = batch["viewmat"], batch["K"]
+        if self._blocked(params):
+            viewmats, Ks = comm.all_gather(viewmats), comm.all_gather(Ks)
+        radii, means2d, _, _, _ = fully_fused_projection_with_ut(
+            params["means"], params["quats"], torch.exp(params["scales"]),
+            torch.sigmoid(params["opacities"]), viewmats, Ks, width, height,
+            near_plane=cfg.near_plane, far_plane=cfg.far_plane, camera_model=cfg.camera_model)
+        return means2d, radii
 
     def _seg_step(self, params, batch, sh_degree, use_seg, use_spatial, quality):
         """The segmentation losses on the pre-update ``params`` (port of

@@ -1,15 +1,17 @@
 """Scenes, kernel inputs and tolerances shared by the port's card tests
 (``tests/test_torch_kernel_card.py``, ``tests/test_torch_paths_card.py``,
-``tests/test_torch_mcmc_noise.py``) and by ``kernel_times.py``, which times
-the kernels at the same shapes; and the functions the sharded card tests'
-ranks run, which a spawned rank imports by module.
+``tests/test_torch_mcmc_noise.py``, ``tests/test_torch_ut_project.py``) and
+by ``kernel_times.py``, which times the kernels at the same shapes; and the
+functions the sharded card tests' ranks run, which a spawned rank imports
+by module.
 
 The full-size scenes: the 200k-gaussian 1080p scene of the JAX package's
 bench.py, a heavy-overlap scene whose tiles overflow a tile capacity of
 128, and the 16-domino rally scene; the trained ones: the domino chain's
-and the depth path's. Every function here but ``noise_state`` puts its
-tensors on the card. Like the card tests, this module imports neither JAX
-nor the JAX package.
+and the depth path's. Every function here but ``noise_state``,
+``ut_scene`` and ``ut_distortion`` (which take a device) puts its tensors
+on the card. Like the card tests, this module imports neither JAX nor the
+JAX package.
 """
 
 from __future__ import annotations
@@ -603,6 +605,82 @@ def noise_state(n, seed=0, device="cpu"):
     }
     noise = randn(n, 3)
     return {k: v.to(device) for k, v in params.items()}, noise.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the UT projection's kernel: its scene and cameras
+# ---------------------------------------------------------------------------
+
+UT_WIDTH, UT_HEIGHT = 1236, 822  # the 3DGUT cell's image (bicycle at data factor 4)
+UT_FOCAL = 1100.0
+UT_GROUPS = ("regular", "behind", "near_plane", "off_image", "large", "degenerate")
+
+
+def ut_scene(n, n_cams=1, seed=0, device="cpu"):
+    """``n`` gaussians for ``n_cams`` 1236x822 pinhole cameras (f = 1100;
+    the first at the origin looking down +z, the others turned 6° and -9°
+    and moved a little), as ``project_ut_for_tiles`` takes them (activated
+    scales and opacities), in groups (``group``, indexing ``UT_GROUPS``):
+    78% regular (2-12 units deep, scales 0.005-0.1, over the image and 300
+    px beyond); 5% the regular rows mirrored behind the camera; 5% at the
+    near plane (depth 0.01 ± 0.004, scales 1e-4-5e-4); 5% small, 700-1000
+    px off the image, beyond any margin; 5% large and close (scales
+    0.3-0.8, 3.5-6 deep, radii of hundreds of pixels); 2% degenerate (zero
+    scales, or a zero quaternion). 3% of the opacities lie below 1/255.
+    Through the pinhole every sigma point lands within (-1100, 2048)
+    pixels, where float32 keeps a pixel to 1.2e-4."""
+    rng = np.random.default_rng(seed)
+    cx, cy = UT_WIDTH / 2, UT_HEIGHT / 2
+    group = rng.choice(len(UT_GROUPS), size=n, p=[0.78, 0.05, 0.05, 0.05, 0.05, 0.02])
+    u = rng.uniform(-300, UT_WIDTH + 300, n)
+    v = rng.uniform(-300, UT_HEIGHT + 300, n)
+    z = rng.uniform(2.0, 12.0, n)
+    scales = np.exp(rng.uniform(np.log(0.005), np.log(0.1), (n, 3)))
+    near = group == 2
+    z[near] = 0.01 + rng.uniform(-0.004, 0.004, near.sum())
+    scales[near] = rng.uniform(1e-4, 5e-4, (near.sum(), 3))
+    off = group == 3
+    u[off] = np.where(rng.random(off.sum()) < 0.5, rng.uniform(-1000, -700, off.sum()),
+                      rng.uniform(UT_WIDTH + 700, UT_WIDTH + 800, off.sum()))
+    scales[off] = rng.uniform(0.005, 0.02, (off.sum(), 3))
+    large = group == 4
+    z[large] = rng.uniform(3.5, 6.0, large.sum())
+    scales[large] = rng.uniform(0.3, 0.8, (large.sum(), 3))
+    means = np.stack([(u - cx) / UT_FOCAL * z, (v - cy) / UT_FOCAL * z, z], -1)
+    means[group == 1] *= -1.0
+    quats = rng.normal(size=(n, 4))
+    degenerate = np.flatnonzero(group == 5)
+    scales[degenerate[::2]] = 0.0
+    quats[degenerate[1::2]] = 0.0
+    opacities = rng.uniform(0.0, 1.0, n)
+    low = rng.random(n) < 0.03
+    opacities[low] = rng.uniform(0.0, 0.004, low.sum())
+
+    viewmats = np.tile(np.eye(4), (n_cams, 1, 1))
+    for i, (deg, shift) in enumerate(((6.0, (0.3, -0.1, 0.2)), (-9.0, (-0.4, 0.2, -0.3)))
+                                     [:n_cams - 1], start=1):
+        a = np.deg2rad(deg)
+        viewmats[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        viewmats[i, :3, 3] = shift
+    Ks = np.tile([[UT_FOCAL, 0, cx], [0, UT_FOCAL, cy], [0, 0, 1]], (n_cams, 1, 1))
+    out = dict(means=means, quats=quats, scales=scales, opacities=opacities,
+               viewmats=viewmats, Ks=Ks)
+    out = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in out.items()}
+    out["group"] = torch.as_tensor(group, device=device)
+    return out
+
+
+def ut_distortion(n_cams, terms=("radial", "tangential", "thin_prism"), fisheye=False,
+                  device="cpu"):
+    """Per-camera distortion coefficients of ``terms``, as keyword
+    arguments: the OpenCV rational radial k1..k6 (fisheye: k1..k4),
+    tangential p1 p2 and thin prism s1..s4, of the size a real lens has."""
+    coeffs = {"radial": (0.05, 0.01, -0.002, 0.0, 0.0, 0.0) if fisheye else
+              (0.12, -0.05, 0.01, 0.04, -0.01, 0.002),
+              "tangential": (1e-3, -5e-4), "thin_prism": (5e-4, -2e-4, 3e-4, 1e-4)}
+    return {f"{t}_coeffs": torch.tensor([coeffs[t][:4] if fisheye else coeffs[t]] * n_cams,
+                                        dtype=torch.float32, device=device)
+            for t in terms}
 
 
 # ---------------------------------------------------------------------------

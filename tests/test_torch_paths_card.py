@@ -33,6 +33,7 @@ import tdgs_torch
 from tdgs_torch.ops import _build
 from tdgs_torch.ops import adam as A
 from tdgs_torch.ops import mcmc_noise as N
+from tdgs_torch.ops import projection_ut as U
 from tdgs_torch.ops import rasterize_2dgs_packed as R2
 from tdgs_torch.ops import rasterize_eval3d_packed as E
 from tdgs_torch.ops import rasterize_pallas as RP
@@ -245,8 +246,9 @@ def test_runner_on_card(rich, model, record_property):
     3DGUT): the loss drops, the strategy refines at 40 and 80, every
     parameter, loss and eval number is finite, each kernel of the path
     launches every step, the Adam kernel exactly once a step, the position
-    noise once a step under MCMC and never otherwise, and the eval's kernel
-    once a test view."""
+    noise once a step under MCMC and never otherwise, the eval's kernel
+    once a test view, and the UT projection's kernel once a render under
+    3DGUT (each training step and test view) and never otherwise."""
     root, _ = rich
     opts, kernels, eval_kernel = RUNNERS[model]
     opts = mcmc_3dgut_options() if opts is None else opts
@@ -256,13 +258,14 @@ def test_runner_on_card(rich, model, record_property):
         _build.reset_launches()
         hist = runner.train()["history"]
         torch.cuda.synchronize()
-        launches = _launches(kernels + (A.KERNEL, N.KERNEL))
+        launches = _launches(kernels + (A.KERNEL, N.KERNEL, U.KERNEL))
         _build.reset_launches()
         stats = runner.eval(N_STEPS)
-        eval_launches = _build.LAUNCHES.get(eval_kernel, 0)
+        eval_launches = _launches((eval_kernel, U.KERNEL))
+        views = len(runner.valset)
         record_property("launches", launches)
-        record_property("eval_launches", {eval_kernel: eval_launches})
-        assert eval_launches >= len(runner.valset), eval_launches
+        record_property("eval_launches", eval_launches)
+        assert eval_launches[eval_kernel] >= views, eval_launches
         assert all(bool(torch.isfinite(v).all()) for v in runner.splats.values())
         refined = [r["step"] for r in runner.refines]
         mcmc = isinstance(runner.strategy, MCMCStrategy)
@@ -276,6 +279,9 @@ def test_runner_on_card(rich, model, record_property):
         assert launches[k] >= N_STEPS, (k, launches[k])
     assert launches[A.KERNEL] == N_STEPS
     assert launches[N.KERNEL] == (N_STEPS if mcmc else 0)
+    ut = model == "3dgut"
+    assert launches[U.KERNEL] == (N_STEPS if ut else 0)
+    assert eval_launches[U.KERNEL] == (views if ut else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -678,7 +684,8 @@ def test_runner_with_aux_modules_on_card(rich, model, record_property):
     ``run_compression``; "3dgut": the 3DGUT cell with the pose corrector
     and noise. Every loss term and eval number finite, the RGB loss
     dropped, the corrector moved and finite, each kernel of the path
-    launched every step; "3dgs" also: cc_psnr at least psnr − 1e-3 dB (the
+    launched every step ("3dgut": the UT projection's kernel exactly once a
+    step); "3dgs" also: cc_psnr at least psnr − 1e-3 dB (the
     identity affine is in the fit's family), the compressed eval finite,
     the decompressed means within one 16-bit step of their log-space span."""
     from tdgs_torch.models.gaussians import alive_mask
@@ -687,7 +694,7 @@ def test_runner_with_aux_modules_on_card(rich, model, record_property):
     if model == "3dgut":
         cfg = C.cell_config(root, "trainer_3dgut_pose", N_STEPS, pose_opt=True, pose_noise=1e-3,
                             **mcmc_3dgut_options())
-        kernels = (E.KERNEL_TRAIN, E.KERNEL_BWD, S.KERNEL)
+        kernels = (E.KERNEL_TRAIN, E.KERNEL_BWD, S.KERNEL, U.KERNEL)
     else:
         cfg = C.cell_config(root, "trainer_aux", N_STEPS, **AUX_MODULES)
         kernels = C.KERNELS
@@ -717,6 +724,8 @@ def test_runner_with_aux_modules_on_card(rich, model, record_property):
     assert 0.0 < moved < np.inf
     for k in kernels:
         assert launches[k] >= N_STEPS, (k, launches[k])
+    if model == "3dgut":
+        assert launches[U.KERNEL] == N_STEPS, launches
     if model == "3dgs":
         assert stats["cc_psnr"] >= stats["psnr"] - 1e-3, stats
         assert np.isfinite(comp["psnr"]), comp
@@ -861,7 +870,8 @@ def test_viewer_serves_the_bench_scene_on_card(bench, family, record_property):
             codes.append(code)
             bodies.append(body)
         launches = _build.LAUNCHES.get(VIEWER_KERNELS[family], 0)
-        record_property("launches", {VIEWER_KERNELS[family]: launches})
+        # the UT projection's too: the viewer renders 3DGUT without with_ut
+        record_property("launches", _launches((VIEWER_KERNELS[family], U.KERNEL)))
         K = server.intrinsics(C.WIDTH, C.HEIGHT)
         frame = fn(poses[0], K, C.WIDTH, C.HEIGHT, V.RenderTabState(render_mode="rgb"))
     finally:

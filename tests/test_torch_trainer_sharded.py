@@ -18,7 +18,9 @@ CPU ranks, against the JAX package's single-device ``Runner``:
 - the paths the JAX step above does not reach, four steps each against the
   port's single-rank Runner at batch 2 (losses within 1e-4 relative): 2DGS
   with the normal and distortion losses and refines, 3DGUT under MCMC with
-  the appearance module, the pose corrector behind a pose noise, the
+  the appearance module, 3DGUT with the monocular normals (their loss's
+  gradient through the centres of a projection the render only tiles
+  with), the pose corrector behind a pose noise, the
   bilateral grids and random backgrounds, the sparse depth losses with
   AbsGS refines, the dense depth loss with the monocular normals, and
   identity-vector segmentation. Their renders differ from the
@@ -94,6 +96,10 @@ def _variants(scene, tmp):
             data_dir=scene, result_dir=str(tmp / "v_3dgut"), with_ut=True, with_eval3d=True,
             app_opt=True, feature_dim=8, app_embed_dim=4, pose_opt=True, pose_noise=1e-3,
             use_bilateral_grid=True, random_bkgd=True, opacity_reg=0.01, scale_reg=0.01,
+            strategy=MCMCStrategy(cap_max=512, refine_start_iter=1, refine_every=2), **base),
+        "3dgut_normals": Config(
+            data_dir=tracked, result_dir=str(tmp / "v_3dgut_normals"), with_ut=True,
+            with_eval3d=True, load_normals=True, start_normal_loss_step=0,
             strategy=MCMCStrategy(cap_max=512, refine_start_iter=1, refine_every=2), **base),
         "depth_sparse_absgrad": Config(data_dir=tracked, result_dir=str(tmp / "v_depth"),
                                        depth_loss=True, depth_normal_loss=True,
@@ -243,8 +249,9 @@ def test_sharded_checkpoint_round_trips_and_reblocks(cases, tmp_path):
         one.close()
 
 
-@pytest.mark.parametrize("variant", ["2dgs", "3dgut_modules", "depth_sparse_absgrad",
-                                     "depth_dense_normals", "segmentation"])
+@pytest.mark.parametrize("variant", ["2dgs", "3dgut_modules", "3dgut_normals",
+                                     "depth_sparse_absgrad", "depth_dense_normals",
+                                     "segmentation"])
 def test_sharded_runner_matches_single_rank_runner(cases, variant):
     from tdgs_torch.training.trainer import Runner
 
