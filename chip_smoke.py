@@ -34,6 +34,7 @@ FILES = (
     "tests/test_torch_ut_project.py",
     "tests/test_torch_trace.py",
     "tests/test_torch_3dgut_trace.py",
+    "tests/test_torch_2dgs_trace.py",
 )
 
 

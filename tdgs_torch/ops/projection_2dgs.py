@@ -4,6 +4,10 @@
 Builds the ray-space transform M = (K [R·quat_rot·diag(sx, sy) | t])ᵀ per
 (camera, gaussian), camera-frame surfel normals turned toward the camera,
 and the screen-space extent from the homogeneous centre/extent identities.
+The normal is the rotation's unit third axis, t_u × t_v, as the 2DGS paper
+and gsplat's CUDA projection take it; the third scale is not read. (The
+JAX package scales it by that scale; see ROADMAP, faults on the reference
+side.)
 As in the JAX package the chain stays in per-component [..., C, N] tensors
 and only M is stacked at the end, so every step is elementwise and
 differentiable through autograd.
@@ -42,16 +46,17 @@ def fully_fused_projection_2dgs(
 
     # world-frame scaled surfel axes: RS_wl[k][j] = R[k][j] · s_j
     r = quat_to_rotmat_comps(quats)
-    s = [scales[..., j] for j in range(3)]
-    RS_wl = [[r[3 * k + j] * s[j] for j in range(3)] for k in range(3)]
-    # camera-frame axes: RS_cl[i][j] = Σ_k W[i][k] · RS_wl[k][j]
+    s = [scales[..., j] for j in range(2)]
+    RS_wl = [[r[3 * k + j] * s[j] for j in range(2)] for k in range(3)]
+    # camera-frame tangent axes: RS_cl[i][j] = Σ_k W[i][k] · RS_wl[k][j]
     RS_cl = [[Wm[i][0] * RS_wl[0][j] + Wm[i][1] * RS_wl[1][j] + Wm[i][2] * RS_wl[2][j]
-              for j in range(3)] for i in range(3)]
+              for j in range(2)] for i in range(3)]
 
-    # surfel normal: the local z axis, turned toward the camera
-    cos = -(RS_cl[0][2] * mc[0] + RS_cl[1][2] * mc[1] + RS_cl[2][2] * mc[2])
+    # surfel normal: the local z axis, unscaled, turned toward the camera
+    n_cl = [Wm[i][0] * r[2] + Wm[i][1] * r[5] + Wm[i][2] * r[8] for i in range(3)]
+    cos = -(n_cl[0] * mc[0] + n_cl[1] * mc[1] + n_cl[2] * mc[2])
     flip = torch.where(cos > 0, 1.0, -1.0)
-    normals = torch.stack([RS_cl[i][2] * flip for i in range(3)], dim=-1)
+    normals = torch.stack([n_cl[i] * flip for i in range(3)], dim=-1)
 
     # T_sl = K [RS[:, :2] | mean_c]
     fx = Ks[..., 0, 0, None]

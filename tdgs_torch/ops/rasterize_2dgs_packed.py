@@ -12,7 +12,8 @@ inference kernel reads them per gaussian through ``flatten_ids``. In
 training they are gathered into stream order by
 ``segment_sum.gather_rows_segsum``, so that the gather's VJP is the
 segment-sum kernel and autograd carries the per-entry t0/tpx/tpy gradients
-back to M. The per-tile compositing runs in hand-written CUDA kernels for
+back to M; the tracer's ``surfel_rows`` span holds the rows and their
+gather. The per-tile compositing runs in hand-written CUDA kernels for
 CUDA tensors (``tdgs_torch/csrc/rasterize_2dgs_fwd.cu``: the inference and
 training forwards; ``rasterize_2dgs_bwd.cu``: the gradients) and in the
 plain PyTorch versions below for CPU tensors. The walk is the 3DGS one
@@ -43,6 +44,7 @@ from tdgs_torch.ops.rasterize_packed import (
     walked_evaluations,
 )
 from tdgs_torch.ops.segment_sum import gather_rows_segsum
+from tdgs_torch.utils.profiler import span
 
 KERNEL_FWD = "rasterize_2dgs_fwd"  # kernel 4: inference
 KERNEL_TRAIN = "rasterize_2dgs_fwd_train"  # kernel 5: the same source, training
@@ -455,8 +457,9 @@ def rasterize_to_pixels_2dgs_packed(
     the per-gaussian sum of |per-entry screen-space gradients| (AbsGS)."""
     image_dims, I = _image_count(means2d)
     D = colors.shape[-1]
-    feats = feature_rows(means2d, ray_transforms, colors, normals, opacities)
-    rows = gather_rows_segsum(feats, flatten_ids, offsets[-1], absgrad_dummy)
+    with span("surfel_rows"):
+        feats = feature_rows(means2d, ray_transforms, colors, normals, opacities)
+        rows = gather_rows_segsum(feats, flatten_ids, offsets[-1], absgrad_dummy)
     depth_row = D - 1 if has_depth else -1
     colors_img, normals_img, trans, dist, med = _Rasterize2DGS.apply(
         rows, offsets,

@@ -234,21 +234,15 @@ def derive_isect_plan(
     **proj_kwargs,
 ) -> dict:
     """The packed tiling's expansion plan from the scene's footprints (port
-    of ``tdgs/ops/tiling.py:539``): ``isect_capacity`` (``headroom`` times
-    the capped count, rounded up to 4096), ``max_tiles_per_gauss`` (the
-    largest footprint, at most the cap), and ``isect_split_k`` /
-    ``isect_big_capacity``: the smallest candidate split whose big
-    gaussians fit ``big_budget``, taken only where the dense expansion's
-    rows exceed the split's by ``dense_factor``/2. Two more keys are not
-    rasterization options: ``footprint_kmax`` (a plan whose cap is below it
-    clips the biggest splats' coverage; callers needing full coverage
-    take ``isect_exact`` instead) and ``full_isect_demand``. Waits for the
-    device once: call it once per scene. Runs on the card unless
-    ``device="cpu"``.
+    of ``tdgs/ops/tiling.py:539``): :func:`footprint_plan` of the
+    projection's radii. Waits for the device once: call it once per scene.
+    Runs on the card unless ``device="cpu"``.
 
     ``with_ut`` projects through the unscented transform, as a 3DGUT render
     tiles (``proj_kwargs``: the render's camera model and its coefficients,
-    ``ut_params``, ``eps2d``, the planes); otherwise through EWA."""
+    ``ut_params``, ``eps2d``, the planes); otherwise through EWA. A 2DGS
+    render tiles by its own projection's radii: hand those to
+    :func:`footprint_plan`."""
     dev = resolve_device(device)
     means, quats, scales, opacities, viewmats, Ks = (
         as_float(x, dev) for x in (means, quats, scales, opacities, viewmats, Ks))
@@ -259,6 +253,32 @@ def derive_isect_plan(
         radii, means2d, _, _, _ = fully_fused_projection(
             means, quats, scales, viewmats, Ks, width, height, opacities=opacities,
             **proj_kwargs)
+    return footprint_plan(means2d, radii, width, height, tile_size, max_tiles_per_gauss,
+                          headroom, big_budget, dense_factor)
+
+
+@torch.no_grad()
+def footprint_plan(
+    means2d: torch.Tensor,  # [..., N, 2]
+    radii: torch.Tensor,  # [..., N, 2]
+    width: int,
+    height: int,
+    tile_size: int = 16,
+    max_tiles_per_gauss: int = 32,
+    headroom: float = 1.1,
+    big_budget: int = 8192,
+    dense_factor: int = 3,
+) -> dict:
+    """The packed tiling's expansion plan from projected footprints:
+    ``isect_capacity`` (``headroom`` times the capped count, rounded up to
+    4096), ``max_tiles_per_gauss`` (the largest footprint, at most the cap),
+    and ``isect_split_k`` / ``isect_big_capacity``: the smallest candidate
+    split whose big gaussians fit ``big_budget``, taken only where the
+    dense expansion's rows exceed the split's by ``dense_factor``/2. Two
+    more keys are not rasterization options: ``footprint_kmax`` (a plan
+    whose cap is below it clips the biggest splats' coverage; callers
+    needing full coverage take ``isect_exact`` instead) and
+    ``full_isect_demand``. Waits for the device once."""
     tiles = _tiles_full(means2d, radii, tile_size, math.ceil(width / tile_size),
                         math.ceil(height / tile_size))[2].reshape(-1).to(torch.int64)
     stats = torch.stack(

@@ -536,7 +536,9 @@ def rasterization_2dgs(
     it by alpha after the render, and "RGB+ED"/"RGB+D" also return the
     normals of that depth map (``depth_mode="median"``: of the median
     depth). ``means2d_offset`` and ``means2d_abs_tap`` are the screen-space
-    taps of :func:`rasterization`. The reference's drop-in ``eps2d``,
+    taps of :func:`rasterization`. On the ``"packed"`` path the entries
+    past a tile's ``tile_capacity`` cut count in ``n_dropped`` too, as the
+    eval3d path counts them. The reference's drop-in ``eps2d``,
     ``packed`` and ``sparse_grad`` are accepted and ignored (its own 2DGS
     projection never reads eps2d); ``absgrad=True`` needs
     ``means2d_abs_tap``, as in :func:`rasterization`."""
@@ -568,44 +570,51 @@ def rasterization_2dgs(
     if viewmats.shape != batch_dims + (C, 4, 4) or Ks.shape != batch_dims + (C, 3, 3):
         raise ValueError(f"viewmats {viewmats.shape} / Ks {Ks.shape}")
 
-    radii, means2d, depths, ray_transforms, normals = fully_fused_projection_2dgs(
-        means, quats, scales, viewmats, Ks, width, height,
-        near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
-    )
+    with span("project"):
+        radii, means2d, depths, ray_transforms, normals = fully_fused_projection_2dgs(
+            means, quats, scales, viewmats, Ks, width, height,
+            near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+        )
     if means2d_offset is not None:
         if tuple(means2d_offset.shape) != tuple(means2d.shape):
             raise ValueError(f"means2d_offset {tuple(means2d_offset.shape)} for "
                              f"means2d {tuple(means2d.shape)}")
         means2d = means2d + means2d_offset
     opacities_cn = opacities[..., None, :].expand(batch_dims + (C, N))
-    colors_cn = _colors_per_camera(colors, sh_degree, means, viewmats, radii)
-
-    # the depth channel, when asked for (it also feeds distortion and median)
-    need_depth = distloss or render_mode in ("D", "ED", "RGB+D", "RGB+ED")
-    if need_depth and render_mode not in ("D", "ED"):
-        colors_cn, backgrounds = with_depth_channel(colors_cn, depths, backgrounds, "RGB+D")
-    else:
-        colors_cn, backgrounds = with_depth_channel(colors_cn, depths, backgrounds, render_mode)
+    with span("sh"):
+        colors_cn = _colors_per_camera(colors, sh_degree, means, viewmats, radii)
+        # the depth channel, when asked for (it also feeds distortion and median)
+        need_depth = distloss or render_mode in ("D", "ED", "RGB+D", "RGB+ED")
+        colors_cn, backgrounds = with_depth_channel(
+            colors_cn, depths, backgrounds,
+            "RGB+D" if need_depth and render_mode not in ("D", "ED") else render_mode)
 
     dense = rasterizer == "jax"
-    isect, offsets, tile_meta = tile_stream(
-        means2d, radii, depths, tile_size, width, height, dense,
-        default_isect_capacity(I, N) if dense and isect_capacity is None else isect_capacity,
-        max_tiles_per_gauss, isect_exact=isect_exact, isect_exact_depth=isect_exact_depth,
-        isect_split_k=isect_split_k, isect_big_capacity=isect_big_capacity)
+    with span("tile_sort"):
+        isect, offsets, tile_meta = tile_stream(
+            means2d, radii, depths, tile_size, width, height, dense,
+            default_isect_capacity(I, N) if dense and isect_capacity is None else isect_capacity,
+            max_tiles_per_gauss, isect_exact=isect_exact, isect_exact_depth=isect_exact_depth,
+            isect_split_k=isect_split_k, isect_big_capacity=isect_big_capacity,
+            tile_keep=(max_entries_per_tile(tile_capacity) if rasterizer == "packed"
+                       else None))
     abs_dummy = None if means2d_abs_tap is None else means2d_abs_tap.reshape(I * N, 2)
-    (render_colors, render_alphas, render_normals_cam, render_distort,
-     render_median) = rasterize_surfels(
-        rasterizer, means2d, ray_transforms, colors_cn, normals, opacities_cn, width,
-        height, tile_size, offsets, isect, backgrounds, tile_capacity, need_depth,
-        distloss or need_depth, abs_dummy)
-    render_colors = expected_depth(render_colors, render_alphas, render_mode)
-    camtoworlds = torch.linalg.inv(viewmats)
-    render_normals_from_depth = None
-    if render_mode in ("RGB+ED", "RGB+D"):
-        depth_for_normal = (render_colors[..., -1:] if depth_mode == "expected"
-                            else render_median)
-        render_normals_from_depth = depth_to_normal(depth_for_normal, camtoworlds, Ks)
+    with span("composite"):
+        (render_colors, render_alphas, render_normals_cam, render_distort,
+         render_median) = rasterize_surfels(
+            rasterizer, means2d, ray_transforms, colors_cn, normals, opacities_cn, width,
+            height, tile_size, offsets, isect, backgrounds, tile_capacity, need_depth,
+            distloss or need_depth, abs_dummy)
+        render_colors = expected_depth(render_colors, render_alphas, render_mode)
+        camtoworlds = torch.linalg.inv(viewmats)
+        render_normals_from_depth = None
+        if render_mode in ("RGB+ED", "RGB+D"):
+            depth_for_normal = (render_colors[..., -1:] if depth_mode == "expected"
+                                else render_median)
+            with span("depth_normal"):
+                render_normals_from_depth = depth_to_normal(depth_for_normal, camtoworlds, Ks)
+        # normals to the world frame, in true float32
+        render_normals = rotate(camtoworlds[..., :3, :3], render_normals_cam)
 
     meta = {
         "radii": radii,
@@ -628,8 +637,6 @@ def rasterization_2dgs(
         "n_cameras": C,
         "render_distort": render_distort,
     }
-    # normals to the world frame, in true float32
-    render_normals = rotate(camtoworlds[..., :3, :3], render_normals_cam)
     return (render_colors, render_alphas, render_normals, render_normals_from_depth,
             render_distort, render_median, meta)
 

@@ -3,7 +3,11 @@
 gradients per gaussian, then every ``refine_every`` steps duplicate, split
 and prune into the dead rows of the capacity, and reset opacities every
 ``reset_every`` steps. The trainer hands in the screen-space gradient from
-its ``means2d_offset`` tap (or the AbsGS tap)."""
+its ``means2d_offset`` tap (or the AbsGS tap). From ``refine_stop_iter`` on
+the strategy does nothing, as gsplat's ``step_post_backward`` returns at
+once there: no refine, no opacity reset, and no screen-gradient state to
+accumulate (``reads_grads``). The JAX package keeps resetting past the
+stop."""
 
 from __future__ import annotations
 
@@ -120,7 +124,12 @@ class DefaultStrategy(Strategy):
         )
 
     def _resets(self, step: int) -> bool:
-        return step % self.reset_every == 0 and step > 0
+        return step % self.reset_every == 0 and 0 < step < self.refine_stop_iter
+
+    def reads_grads(self, step: int) -> bool:
+        """Does the strategy read the screen-space gradients of ``step``?
+        Up to its stop: the trainer taps and accumulates them only then."""
+        return step < self.refine_stop_iter
 
     def acts_at(self, step: int) -> bool:
         """Does ``step_post_backward`` change anything at ``step`` (a refine

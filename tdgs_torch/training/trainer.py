@@ -580,7 +580,8 @@ class Runner:
         """One step: render, loss, gradients, selective Adam. Updates the
         splats and moments; returns (loss tensor, aux) with aux["radii"],
         aux["visibility"] and aux["v_means2d"] (None without the
-        DefaultStrategy). ``use_seg``/``use_spatial`` add the segmentation
+        DefaultStrategy, or past its stop: ``reads_grads``).
+        ``use_seg``/``use_spatial`` add the segmentation
         step's CGC loss (``batch["instance_mask"]``) and spatial
         regularizer (see ``_seg_step``); the loss returned includes their
         terms, which aux["seg_terms"] holds, and with ``seg_quality``
@@ -612,8 +613,10 @@ class Runner:
                                        device=dev).expand(B, 3)
         else:
             backgrounds = None
-        # eval3d renders give no screen-space gradients (means2d only tiles)
-        use_tap = isinstance(self.strategy, DefaultStrategy) and not cfg.with_eval3d
+        # eval3d renders give no screen-space gradients (means2d only tiles);
+        # past its stop the strategy reads none
+        use_tap = (isinstance(self.strategy, DefaultStrategy) and not cfg.with_eval3d
+                   and self.strategy.reads_grads(step))
         use_absgrad = use_tap and self.strategy.absgrad
 
         params = {k: v.detach().requires_grad_(True) for k, v in self.splats.items()}

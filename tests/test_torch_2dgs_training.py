@@ -9,7 +9,9 @@ tests/test_torch_rasterize_2dgs.py and ROADMAP, faults on the reference
 side). The ``jax_2dgs_fixed`` fixture hands them Mᵀ by wrapping the JAX
 projection for the test, which makes the JAX package compute what the port
 computes; ``test_reference_differs_without_the_fix`` shows the two differ
-without it.
+without it. The wrapper also hands on the unit surfel normal, as the port
+takes it: the JAX package scales it by the third scale (ROADMAP, faults on
+the reference side).
 
 Tolerances: outputs 2e-3 absolute (log-space against running-product
 transmittance), median depth equal in all but 0.5% of the pixels,
@@ -47,16 +49,25 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
+def jax_project_fixed(project):
+    """The JAX 2DGS projection as the port computes it: Mᵀ for its
+    rasterizers, and the surfel normal unscaled (the JAX package scales the
+    unit third axis by the third scale, which 2DGS does not read)."""
+
+    def fixed(means, quats, scales, *args, **kwargs):
+        radii, means2d, depths, M, normals = project(means, quats, scales, *args, **kwargs)
+        return (radii, means2d, depths, jnp.swapaxes(M, -1, -2),
+                normals / scales[..., None, :, 2:3])
+
+    return fixed
+
+
 @pytest.fixture
 def jax_2dgs_fixed(monkeypatch):
-    """The JAX package's 2DGS path with Mᵀ handed to its rasterizers."""
-    project = jproj2.fully_fused_projection_2dgs
-
-    def transposed(*args, **kwargs):
-        radii, means2d, depths, M, normals = project(*args, **kwargs)
-        return radii, means2d, depths, jnp.swapaxes(M, -1, -2), normals
-
-    monkeypatch.setattr(jproj2, "fully_fused_projection_2dgs", transposed)
+    """The JAX package's 2DGS path with Mᵀ handed to its rasterizers and
+    the unit surfel normal (``jax_project_fixed``)."""
+    monkeypatch.setattr(jproj2, "fully_fused_projection_2dgs",
+                        jax_project_fixed(jproj2.fully_fused_projection_2dgs))
 
 
 def _scene(seed, N=40, C=2, width=48, height=32):

@@ -192,14 +192,12 @@ def _mesh_shape(case):
 def results():
     """The port's ranks of every case and the JAX package's sharded render
     of every case: the port's worlds run while the JAX side compiles. The
-    JAX 2DGS path is handed Mᵀ (the port reads M's columns; ROADMAP,
-    faults on the reference side)."""
-    project = jproj2.fully_fused_projection_2dgs
+    JAX 2DGS path is handed Mᵀ (the port reads M's columns) and the unit
+    surfel normal (``jax_project_fixed``; ROADMAP, faults on the reference
+    side)."""
+    from tests.test_torch_2dgs_training import jax_project_fixed
 
-    def transposed(*args, **kwargs):
-        radii, means2d, depths, M, normals = project(*args, **kwargs)
-        return radii, means2d, depths, jnp.swapaxes(M, -1, -2), normals
-
+    transposed = jax_project_fixed(jproj2.fully_fused_projection_2dgs)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         port = pool.submit(_port_results)
         with pytest.MonkeyPatch.context() as mp:

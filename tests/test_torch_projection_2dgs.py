@@ -6,6 +6,12 @@
 Tolerances: outputs 1e-5 relative to each output's scale (radii equal);
 gradients max|Δ| ≤ 1e-4 · max|ref|, as the 3DGS projection's parity test
 holds them.
+
+The port's surfel normal is the unit third axis, t_u × t_v, as the 2DGS
+paper and gsplat's CUDA projection take it; the JAX package's is that axis
+times the third scale (ROADMAP, faults on the reference side). The tests
+divide the JAX normal by that scale (``_j_project_unit``), and
+``test_jax_normal_carries_the_third_scale`` shows the difference.
 """
 
 import numpy as np
@@ -34,9 +40,24 @@ def _surfels(seed, N=64, C=2):
     return rng, means, quats, scales, viewmats, Ks
 
 
-def test_projection_2dgs_outputs_match_jax():
+def _j_project_unit(means, quats, scales, *args, **kwargs):
+    """The JAX projection with its normal divided by the third scale."""
+    out = j_project(means, quats, scales, *args, **kwargs)
+    return out[:4] + (out[4] / scales[..., None, :, 2:3],)
+
+
+def test_jax_normal_carries_the_third_scale():
     _, means, quats, scales, viewmats, Ks = _surfels(1)
     want = j_project(*map(jnp.asarray, (means, quats, scales, viewmats, Ks)), 64, 48)
+    got = t_project(*map(torch.from_numpy, (means, quats, scales, viewmats, Ks)), 64, 48)
+    np.testing.assert_allclose(np.linalg.norm(got[4].numpy(), axis=-1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(np.asarray(want[4]), axis=-1),
+                               np.broadcast_to(scales[:, 2], want[4].shape[:-1]), rtol=1e-5)
+
+
+def test_projection_2dgs_outputs_match_jax():
+    _, means, quats, scales, viewmats, Ks = _surfels(1)
+    want = _j_project_unit(*map(jnp.asarray, (means, quats, scales, viewmats, Ks)), 64, 48)
     got = t_project(*map(torch.from_numpy, (means, quats, scales, viewmats, Ks)), 64, 48)
     assert got[0].dtype == torch.int32
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
@@ -57,7 +78,7 @@ def test_projection_2dgs_gradients_match_jax():
         return fn
 
     want, got = _jax_and_torch_grads(
-        run(j_project, jnp.asarray(viewmats), jnp.asarray(Ks)),
+        run(_j_project_unit, jnp.asarray(viewmats), jnp.asarray(Ks)),
         run(t_project, torch.from_numpy(viewmats), torch.from_numpy(Ks)),
         [means, quats, scales], weights)
     for name, g, w in zip(("means", "quats", "scales"), got, want):
