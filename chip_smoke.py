@@ -32,6 +32,7 @@ FILES = (
     "tests/test_torch_adam.py",
     "tests/test_torch_mcmc_noise.py",
     "tests/test_torch_ut_project.py",
+    "tests/test_torch_surfel_project.py",
     "tests/test_torch_trace.py",
     "tests/test_torch_3dgut_trace.py",
     "tests/test_torch_2dgs_trace.py",

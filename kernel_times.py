@@ -4,8 +4,10 @@ scene (tests/card_scenes.py) at the shapes of its render and training
 paths, kernel 1 also on the rally's scene at rest, kernels 9 and 10 also
 at the image-fitting example's, kernel 3 also on kernel 8's rows, the Adam
 kernel (11) over the trainer's six groups at 1M rows, the MCMC position
-noise (12) at 1M rows and the UT projection (13) at 1M gaussians, for the
-3DGUT cell's camera and for a distorted rolling-shutter one; then, on
+noise (12) at 1M rows, the UT projection (13) at 1M gaussians, for the
+3DGUT cell's camera and for a distorted rolling-shutter one, and the
+surfel projection's forward (14) and backward (15) at the 2DGS cell's 3M
+surfels and camera; then, on
 scenes it trains first (a few minutes), kernels 1-3 at the domino chain's
 identity render (D = 16) and kernel 1 at its rally frame (tile_capacity
 2048), kernels 1-3 at the depth path's D = 4, and kernels 4-6 at the 2DGS
@@ -40,6 +42,7 @@ from tdgs_torch.models.gaussians import create_splats
 from tdgs_torch.ops import _build
 from tdgs_torch.ops import adam as A
 from tdgs_torch.ops import mcmc_noise as N
+from tdgs_torch.ops import projection_2dgs as SP
 from tdgs_torch.ops import projection_ut as U
 from tdgs_torch.ops import rasterize_2dgs_packed as R2
 from tdgs_torch.ops import rasterize_eval3d_packed as E
@@ -439,7 +442,8 @@ def time_kernels_9_10(shape, inputs):
 
 
 # ---------------------------------------------------------------------------
-# the Adam kernel (11), the MCMC position noise (12), the UT projection (13)
+# the Adam kernel (11), the MCMC position noise (12), the UT projection (13),
+# the surfel projection (14, 15)
 # ---------------------------------------------------------------------------
 
 
@@ -507,6 +511,41 @@ def time_ut_project(shape, n=1_000_000, distorted_rolling_shutter=False):
               lambda: U.fully_fused_projection_with_ut(*args, **kw), REPS)
     b = bound(76 * n, 0)
     emit(U.KERNEL, shape, **t, **b, roofline=b["bound_ms"] / t["ms"], rows=n)
+
+
+def time_surfel_project(n=3_000_000):
+    """The surfel projection's kernels at the 2DGS cell's shape: ``n``
+    surfels of ``card_scenes.surfel_scene`` for one 1297x840 camera, the
+    backward with every cotangent; bounds by bytes (108 a row forward:
+    means, quats and scales read, radii, means2d, the depth, M and the
+    normal written; 140 backward: the inputs and the four cotangents read,
+    the three gradients written). ``plain_ms``: the chain under no_grad,
+    the plain VJP; ``chain_autograd_ms``: the chain recording its graph, and
+    that graph's backward, which the kernels replace on the trainer's
+    path."""
+    sc = C.surfel_scene(n, device=DEVICE)
+    ins = tuple(sc[k] for k in ("means", "quats", "scales", "viewmats", "Ks"))
+    size = (C.SURFEL_WIDTH, C.SURFEL_HEIGHT)
+    leaves = [t.clone().requires_grad_(True) for t in ins[:3]]
+
+    def chain():
+        return SP.surfel_projection_chain(*leaves, *ins[3:], *size)
+
+    t = times(lambda: SP.surfel_project_fwd(*ins, *size),
+              lambda: SP.surfel_projection_chain(*ins, *size), 5)
+    b = bound(108 * n, 0)
+    emit(SP.KERNEL, "2dgs_cell_3m", **t, **b, roofline=b["bound_ms"] / t["ms"],
+         chain_autograd_ms=time_ms(chain, 5), rows=n)
+    outs = chain()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    cots = [torch.randn(o.shape, generator=gen, device=DEVICE) for o in outs[1:]]
+    t = times(lambda: SP.surfel_project_bwd(*ins, *cots),
+              lambda: SP.surfel_projection_vjp_plain(*ins, *cots), 5)
+    b = bound(140 * n, 0)
+    emit(SP.KERNEL_BWD, "2dgs_cell_3m", **t, **b, roofline=b["bound_ms"] / t["ms"],
+         chain_autograd_ms=time_ms(
+             lambda: torch.autograd.grad(outs[1:], leaves, cots, retain_graph=True), 5),
+         rows=n)
 
 
 # ---------------------------------------------------------------------------
@@ -593,6 +632,7 @@ def main():
     time_mcmc_noise()
     time_ut_project("3dgut_cell_1m")
     time_ut_project("1m_distorted_rolling_shutter", distorted_rolling_shutter=True)
+    time_surfel_project()
     time_trained_shapes()
 
 

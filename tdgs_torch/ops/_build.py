@@ -29,6 +29,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
+# flags of one source beyond NVCC_FLAGS: surfel_project.cu repeats its plain
+# version's float32 operations one by one, so no product may fuse with a sum
+SOURCE_FLAGS: Dict[str, List[str]] = {"surfel_project": ["-fmad=false"]}
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {}
@@ -55,11 +58,15 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _library_path(name: str) -> Path:
     # the headers of csrc/ count too: a changed .cuh rebuilds every library
     src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -70,7 +77,7 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -1,6 +1,7 @@
 """Scenes, kernel inputs and tolerances shared by the port's card tests
 (``tests/test_torch_kernel_card.py``, ``tests/test_torch_paths_card.py``,
-``tests/test_torch_mcmc_noise.py``, ``tests/test_torch_ut_project.py``) and
+``tests/test_torch_mcmc_noise.py``, ``tests/test_torch_ut_project.py``,
+``tests/test_torch_surfel_project.py``) and
 by ``kernel_times.py``, which times the kernels at the same shapes; and the
 functions the sharded card tests' ranks run, which a spawned rank imports
 by module.
@@ -9,7 +10,7 @@ The full-size scenes: the 200k-gaussian 1080p scene of the JAX package's
 bench.py, a heavy-overlap scene whose tiles overflow a tile capacity of
 128, and the 16-domino rally scene; the trained ones: the domino chain's
 and the depth path's. Every function here but ``noise_state``,
-``ut_scene`` and ``ut_distortion`` (which take a device) puts its tensors
+``ut_scene``, ``ut_distortion`` and ``surfel_scene`` (which take a device) puts its tensors
 on the card. Like the card tests, this module imports neither JAX nor the
 JAX package.
 """
@@ -616,6 +617,18 @@ UT_FOCAL = 1100.0
 UT_GROUPS = ("regular", "behind", "near_plane", "off_image", "large", "degenerate")
 
 
+def turned_cameras(n_cams, focal, cx, cy):
+    """``n_cams`` pinhole cameras (numpy): the first at the origin looking
+    down +z, the others turned 6° and -9° about y and moved a little."""
+    viewmats = np.tile(np.eye(4), (n_cams, 1, 1))
+    for i, (deg, shift) in enumerate(((6.0, (0.3, -0.1, 0.2)), (-9.0, (-0.4, 0.2, -0.3)))
+                                     [:n_cams - 1], start=1):
+        a = np.deg2rad(deg)
+        viewmats[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        viewmats[i, :3, 3] = shift
+    return viewmats, np.tile([[focal, 0, cx], [0, focal, cy], [0, 0, 1]], (n_cams, 1, 1))
+
+
 def ut_scene(n, n_cams=1, seed=0, device="cpu"):
     """``n`` gaussians for ``n_cams`` 1236x822 pinhole cameras (f = 1100;
     the first at the origin looking down +z, the others turned 6° and -9°
@@ -656,13 +669,7 @@ def ut_scene(n, n_cams=1, seed=0, device="cpu"):
     low = rng.random(n) < 0.03
     opacities[low] = rng.uniform(0.0, 0.004, low.sum())
 
-    viewmats = np.tile(np.eye(4), (n_cams, 1, 1))
-    for i, (deg, shift) in enumerate(((6.0, (0.3, -0.1, 0.2)), (-9.0, (-0.4, 0.2, -0.3)))
-                                     [:n_cams - 1], start=1):
-        a = np.deg2rad(deg)
-        viewmats[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
-        viewmats[i, :3, 3] = shift
-    Ks = np.tile([[UT_FOCAL, 0, cx], [0, UT_FOCAL, cy], [0, 0, 1]], (n_cams, 1, 1))
+    viewmats, Ks = turned_cameras(n_cams, UT_FOCAL, cx, cy)
     out = dict(means=means, quats=quats, scales=scales, opacities=opacities,
                viewmats=viewmats, Ks=Ks)
     out = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in out.items()}
@@ -681,6 +688,62 @@ def ut_distortion(n_cams, terms=("radial", "tangential", "thin_prism"), fisheye=
     return {f"{t}_coeffs": torch.tensor([coeffs[t][:4] if fisheye else coeffs[t]] * n_cams,
                                         dtype=torch.float32, device=device)
             for t in terms}
+
+
+# ---------------------------------------------------------------------------
+# the surfel projection's kernels: their scene and cameras
+# ---------------------------------------------------------------------------
+
+SURFEL_WIDTH, SURFEL_HEIGHT = 1297, 840  # the 2DGS cell's image (garden at data factor 4)
+SURFEL_FOCAL = 1150.0
+SURFEL_GROUPS = UT_GROUPS + ("camera_plane",)
+
+
+def surfel_scene(n, n_cams=1, seed=0, device="cpu", dtype=torch.float32):
+    """``n`` surfels for ``n_cams`` 1297x840 pinhole cameras (f = 1150; the
+    first at the origin looking down +z, the others turned 6° and -9° and
+    moved a little), as ``fully_fused_projection_2dgs`` takes them
+    (activated scales), in groups (``group``, indexing ``SURFEL_GROUPS``):
+    75% regular (2-12 units deep, scales 0.005-0.1, over the image and 300
+    px beyond); 5% the regular rows mirrored behind the camera; 5% at the
+    near plane (depth 0.01 ± 0.004, scales 1e-4-5e-4); 5% small, 700-1000
+    px off the image; 5% large and close (scales 0.3-0.8, 0.5-6 deep, some
+    crossing the camera's plane); 2% degenerate (zero scales, or a zero
+    quaternion); 3% in the first camera's plane (depth 0, turned about the
+    view axis alone: d = 0 there). Random orientations turn the normals
+    both ways."""
+    rng = np.random.default_rng(seed)
+    cx, cy = SURFEL_WIDTH / 2, SURFEL_HEIGHT / 2
+    group = rng.choice(len(SURFEL_GROUPS), size=n, p=[0.75, 0.05, 0.05, 0.05, 0.05, 0.02, 0.03])
+    u = rng.uniform(-300, SURFEL_WIDTH + 300, n)
+    v = rng.uniform(-300, SURFEL_HEIGHT + 300, n)
+    z = rng.uniform(2.0, 12.0, n)
+    scales = np.exp(rng.uniform(np.log(0.005), np.log(0.1), (n, 3)))
+    near = group == 2
+    z[near] = 0.01 + rng.uniform(-0.004, 0.004, near.sum())
+    scales[near] = rng.uniform(1e-4, 5e-4, (near.sum(), 3))
+    off = group == 3
+    u[off] = np.where(rng.random(off.sum()) < 0.5, rng.uniform(-1000, -700, off.sum()),
+                      rng.uniform(SURFEL_WIDTH + 700, SURFEL_WIDTH + 1000, off.sum()))
+    scales[off] = rng.uniform(0.005, 0.02, (off.sum(), 3))
+    large = group == 4
+    z[large] = rng.uniform(0.5, 6.0, large.sum())
+    scales[large] = rng.uniform(0.3, 0.8, (large.sum(), 3))
+    means = np.stack([(u - cx) / SURFEL_FOCAL * z, (v - cy) / SURFEL_FOCAL * z, z], -1)
+    means[group == 1] *= -1.0
+    quats = rng.normal(size=(n, 4))
+    degenerate = np.flatnonzero(group == 5)
+    scales[degenerate[::2]] = 0.0
+    quats[degenerate[1::2]] = 0.0
+    plane = group == 6
+    means[plane, 2] = 0.0
+    quats[plane, 1:3] = 0.0
+
+    viewmats, Ks = turned_cameras(n_cams, SURFEL_FOCAL, cx, cy)
+    out = dict(means=means, quats=quats, scales=scales, viewmats=viewmats, Ks=Ks)
+    out = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in out.items()}
+    out["group"] = torch.as_tensor(group, device=device)
+    return out
 
 
 # ---------------------------------------------------------------------------

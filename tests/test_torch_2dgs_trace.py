@@ -11,8 +11,9 @@
   resetting (ROADMAP, faults on the reference side), and the test expects
   that difference. Before the stop both reset alike.
 - On the card, at the benchmark cell ``garden_2dgs.train``'s shape (3M
-  surfels at 1297x840), each step launches kernel 5 once and kernel 6
-  once (``_build.LAUNCHES``), kernel 4 not at all, and drops no entry.
+  surfels at 1297x840), each step launches kernel 5 once, kernel 6 once
+  and the surfel projection's forward and backward kernels once each
+  (``_build.LAUNCHES``), kernel 4 not at all, and drops no entry.
 """
 
 import json
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from tdgs_torch.ops import _build
+from tdgs_torch.ops import projection_2dgs as SP
 from tdgs_torch.ops import rasterize_2dgs_packed as S
 from tdgs_torch.strategy import DefaultStrategy
 from tdgs_torch.utils import profiler as P
@@ -222,3 +224,5 @@ def test_card_launches_kernels_5_and_6_once_a_step_at_the_cell_shape():
     assert _build.LAUNCHES.get(S.KERNEL_TRAIN, 0) == steps
     assert _build.LAUNCHES.get(S.KERNEL_BWD, 0) == steps
     assert _build.LAUNCHES.get(S.KERNEL_FWD, 0) == 0
+    assert _build.LAUNCHES.get(SP.KERNEL, 0) == steps
+    assert _build.LAUNCHES.get(SP.KERNEL_BWD, 0) == steps

@@ -33,6 +33,7 @@ import tdgs_torch
 from tdgs_torch.ops import _build
 from tdgs_torch.ops import adam as A
 from tdgs_torch.ops import mcmc_noise as N
+from tdgs_torch.ops import projection_2dgs as SP
 from tdgs_torch.ops import projection_ut as U
 from tdgs_torch.ops import rasterize_2dgs_packed as R2
 from tdgs_torch.ops import rasterize_eval3d_packed as E
@@ -248,7 +249,10 @@ def test_runner_on_card(rich, model, record_property):
     launches every step, the Adam kernel exactly once a step, the position
     noise once a step under MCMC and never otherwise, the eval's kernel
     once a test view, and the UT projection's kernel once a render under
-    3DGUT (each training step and test view) and never otherwise."""
+    3DGUT (each training step and test view) and never otherwise, the
+    surfel projection's forward kernel once a render (each training step
+    and each render of the eval) and its backward once a step under 2DGS
+    and never otherwise."""
     root, _ = rich
     opts, kernels, eval_kernel = RUNNERS[model]
     opts = mcmc_3dgut_options() if opts is None else opts
@@ -258,10 +262,10 @@ def test_runner_on_card(rich, model, record_property):
         _build.reset_launches()
         hist = runner.train()["history"]
         torch.cuda.synchronize()
-        launches = _launches(kernels + (A.KERNEL, N.KERNEL, U.KERNEL))
+        launches = _launches(kernels + (A.KERNEL, N.KERNEL, U.KERNEL, SP.KERNEL, SP.KERNEL_BWD))
         _build.reset_launches()
         stats = runner.eval(N_STEPS)
-        eval_launches = _launches((eval_kernel, U.KERNEL))
+        eval_launches = _launches((eval_kernel, U.KERNEL, SP.KERNEL))
         views = len(runner.valset)
         record_property("launches", launches)
         record_property("eval_launches", eval_launches)
@@ -282,6 +286,9 @@ def test_runner_on_card(rich, model, record_property):
     ut = model == "3dgut"
     assert launches[U.KERNEL] == (N_STEPS if ut else 0)
     assert eval_launches[U.KERNEL] == (views if ut else 0)
+    surfels = model == "2dgs"
+    assert launches[SP.KERNEL] == launches[SP.KERNEL_BWD] == (N_STEPS if surfels else 0)
+    assert eval_launches[SP.KERNEL] == (eval_launches[eval_kernel] if surfels else 0)
 
 
 # ---------------------------------------------------------------------------
